@@ -10,14 +10,16 @@ extruder-partner planes.  A step is, in the reference's order:
 * half kick + drift + halo refresh (``kick_drift_halo``);
 * LE events (extrusion / ex_load / ex_unload) in bead layout, then the
   post-event rebuild;
-* forces: the 27-offset LJ + FENE + exclusion stencil
-  (``stencil_forces``) and the extruder springs (``extruder_springs``),
-  energies on ``energy_every`` steps;
+* forces: the LJ + FENE + exclusion stencil that ``select_kernel``
+  picks — the full 27-offset ``stencil_forces`` up to the reference's
+  whole-plane gate, the Newton-half ``newton_half_forces``
+  (``blocked_kernel.py``) past it — and the extruder springs
+  (``extruder_springs``), energies on ``energy_every`` steps;
 * Langevin with the t ramp, the final kick, and the skin monitor whose
   per-bead look-ahead arms the next step's rebuild
   (``langevin_kick_monitor``).
 
-The four kernels are ``fast/kernels.py``; placement, events and thermo are
+The kernels are ``fast/kernels.py``; placement, events and thermo are
 plain PyTorch.  The host drives the step loop: it reads the armed skin
 trigger once per step (one device sync), everything else stays queued.
 """
@@ -39,6 +41,7 @@ from ..fixes.extrusion import make_extrusion_update
 from ..state import FLAG_NON_FINITE, State, extruder_partner
 from ..system import BOND_FENE, BOND_HARMONIC, System
 from . import kernels as K
+from .blocked_kernel import make_blocked_kernel
 from .consts import SpringConsts, StencilConsts
 from .maps import FastMaps, fast_maps
 from .place import GridConsts, ex_slots, halo_refresh_int, place
@@ -148,6 +151,42 @@ def fast_block_reason(sim) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the force stencil
+
+
+def make_kernel(system: System, maps: FastMaps, ex_btype: int):
+    """The full 27-offset stencil as ``kernel(g, gx, bid, hn, pid, energy)
+    -> (gf, energies (2,), ints (2,))`` (engine.make_kernel, engine.py:618;
+    ``ex_btype`` as there).  ``g`` is the run's GridConsts: the closure
+    holds no tensor, so one closure serves runs on any device."""
+    np_dtype = np.float32 if system.dtype == "float32" else np.float64
+    C = StencilConsts(system, np_dtype)
+
+    def kernel(g: GridConsts, gx, bid, hn, pid, energy: bool):
+        return K.stencil_forces(gx, bid, hn, pid, g.interior, C, system.n,
+                                maps.strides, energy)
+
+    return kernel
+
+
+def whole_planes_fit(maps: FastMaps) -> bool:
+    """The reference's whole-plane gate (engine.py:789): the 100k-bead
+    bench grid, cap 9 x P 33,664, is the largest whose planes its fused
+    whole-step kernel holds in a TPU's VMEM."""
+    return maps.cap * maps.P <= 9 * 33664
+
+
+def select_kernel(system: System, maps: FastMaps, ex_btype: int):
+    """The stencil of a run (engine.select_kernel, engine.py:803): the
+    Newton-half kernel past the whole-plane gate in f32, else the full
+    27-offset stencil.  The reference's LLE_FAST_PALLAS / LLE_BLOCKED
+    switches are not ported: the port adds no switch."""
+    if system.dtype == "float32" and not whole_planes_fit(maps):
+        return make_blocked_kernel(system, maps, ex_btype)
+    return make_kernel(system, maps, ex_btype)
+
+
+# ---------------------------------------------------------------------------
 # static context
 
 
@@ -156,19 +195,18 @@ class _Ctx:
     system: System
     maps: FastMaps
     g: GridConsts
-    C: StencilConsts
+    kernel: object       # the stencil (select_kernel's contract)
     S: object            # SpringConsts or None
 
 
-def _ctx(sim, device) -> _Ctx:
+def _ctx(sim, device, kernel_fn=None) -> _Ctx:
     fast_block_reason(sim)
     system = sim.system
     maps = fast_maps(system)
-    np_dtype = np.float32 if system.dtype == "float32" else np.float64
     return _Ctx(
         system=system, maps=maps,
         g=GridConsts.build(system, maps, device),
-        C=StencilConsts(system, np_dtype),
+        kernel=kernel_fn or select_kernel(system, maps, sim.ex_btype),
         S=SpringConsts(system, sim.ex_btype) if sim.ex_btype > 0 else None,
     )
 
@@ -176,9 +214,7 @@ def _ctx(sim, device) -> _Ctx:
 def _forces(ctx: _Ctx, gx, bid, hn, pid, exl, exr, active, energy: bool):
     """Stencil + extruder springs.  Returns (gf, energies (2,), ints (2,)
     = [flag bits, clamps])."""
-    system, maps = ctx.system, ctx.maps
-    gf, en, ints = K.stencil_forces(gx, bid, hn, pid, ctx.g.interior, ctx.C,
-                                    system.n, maps.strides, energy)
+    gf, en, ints = ctx.kernel(ctx.g, gx, bid, hn, pid, energy)
     if ctx.S is not None:
         eb = K.extruder_springs(gx, gf, exl, exr, active, ctx.S)
         if energy:
@@ -198,10 +234,11 @@ def extract_beads(fs: FastState, maps: FastMaps):
 # conversion
 
 
-def to_fast(state: State, sim) -> FastState:
+def to_fast(state: State, sim, kernel_fn=None) -> FastState:
     """Bead-layout State -> grid residency, with initial forces and
-    energies (engine.to_fast, the Verlet::setup analog)."""
-    ctx = _ctx(sim, state.x.device)
+    energies (engine.to_fast, the Verlet::setup analog).  ``kernel_fn``:
+    the stencil, as make_fast_segment's."""
+    ctx = _ctx(sim, state.x.device, kernel_fn)
     system = ctx.system
     (gx, gv, _, bid, hn, pid, slot_of, exl, exr, _, img, overflow) = place(
         system, ctx.maps, ctx.g, state.x, state.v, state.f, state.ex_left,
@@ -255,11 +292,13 @@ def thermo_row_fast(fs: FastState, system: System) -> ThermoSample:
 # the step
 
 
-def make_fast_segment(sim, device):
+def make_fast_segment(sim, device, kernel_fn=None):
     """Build ``segment(fs, step0, length, run_begin, run_end) -> fs``
     advancing ``length`` steps in place (the reactive XLA-chain semantics
-    of engine.make_fast_segment, engine.py:1102-1455)."""
-    ctx = _ctx(sim, device)
+    of engine.make_fast_segment, engine.py:1102-1455).  ``kernel_fn``: a
+    caller's stencil with select_kernel's contract (engine.py:1130-1132),
+    else select_kernel's."""
+    ctx = _ctx(sim, device, kernel_fn)
     system, maps, g = ctx.system, ctx.maps, ctx.g
     n = system.n
     cap, P = maps.cap, maps.P
@@ -407,12 +446,12 @@ def make_fast_segment(sim, device):
     return segment
 
 
-def run_fast(sim, state: State, nsteps: int) -> State:
+def run_fast(sim, state: State, nsteps: int, kernel_fn=None) -> State:
     """Drive ``nsteps`` on the fast engine as one run (engine.run_fast,
     without its thermo rows: ``thermo_row_fast`` reads them from a
-    FastState)."""
-    segment = make_fast_segment(sim, state.x.device)
-    fs = to_fast(state, sim)
+    FastState).  ``kernel_fn`` as make_fast_segment's."""
+    segment = make_fast_segment(sim, state.x.device, kernel_fn)
+    fs = to_fast(state, sim, kernel_fn)
     begin = fs.step
     segment(fs, begin, nsteps, begin, begin + nsteps)
     return from_fast(fs, sim.system)

@@ -1,4 +1,5 @@
-"""Wrappers of the four Hopper kernels of the LE step (``csrc/step.cu``).
+"""Wrappers of the Hopper kernels of the LE step (``csrc/step.cu``,
+``csrc/blocked.cu``).
 
 Each wrapper takes the tensors of the plain version in ``kernels_ref.py``
 and returns the same results.  On CPU tensors it runs the plain version;
@@ -13,6 +14,7 @@ kick_drift_halo        pallas_step.py:731-751 (K2a)
 stencil_forces         pallas_step.py:249-510, 753-774 (K1 / K2b)
 extruder_springs       pallas_step.py:776-930 (K2c)
 langevin_kick_monitor  pallas_step.py:932-1000 (K2d + K2e)
+newton_half_forces     blocked_kernel.py:90 (K3), body K1
 =====================  ==================================================
 """
 
@@ -26,9 +28,10 @@ from ..ops.grid import _OFFSETS
 from . import kernels_ref as ref
 
 LAUNCHES = {"kick_drift_halo": 0, "stencil_forces": 0,
-            "extruder_springs": 0, "langevin_kick_monitor": 0}
+            "extruder_springs": 0, "langevin_kick_monitor": 0,
+            "newton_half_forces": 0}
 
-_LIB = None
+_LIBS = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -53,6 +56,10 @@ class SpringArgs(ctypes.Structure):
                 + [(k, _I) for k in ("harmonic", "E", "cap", "P")])
 
 
+class FoldArgs(ctypes.Structure):
+    _fields_ = [("shift", (_I * 2) * 3)]
+
+
 class LangevinArgs(ctypes.Structure):
     _fields_ = ([(k, ctypes.c_uint32) for k in ("k0", "k1", "base")]
                 + [(k, _F) for k in ("gamma1", "gamma2", "kick", "dt",
@@ -60,13 +67,15 @@ class LangevinArgs(ctypes.Structure):
                 + [(k, _I) for k in ("langevin", "cap", "P", "n")])
 
 
-def _lib():
-    """The built library with every entry point's argtypes set."""
-    global _LIB
-    if _LIB is None:
+def _lib(name="step"):
+    """The built library ``name`` (``csrc/<name>.cu``), every entry
+    point's argtypes set; the first call builds all of them."""
+    global _LIBS
+    if _LIBS is None:
         from ..csrc.build import build
 
-        lib = ctypes.CDLL(str(build()))
+        paths = build()
+        lib = ctypes.CDLL(str(paths["step"]))
         lib.lle_blocks.argtypes = [ctypes.c_long]
         lib.lle_blocks.restype = _I
         lib.lle_kick_drift_halo.argtypes = (
@@ -75,11 +84,16 @@ def _lib():
         lib.lle_extruder_springs.argtypes = [_P] * 6 + [SpringArgs, _P]
         lib.lle_langevin_kick_monitor.argtypes = (
             [_P] * 10 + [LangevinArgs, _P])
-        for name in ("lle_kick_drift_halo", "lle_stencil_forces",
-                     "lle_extruder_springs", "lle_langevin_kick_monitor"):
-            getattr(lib, name).restype = _I
-        _LIB = lib
-    return _LIB
+        for fn in ("lle_kick_drift_halo", "lle_stencil_forces",
+                   "lle_extruder_springs", "lle_langevin_kick_monitor"):
+            getattr(lib, fn).restype = _I
+        blk = ctypes.CDLL(str(paths["blocked"]))
+        blk.lle_newton_max_cap.restype = _I
+        blk.lle_newton_half_forces.argtypes = (
+            [_P] * 12 + [StencilArgs, FoldArgs, _P])
+        blk.lle_newton_half_forces.restype = _I
+        _LIBS = {"step": lib, "blocked": blk}
+    return _LIBS[name]
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -147,9 +161,33 @@ def kick_drift_halo(gx, gv, gf, bid, interior, halo_cols, halo_src,
     return gx_out, gv_out
 
 
-def _deltas(strides):
+def _stencil_args(C, n, strides, offsets, energy, cap, P):
     sx, sy, sz = strides
-    return [a * sx + b * sy + c * sz for (a, b, c) in _OFFSETS]
+    deltas = [a * sx + b * sy + c * sz for (a, b, c) in offsets]
+    return StencilArgs(
+        C.lj1, C.lj2, C.lj3, C.lj4, C.cutsq, C.offe, C.floorsq, C.inv_r0sq,
+        C.neg_kf, C.sigf_sq, C.wca_cutsq, C.wca_floorsq, C.f_wca, C.e_wca,
+        C.epsf, C.e_fene, C.bond_reach_sq, int(C.kf != 0.0),
+        int(C.wca_is_lj), int(energy), cap, P, n,
+        (_I * 27)(*deltas))  # unused slots stay 0
+
+
+def _stencil_outputs(gx, nblk):
+    """gf, per-block tally partials, energies (2,), ints (2,)."""
+    dev = gx.device
+    return (torch.empty_like(gx),
+            torch.empty(2 * nblk, dtype=torch.float32, device=dev),
+            torch.empty(3 * nblk, dtype=torch.int32, device=dev),
+            torch.empty(2, dtype=torch.float32, device=dev),
+            torch.empty(2, dtype=torch.int64, device=dev))
+
+
+def _stencil_inputs(gx, bid, hn, pid, interior):
+    cap, P = _planes(gx, bid)
+    _check("hn", hn, torch.bool, (cap, P))
+    _check("pid", pid, torch.int32, (cap, P))
+    _check("interior", interior, torch.bool, (P,))
+    return cap, P
 
 
 def stencil_forces(gx, bid, hn, pid, interior, C, n: int, strides,
@@ -159,28 +197,47 @@ def stencil_forces(gx, bid, hn, pid, interior, C, n: int, strides,
     if _on_cpu(gx):
         return ref.stencil_forces(gx, bid, hn, pid, interior, C, n, strides,
                                   energy)
-    cap, P = _planes(gx, bid)
-    _check("hn", hn, torch.bool, (cap, P))
-    _check("pid", pid, torch.int32, (cap, P))
-    _check("interior", interior, torch.bool, (P,))
+    cap, P = _stencil_inputs(gx, bid, hn, pid, interior)
     lib = _lib()
-    nblk = lib.lle_blocks(cap * P)
-    gf = torch.empty_like(gx)
-    fpart = torch.empty(2 * nblk, dtype=torch.float32, device=gx.device)
-    ipart = torch.empty(3 * nblk, dtype=torch.int32, device=gx.device)
-    en = torch.empty(2, dtype=torch.float32, device=gx.device)
-    ints = torch.empty(2, dtype=torch.int64, device=gx.device)
-    a = StencilArgs(
-        C.lj1, C.lj2, C.lj3, C.lj4, C.cutsq, C.offe, C.floorsq, C.inv_r0sq,
-        C.neg_kf, C.sigf_sq, C.wca_cutsq, C.wca_floorsq, C.f_wca, C.e_wca,
-        C.epsf, C.e_fene, C.bond_reach_sq, int(C.kf != 0.0),
-        int(C.wca_is_lj), int(energy), cap, P, n,
-        (_I * 27)(*_deltas(strides)))
+    gf, fpart, ipart, en, ints = _stencil_outputs(gx, lib.lle_blocks(cap * P))
+    a = _stencil_args(C, n, strides, _OFFSETS, energy, cap, P)
     err = lib.lle_stencil_forces(
         _ptr(gx), _ptr(bid), _ptr(hn), _ptr(pid), _ptr(interior), _ptr(gf),
         _ptr(fpart), _ptr(ipart), _ptr(en), _ptr(ints), a, _stream())
     _raise("stencil_forces", err)
     LAUNCHES["stencil_forces"] += 1
+    return gf, en, ints
+
+
+def newton_half_forces(gx, bid, hn, pid, interior, faces, C, n: int,
+                       strides, fold_shifts, energy: bool):
+    """Newton-half LJ + FENE + exclusion forces with the ghost fold (the
+    blocked kernel's function, kernels_ref.newton_half_forces).  Returns
+    what ``stencil_forces`` returns.  Deterministic: no atomics."""
+    if _on_cpu(gx):
+        return ref.newton_half_forces(gx, bid, hn, pid, interior, faces, C,
+                                      n, strides, fold_shifts, energy)
+    cap, P = _stencil_inputs(gx, bid, hn, pid, interior)
+    _check("faces", faces, torch.bool, (6, P))
+    blk = _lib("blocked")
+    if cap > blk.lle_newton_max_cap():
+        raise ValueError(f"newton_half_forces: cell cap {cap} is past the "
+                         f"{blk.lle_newton_max_cap()} rows the kernel is "
+                         f"built for")
+    gf, fpart, ipart, en, ints = _stencil_outputs(gx, _lib().lle_blocks(P))
+    # own forces + 13 reaction buffers, then the fold's ping-pong planes
+    work = torch.empty((len(ref.HALF_OFFSETS), 3, cap, P),
+                       dtype=torch.float32, device=gx.device)
+    a = _stencil_args(C, n, strides, ref.HALF_OFFSETS, energy, cap, P)
+    f = FoldArgs()
+    for axis, (lo, hi) in enumerate(fold_shifts):
+        f.shift[axis][0], f.shift[axis][1] = lo, hi
+    err = blk.lle_newton_half_forces(
+        _ptr(gx), _ptr(bid), _ptr(hn), _ptr(pid), _ptr(interior),
+        _ptr(faces), _ptr(work), _ptr(gf), _ptr(fpart), _ptr(ipart),
+        _ptr(en), _ptr(ints), a, f, _stream())
+    _raise("newton_half_forces", err)
+    LAUNCHES["newton_half_forces"] += 1
     return gf, en, ints
 
 

@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the four step kernels.
+"""Plain PyTorch versions of the step kernels.
 
 They follow the reference's XLA chain op for op (engine.make_kernel
 engine.py:618-786, make_extruder_pass 838-899 and the reactive ``step``
-1348-1455), with exact division, in any float type.  On CPU tensors the
+1348-1455), and the blocked Newton-half stencil (blocked_kernel.py:90),
+with exact division, in any float type.  On CPU tensors the
 wrappers in ``kernels.py`` run these; on the card ``chip_smoke.py`` holds
 each CUDA kernel against them.
 """
@@ -46,6 +47,84 @@ def _shift_minor(a, delta: int, fill):
     return torch.cat([pad, a[..., :delta]], dim=-1)
 
 
+def _pair_terms(C, i, j, w_i, energy: bool):
+    """LJ + FENE + exclusion terms of broadcast (i, j) slot pairs
+    (engine.make_kernel engine.py:683-756, make_offset_loop
+    pallas_step.py:343-444).  ``i`` = (x, y, z, bid, u1, pid), ``j`` =
+    (x, y, z, bid, u1); ``w_i`` is the i side's weight.
+
+    Returns (dx, dy, dz, ffac, el, w_b, w_cl, eb): the force on i is
+    ``d * ffac``; ``el`` the weighted LJ pair energies, ``w_b``/``w_cl``
+    the weighted bond sightings / FENE clamps and ``eb`` the bond energies
+    (to weigh by ``w_b``), each None where it does not apply."""
+    xi, yi, zi, bi, u1i, pi = i
+    xj, yj, zj, bj, u1j = j
+    zero = torch.zeros((), dtype=xi.dtype, device=xi.device)
+    one = torch.ones((), dtype=xi.dtype, device=xi.device)
+    dx = xi - xj
+    dy = yi - yj
+    dz = zi - zj
+    rsq = dx * dx + dy * dy + dz * dz
+    nz_pair = rsq > 0.0
+    bonded = (bj == u1i) | (bi == u1j)
+    in_cut = rsq < C.cutsq
+    if C.kf != 0.0:
+        w_b_m = bonded & (rsq < C.bond_reach_sq)
+    lj_ok = (in_cut & nz_pair) & (~bonded) & (bj != pi)
+    if C.wca_is_lj:
+        pair_ok = lj_ok | (w_b_m & (rsq < C.wca_cutsq))
+        rsq_den = torch.clamp(torch.where(pair_ok, rsq, one), min=C.floorsq)
+        w12 = torch.where(pair_ok, w_i, zero)
+    else:
+        rsq_den = torch.where(
+            bonded & nz_pair,
+            torch.clamp(rsq, min=C.wca_floorsq),
+            torch.clamp(torch.where(in_cut & nz_pair, rsq, one),
+                        min=C.floorsq))
+        w12 = torch.where(lj_ok, w_i, zero)
+    r2 = 1.0 / rsq_den
+    r6 = r2 * r2 * r2
+    ffac = r6 * (C.lj1 * r6 - C.lj2) * r2 * w12
+    el = w_b = w_cl = eb = None
+    if C.kf != 0.0:
+        w_b = torch.where(w_b_m, w_i, zero)
+        rsq_b = torch.where(bonded, rsq, one)
+        rlog = 1.0 - rsq_b * C.inv_r0sq
+        cl = rlog < 0.1
+        rlog = torch.clamp(rlog, min=0.1)
+        fb = C.neg_kf / rlog
+        sr2 = C.sigf_sq * r2
+        sr6 = sr2 * sr2 * sr2
+        wca = rsq_b < C.wca_cutsq
+        if not C.wca_is_lj:
+            fb = fb + torch.where(
+                wca, C.f_wca * sr6 * (sr6 - 0.5) * r2, zero)
+        ffac = ffac + fb * w_b
+        w_cl = torch.where(cl, w_b, zero)
+        if energy:
+            eb = C.e_fene * torch.log(rlog) + torch.where(
+                wca, C.e_wca * sr6 * (sr6 - 1.0) + C.epsf, zero)
+    if energy:
+        w_lj = torch.where(lj_ok, w_i, zero) if C.wca_is_lj else w12
+        el = (r6 * (C.lj3 * r6 - C.lj4) - C.offe) * w_lj
+    return dx, dy, dz, ffac, el, w_b, w_cl, eb
+
+
+def _tallies(e_lj, e_b, nb_found, n_clamp, valid, hn):
+    """Energies, flag bits and clamp count from the weighted pair sums
+    (engine.py:759-783): every pair is counted twice (both sides, or
+    weight 2), so energies and clamps are halved; fewer bond sightings
+    than two per interior link = a bond out of the stencil's reach."""
+    dtype = e_lj.dtype
+    n_links = torch.sum(valid & hn).to(dtype)
+    reach = (0.5 * nb_found < n_links - 0.5).to(torch.int64)
+    clamps = (0.5 * n_clamp).to(torch.int64)
+    flags = reach * FLAG_BOND_REACH + (clamps > 0).to(torch.int64) \
+        * FLAG_FENE_CLAMP
+    return (torch.stack([0.5 * e_lj, 0.5 * e_b]),
+            torch.stack([flags, clamps]))
+
+
 def stencil_forces(gx, bid, hn, pid, interior, C, n: int, strides,
                    energy: bool):
     """Full 27-offset LJ + FENE + exclusion stencil (engine.make_kernel).
@@ -59,85 +138,94 @@ def stencil_forces(gx, bid, hn, pid, interior, C, n: int, strides,
     X, Y, Z = gx[0], gx[1], gx[2]
     int_i = interior[None, None, :].to(dtype)
     zero = torch.zeros((), dtype=dtype, device=gx.device)
-    one = torch.ones((), dtype=dtype, device=gx.device)
     u1 = torch.where(hn, bid + 1, n + 2)
-    xi, yi, zi = X[:, None, :], Y[:, None, :], Z[:, None, :]
-    bi, u1i, pi = bid[:, None, :], u1[:, None, :], pid[:, None, :]
+    i = (X[:, None, :], Y[:, None, :], Z[:, None, :], bid[:, None, :],
+         u1[:, None, :], pid[:, None, :])
     fx = torch.zeros((cap, P), dtype=dtype, device=gx.device)
     fy = torch.zeros_like(fx)
     fz = torch.zeros_like(fx)
-    e_lj = zero
-    e_b = zero
-    nb_found = zero
-    n_clamp = zero
+    e_lj = e_b = nb_found = n_clamp = zero
     for (a, b, c) in _OFFSETS:
         delta = a * sx + b * sy + c * sz
-        xj = _shift_minor(X, delta, _FAR)[None]
-        yj = _shift_minor(Y, delta, _FAR)[None]
-        zj = _shift_minor(Z, delta, _FAR)[None]
-        bj = _shift_minor(bid, delta, n)[None]
-        u1j = _shift_minor(u1, delta, n + 2)[None]
-        dx = xi - xj
-        dy = yi - yj
-        dz = zi - zj
-        rsq = dx * dx + dy * dy + dz * dz
-        nz_pair = rsq > 0.0
-        bonded = (bj == u1i) | (bi == u1j)
-        in_cut = rsq < C.cutsq
-        if C.kf != 0.0:
-            w_b_m = bonded & (rsq < C.bond_reach_sq)
-        lj_ok = (in_cut & nz_pair) & (~bonded) & (bj != pi)
-        if C.wca_is_lj:
-            pair_ok = lj_ok | (w_b_m & (rsq < C.wca_cutsq))
-            rsq_den = torch.clamp(torch.where(pair_ok, rsq, one),
-                                  min=C.floorsq)
-            w12 = torch.where(pair_ok, int_i, zero)
-        else:
-            rsq_den = torch.where(
-                bonded & nz_pair,
-                torch.clamp(rsq, min=C.wca_floorsq),
-                torch.clamp(torch.where(in_cut & nz_pair, rsq, one),
-                            min=C.floorsq))
-            w12 = torch.where(lj_ok, int_i, zero)
-        r2 = 1.0 / rsq_den
-        r6 = r2 * r2 * r2
-        ffac = r6 * (C.lj1 * r6 - C.lj2) * r2 * w12
-        if C.kf != 0.0:
-            w_b = torch.where(w_b_m, int_i, zero)
-            rsq_b = torch.where(bonded, rsq, one)
-            rlog = 1.0 - rsq_b * C.inv_r0sq
-            cl = rlog < 0.1
-            rlog = torch.clamp(rlog, min=0.1)
-            fb = C.neg_kf / rlog
-            sr2 = C.sigf_sq * r2
-            sr6 = sr2 * sr2 * sr2
-            wca = rsq_b < C.wca_cutsq
-            if not C.wca_is_lj:
-                fb = fb + torch.where(
-                    wca, C.f_wca * sr6 * (sr6 - 0.5) * r2, zero)
-            ffac = ffac + fb * w_b
+        j = tuple(_shift_minor(p, delta, fill)[None] for p, fill in (
+            (X, _FAR), (Y, _FAR), (Z, _FAR), (bid, n), (u1, n + 2)))
+        dx, dy, dz, ffac, el, w_b, w_cl, eb = _pair_terms(C, i, j, int_i,
+                                                          energy)
+        if w_b is not None:
             nb_found = nb_found + torch.sum(w_b)
-            n_clamp = n_clamp + torch.sum(torch.where(cl, w_b, zero))
+            n_clamp = n_clamp + torch.sum(w_cl)
             if energy:
-                eb = C.e_fene * torch.log(rlog) + torch.where(
-                    wca, C.e_wca * sr6 * (sr6 - 1.0) + C.epsf, zero)
-                e_b = e_b + 0.5 * torch.sum(eb * w_b)
+                e_b = e_b + torch.sum(eb * w_b)
         fx = fx + torch.sum(dx * ffac, dim=1)
         fy = fy + torch.sum(dy * ffac, dim=1)
         fz = fz + torch.sum(dz * ffac, dim=1)
         if energy:
-            w_lj = torch.where(lj_ok, int_i, zero) if C.wca_is_lj else w12
-            el = (r6 * (C.lj3 * r6 - C.lj4) - C.offe) * w_lj
-            e_lj = e_lj + 0.5 * torch.sum(el)
-    gf = torch.stack([fx, fy, fz])
-    # each backbone bond is seen twice (both directions) by the full
-    # stencil; fewer sightings than interior links = a bond out of reach
-    n_links = torch.sum(valid_mask(bid, interior, n) & hn).to(dtype)
-    reach = (0.5 * nb_found < n_links - 0.5).to(torch.int64)
-    clamps = (0.5 * n_clamp).to(torch.int64)
-    flags = reach * FLAG_BOND_REACH + (clamps > 0).to(torch.int64) \
-        * FLAG_FENE_CLAMP
-    return gf, torch.stack([e_lj, e_b]), torch.stack([flags, clamps])
+            e_lj = e_lj + torch.sum(el)
+    en, ints = _tallies(e_lj, e_b, nb_found, n_clamp,
+                        valid_mask(bid, interior, n), hn)
+    return torch.stack([fx, fy, fz]), en, ints
+
+
+# the self cell, then the 13 forward offsets o > (0, 0, 0)
+# (blocked_kernel.py:108)
+HALF_OFFSETS = [(0, 0, 0)] + [o for o in _OFFSETS if o > (0, 0, 0)]
+
+
+def newton_half_forces(gx, bid, hn, pid, interior, faces, C, n: int,
+                       strides, fold_shifts, energy: bool):
+    """The Newton-half stencil of the blocked kernel (make_blocked_kernel
+    blocked_kernel.py:90, body make_offset_loop pallas_step.py:300-510)
+    over the whole grid, then the ghost fold.  ``faces`` (6, P) and
+    ``fold_shifts`` are FastMaps' fold constants.
+
+    Only valid slots (a bead in an interior column) act as i.  The self
+    cell sees both pair orders at energy weight 1 with no reaction; each
+    forward offset d sees a pair once, at weight 2, and subtracts its
+    reaction from the j slot at column (c + d) mod P — circular over P, as
+    the reference's rolls are.  The reactions that land on ghost columns
+    then fold onto the interior cells they image, z -> y -> x
+    (blocked_kernel.py:261-269, comm_brick.cpp:519 reverse_comm), leaving
+    ghost columns zero.  Returns what ``stencil_forces`` returns."""
+    dtype = gx.dtype
+    cap, P = bid.shape
+    sx, sy, sz = strides
+    X, Y, Z = gx[0], gx[1], gx[2]
+    valid = valid_mask(bid, interior, n)
+    w_i = valid[:, None, :].to(dtype)
+    zero = torch.zeros((), dtype=dtype, device=gx.device)
+    u1 = torch.where(hn, bid + 1, n + 2)
+    i = (X[:, None, :], Y[:, None, :], Z[:, None, :], bid[:, None, :],
+         u1[:, None, :], pid[:, None, :])
+    f = torch.zeros((3, cap, P), dtype=dtype, device=gx.device)
+    e_lj = e_b = nb_found = n_clamp = zero
+    for (a, b, c) in HALF_OFFSETS:
+        delta = a * sx + b * sy + c * sz
+        wgt = 1.0 if delta == 0 else 2.0
+        # j planes at column (c + delta) mod P
+        j = tuple(torch.roll(p, -delta, -1)[None] for p in (X, Y, Z, bid,
+                                                            u1))
+        dx, dy, dz, ffac, el, w_b, w_cl, eb = _pair_terms(C, i, j, w_i,
+                                                          energy)
+        if w_b is not None:
+            nb_found = nb_found + wgt * torch.sum(w_b)
+            n_clamp = n_clamp + wgt * torch.sum(w_cl)
+            if energy:
+                e_b = e_b + wgt * torch.sum(eb * w_b)
+        if energy:
+            e_lj = e_lj + wgt * torch.sum(el)
+        pair_f = torch.stack([dx * ffac, dy * ffac, dz * ffac])
+        f = f + torch.sum(pair_f, dim=2)
+        if delta:
+            f = f - torch.roll(torch.sum(pair_f, dim=1), delta, -1)
+    faces = faces.to(dtype)
+    for axis in (2, 1, 0):
+        s_lo, s_hi = fold_shifts[axis]
+        m_lo, m_hi = faces[2 * axis], faces[2 * axis + 1]
+        keep = 1.0 - m_lo - m_hi
+        f = (f * keep + torch.roll(f * m_lo, (P - s_lo) % P, -1)
+             + torch.roll(f * m_hi, (P - s_hi) % P, -1))
+    en, ints = _tallies(e_lj, e_b, nb_found, n_clamp, valid, hn)
+    return f, en, ints
 
 
 def extruder_springs(gx, gf, exl_slot, exr_slot, active, S):

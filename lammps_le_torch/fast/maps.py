@@ -9,6 +9,12 @@ bit-for-bit the same: each component of a halo copy gets at most one +-L,
 added onto an interior value.  The lane-padding tail (columns >= p_raw) is
 in no face mask there and in no halo list here: it keeps its far-away
 fill from placement.
+
+``faces``/``fold_shifts`` are the ghost-fold constants of
+``pallas_step.make_halo_consts`` (pallas_step.py:513-551): the six ghost
+face masks (aux rows 0-5: x lo/hi, y lo/hi, z lo/hi) and, per axis, the
+roll shifts ``((-n*s) % P, (n*s) % P)`` that carry a face's reactions
+onto the interior cells it images (the Newton-half stencil's fold).
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ class FastMaps:
     halo_cols: np.ndarray    # (H,) halo columns (< p_raw, not interior)
     halo_src: np.ndarray     # (H,) their interior source columns
     halo_shift: np.ndarray   # (H, 3) their coordinate shifts
+    faces: np.ndarray        # (6, P) bool ghost faces x lo/hi, y, z
+    fold_shifts: Tuple[Tuple[int, int], ...]  # per axis (lo, hi) roll
 
 
 _MAPS_CACHE: dict = {}
@@ -62,11 +70,20 @@ def fast_maps(system: System) -> FastMaps:
         shifts[p_raw:] = [5.0 * b for b in system.box_size]
     interior = np.array(int_p, bool)
     halo_cols = np.nonzero(~interior[:p_raw])[0].astype(np.int32)
+    ix, iy, iz = np.meshgrid(np.arange(nx + 2), np.arange(py),
+                             np.arange(pz), indexing="ij")
+    faces = np.zeros((6, p), bool)
+    for k, (c, m) in enumerate(((ix, nx), (iy, ny), (iz, nz))):
+        faces[2 * k, :p_raw] = (c == 0).reshape(-1)
+        faces[2 * k + 1, :p_raw] = (c == m + 1).reshape(-1)
+    fold_shifts = tuple(((-m * s) % p, (m * s) % p)
+                        for m, s in zip((nx, ny, nz), strides))
     maps = FastMaps(
         cap=cfg.cell_cap, P=p, p_raw=p_raw, nxyz=(nx, ny, nz),
         strides=strides, src_cols=src_cols, interior=interior,
         shifts=shifts, halo_cols=halo_cols,
         halo_src=src_cols[halo_cols], halo_shift=shifts[halo_cols],
+        faces=faces, fold_shifts=fold_shifts,
     )
     _MAPS_CACHE[key] = maps
     return maps

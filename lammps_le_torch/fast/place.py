@@ -30,6 +30,7 @@ class GridConsts:
     halo_src: torch.Tensor    # (H,) int32
     halo_shift: torch.Tensor  # (3, H) run float type
     has_next: torch.Tensor    # (N,) bool: bead has a chain-next link
+    faces: torch.Tensor       # (6, P) bool ghost faces (FastMaps.faces)
 
     @classmethod
     def build(cls, system: System, maps: FastMaps, device):
@@ -41,6 +42,7 @@ class GridConsts:
             halo_shift=torch.as_tensor(maps.halo_shift.T.copy(),
                                        dtype=dtype, device=device),
             has_next=torch.as_tensor(system.next_bead >= 0, device=device),
+            faces=torch.as_tensor(maps.faces, device=device),
         )
 
 

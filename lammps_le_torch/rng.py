@@ -77,7 +77,7 @@ def split(key, num: int = 2):
     return [threefry2x32(k0, k1, 0, i) for i in range(num)]
 
 
-def uniform(key, n: int, device="cpu") -> torch.Tensor:
+def uniform(key, n: int, device="cuda") -> torch.Tensor:
     """``jax.random.uniform(key, (n,), float32)`` on raw words: the top 23
     bits of ``x0 ^ x1`` as the mantissa of a float in [1, 2), minus 1."""
     k0, k1 = int(key[0]), int(key[1])

@@ -56,9 +56,10 @@ def _dtype(system: System) -> torch.dtype:
 
 
 def init_state(system: System, x, v=None, types=None, seed: int = 0,
-               img=None, device="cpu") -> State:
+               img=None, device="cuda") -> State:
     """Build an initial State from host arrays (``lammps_le_tpu.state
-    .init_state``)."""
+    .init_state``) on ``device``: the card unless the caller asks for the
+    CPU."""
     dtype = _dtype(system)
     n = system.n
     x = torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
@@ -106,7 +107,7 @@ def extruder_partner(ex_left: torch.Tensor, ex_right: torch.Tensor,
     return partner[:n]
 
 
-def state_from_arrays(d: dict, device="cpu") -> State:
+def state_from_arrays(d: dict, device="cuda") -> State:
     """A port State from a dict of numpy arrays holding a reference State's
     fields (``key`` as its raw uint32 words) — starts both engines from
     the same point."""

@@ -43,10 +43,10 @@ def _system(n=2000, cap=9):
     return system, data
 
 
-def _planes(dev):
+def _planes(dev, cap=9):
     """Thermal-ish positions (one FENE clamp, one bond out of reach) on
     the grid, on the card."""
-    system, data = _system()
+    system, data = _system(cap=cap)
     r = np.random.default_rng(0)
     x = data.x + r.normal(scale=0.05, size=data.x.shape)
     x[100, 0] += 1.45
@@ -99,6 +99,28 @@ def test_stencil_forces(dev, energy):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cap,energy", [(9, True), (9, False), (8, True),
+                                        (16, True)])
+def test_newton_half_forces(dev, cap, energy):
+    """Against the plain version, ghost columns exactly zero, and two
+    launches on the same inputs bitwise equal (no atomics)."""
+    system, maps, g, p, _ = _planes(dev, cap)
+    args = (p[0], p[3], p[4], p[5], g.interior, g.faces,
+            StencilConsts(system), system.n, maps.strides, maps.fold_shifts,
+            energy)
+    K.reset_launches()
+    a = K.newton_half_forces(*args)
+    b = K.newton_half_forces(*args)
+    r = R.newton_half_forces(*args)
+    assert K.LAUNCHES["newton_half_forces"] == 2
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert _close(a[0], r[0])
+    assert float((a[1] - r[1]).abs().max()) <= 2e-2
+    assert torch.equal(a[2], r[2]) and int(a[2][0]) == 64 | 8
+    assert float(a[0][:, :, ~g.interior].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
 def test_extruder_springs(dev):
     system, _, _, p, active = _planes(dev)
     f1 = torch.randn_like(p[0])
@@ -137,3 +159,10 @@ def test_engine_on_card_matches_cpu(dev):
     as on the CPU (plain versions), positions within 1e-3, each kernel
     launched once a step on the card and never on the CPU."""
     chip_smoke.small_end_to_end(dev)
+
+
+@pytest.mark.cuda
+def test_newton_half_engine_on_card_matches_cpu(dev):
+    """The same on the Newton-half stencil (the engine's kernel past the
+    whole-plane gate), passed in as kernel_fn."""
+    chip_smoke.small_end_to_end(dev, newton_half=True)

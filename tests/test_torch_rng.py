@@ -75,6 +75,6 @@ def test_uniform_bitwise(size):
     for seed in (0, 42):
         key = jax.random.fold_in(jax.random.PRNGKey(seed), size)
         want = jax.random.uniform(key, (size,), jnp.float32)
-        got = rng.uniform(_words(key), size)
+        got = rng.uniform(_words(key), size, "cpu")
         assert got.dtype == torch.float32
         np.testing.assert_array_equal(np.asarray(want), got.numpy())

@@ -2,10 +2,12 @@
 all three LE fixes for 20 steps gives the same extruder tables, LE
 counters, flags, step and rebuild schedule as make_fast_segment(
 pallas=False), positions within 1e-3 and epair within 0.1 (the
-tolerances of tests/test_pallas_step.py:105-128); one step also against
-the fused Pallas kernel in interpret mode.  The port runs where jax is
-absent without loading the reference package, and refuses what it does
-not cover."""
+tolerances of tests/test_pallas_step.py:105-128), on the full stencil and
+on the Newton-half stencil of grids past the whole-plane gate (the same
+reference run); one step also against the fused Pallas kernel in
+interpret mode.  The port runs where jax is absent without loading the
+reference package, its entry points default to the card, and it refuses
+what it does not cover."""
 
 import dataclasses
 import functools
@@ -19,13 +21,18 @@ import pytest
 import jax
 import jax.numpy as jnp
 
+import torch
+
 import lammps_le_tpu.fixes as jf
 import lammps_le_torch.fixes as tf
+from lammps_le_torch import rng
 from lammps_le_torch.fast import (fast_block_reason, from_fast,
                                   make_fast_segment, thermo_row_fast,
                                   to_fast)
+from lammps_le_torch.fast.blocked_kernel import make_blocked_kernel
+from lammps_le_torch.fast.maps import fast_maps
 from lammps_le_torch.integrate import Simulation
-from lammps_le_torch.state import state_from_arrays
+from lammps_le_torch.state import init_state, state_from_arrays
 from lammps_le_tpu.fast import engine as ref
 from lammps_le_tpu.integrate import Simulation as RefSimulation
 from torch_parity import arrays_of, jax_state, le_fixes, melt_arrays
@@ -49,9 +56,12 @@ def _ref_to_fast():
     return jax.jit(lambda s: ref.to_fast(s, rsim))
 
 
-def _run_both(nsteps, energy_every, pallas=False):
+@functools.lru_cache(maxsize=None)
+def _ref_run(nsteps, energy_every, pallas=False):
+    """The reference's segment from the melt32 start state: (start
+    arrays, its FastState)."""
     system, d = melt_arrays()
-    rsim, sim = _sims(system, energy_every)
+    rsim = _sims(system, energy_every)[0]
     js = jax_state(d, jnp.float32)
     segment, _ = ref.make_fast_segment(rsim, pallas=pallas)
     fj = _ref_to_fast()(js)
@@ -59,14 +69,22 @@ def _run_both(nsteps, energy_every, pallas=False):
     fj = jax.jit(segment)(fj, jnp.asarray(b, jnp.int32), nsteps,
                           jnp.asarray(b, jnp.int32),
                           jnp.asarray(b + nsteps, jnp.int32))
-    tseg = make_fast_segment(sim, "cpu")
-    ft = to_fast(state_from_arrays(arrays_of(js)), sim)
+    return arrays_of(js), fj
+
+
+def _run_both(nsteps, energy_every, pallas=False, kernel_fn=None):
+    system, _ = melt_arrays()
+    sim = _sims(system, energy_every)[1]
+    start, fj = _ref_run(nsteps, energy_every, pallas)
+    b = int(start["step"])
+    tseg = make_fast_segment(sim, "cpu", kernel_fn)
+    ft = to_fast(state_from_arrays(start, "cpu"), sim, kernel_fn)
     ft = tseg(ft, b, nsteps, b, b + nsteps)
     return system, fj, ft
 
 
-def test_segment_matches_reference_xla_chain():
-    system, fj, ft = _run_both(20, energy_every=4)
+def _check_segment(kernel_fn=None):
+    system, fj, ft = _run_both(20, energy_every=4, kernel_fn=kernel_fn)
     np.testing.assert_array_equal(np.asarray(fj.ex_left), ft.ex_left.numpy())
     np.testing.assert_array_equal(np.asarray(fj.ex_right),
                                   ft.ex_right.numpy())
@@ -88,6 +106,17 @@ def test_segment_matches_reference_xla_chain():
     tt = thermo_row_fast(ft, system)
     assert abs(float(rt.temp) - float(tt.temp)) < 1e-4
     assert int(rt.n_extruders) == int(tt.n_extruders)
+
+
+def test_segment_matches_reference_xla_chain():
+    _check_segment()
+
+
+def test_newton_half_segment_matches_reference_xla_chain():
+    """The Newton-half stencil (the blocked kernel's counterpart) against
+    the same reference run."""
+    system, _ = melt_arrays()
+    _check_segment(make_blocked_kernel(system, fast_maps(system), 2))
 
 
 def test_one_step_matches_fused_pallas_interpret():
@@ -113,7 +142,8 @@ def test_to_fast_round_trip():
     sim = _sims(system, 1)[1]
     js = jax_state(d, jnp.float32)
     sj = ref.from_fast(_ref_to_fast()(js), system)
-    st = from_fast(to_fast(state_from_arrays(arrays_of(js)), sim), system)
+    st = from_fast(to_fast(state_from_arrays(arrays_of(js), "cpu"), sim),
+                   system)
     np.testing.assert_array_equal(np.asarray(sj.x), st.x.numpy())
     np.testing.assert_array_equal(np.asarray(sj.v), st.v.numpy())
     f = np.asarray(sj.f)
@@ -146,6 +176,22 @@ def test_block_reason_raises(change):
         make_fast_segment(sim, "cpu")
 
 
+@pytest.mark.parametrize("entry", ["init_state", "state_from_arrays",
+                                   "uniform"])
+def test_entry_points_default_to_the_card(entry):
+    """Called without a device, the entry points run on the card, and
+    without one they raise instead of running on the CPU."""
+    system, d = melt_arrays()
+    call = {"init_state": lambda: init_state(system, d["x"]).x,
+            "state_from_arrays": lambda: state_from_arrays(d).x,
+            "uniform": lambda: rng.uniform((1, 2), 8)}[entry]
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            call()
+
+
 _NO_JAX = r"""
 import sys
 sys.modules["jax"] = sys.modules["flax"] = None
@@ -154,6 +200,10 @@ from lammps_le_torch.io.data import system_from_data
 from lammps_le_torch.scene import serpentine
 from lammps_le_torch.system import BOND_FENE, BOND_HARMONIC, BondParams, PairLJCut
 from lammps_le_torch.fast import run_fast
+from lammps_le_torch.fast.blocked_kernel import make_blocked_kernel
+from lammps_le_torch.fast.engine import select_kernel
+from lammps_le_torch.fast.maps import fast_maps
+from lammps_le_torch.csrc import build
 from lammps_le_torch.fixes import NVE, Langevin, Extrusion
 from lammps_le_torch.integrate import Simulation
 from lammps_le_torch.state import init_state
@@ -168,10 +218,13 @@ sim = Simulation(system=system, dt=0.005, ex_btype=2, fixes=(
     NVE(), Langevin(1.0, 1.0, 1.0),
     Extrusion(nevery=2, neutral_type=1, ctcf_left=2, ctcf_right=3,
               through_prob=0.5, btype=2)))
-st = init_state(system, data.x, types=data.types, seed=3)
+st = init_state(system, data.x, types=data.types, seed=3, device="cpu")
 st = st.replace(ex_left=torch.tensor([20, -1, -1, -1]),
                 ex_right=torch.tensor([22, -1, -1, -1]))
-st = run_fast(sim, st, 2)
+assert select_kernel(system, fast_maps(system), 2).__qualname__.startswith(
+    "make_kernel")
+st = run_fast(sim, st, 2,
+              kernel_fn=make_blocked_kernel(system, fast_maps(system), 2))
 assert int(st.step) == 2 and bool(torch.isfinite(st.x).all())
 assert not any(m.split(".")[0] in ("jax", "flax", "lammps_le_tpu")
                and sys.modules[m] for m in list(sys.modules))

@@ -67,7 +67,8 @@ def melt_arrays(n=500, dtype="float32", warm_steps=40):
     system, data = make_system(n, dtype)
     warm = Simulation(system=system, dt=0.005, ex_btype=2,
                       fixes=(NVE(), Langevin(1.0, 1.0, 1.0, seed=5)))
-    st = init_state(system, data.x, types=data.types, seed=11)
+    st = init_state(system, data.x, types=data.types, seed=11,
+                    device="cpu")
     st = run_fast(warm, st, warm_steps)
     d = {k: getattr(st, k).numpy().copy() for k in STATE_FIELDS}
     e = system.max_extruders
