@@ -1,23 +1,32 @@
 #!/usr/bin/env python3
 """Smoke run of the lammps_le_torch port on one CUDA card.
 
-Drives the port's two paths through its user entry points:
+Drives the port's four paths through its user entry points:
 
-* bench.py's production LE configuration (bench.py:398-486): a
-  100,000-bead serpentine chromosome on the grid-resident fast engine,
-  thermalized, settled with 500 seeded extruders, then 1,500 measured
-  production steps with extrusion, ex_load and ex_unload, on the full
-  27-offset stencil;
-* config 6 (benchmarks/configs.py:269-362): a 1,000,000-bead chromosome
-  past the whole-plane gate, where the engine takes the Newton-half
-  stencil, with 5,000 seeded extruders and 600 measured steps.
+1. bench.py's production LE configuration (bench.py:398-486): a
+   100,000-bead serpentine chromosome on the grid-resident fast engine,
+   thermalized, settled with 500 seeded extruders, then 1,500 measured
+   production steps with extrusion, ex_load and ex_unload, on the full
+   27-offset stencil;
+2. config 6 (benchmarks/configs.py:269-362): a 1,000,000-bead chromosome
+   past the whole-plane gate, where the engine takes the Newton-half
+   stencil, with 5,000 seeded extruders and 600 measured steps;
+3. the 100k configuration's 1,500 measured steps, from the same settled
+   state, on the sharded slab stencil (make_sharded_segment) at sp=2 with
+   both slabs on the card;
+4. the same on the tiled full stencil (make_pallas_kernel as kernel_fn).
 
 After each it holds that path's hand-written CUDA kernels against their
 plain PyTorch versions at the shapes the run gave them and times both
-(one record per path and kernel); after config 6 it runs copies of its
-state on past the window on both stencils, printing flags and the
-fullest cell; then it runs a small system end to end on the card and on
-the CPU, on both stencils, to compare the two.
+(one record per path and kernel; paths 3 and 4 record their stencil, the
+other kernels having run at path 1's shapes), and the stencils of paths
+3 and 4 against the full stencil on the same planes; it repeats paths 3
+and 4 with every stencil call held against another stencil on the
+planes of that call (``witness``); after config 6 it
+runs copies of its state on past the window on both stencils, printing
+flags and the fullest cell; then it runs a small system end to end on the
+card and on the CPU, on the full and Newton-half stencils, to compare the
+two.
 
     python3 chip_smoke.py [--profile STEPS] [--overrun STEPS]
 
@@ -64,7 +73,11 @@ HBM_BPS, F32_OPS = 3.35e12, 67e12
 # factor, 6 to scale and add the force); the Newton-half stencil adds 3
 # for the reaction.  Comparisons and the terms of the few pairs in bond
 # or energy range are not counted.
-PAIR_OPS = {"stencil_forces": 21, "newton_half_forces": 24}
+PAIR_OPS = {"stencil_forces": 21, "newton_half_forces": 24,
+            "tiled_stencil_forces": 21, "window_forces": 24}
+SP_PATH, SP_PHASES = 2, (2, 4)  # slabs of path 3; of its kernel phase
+SOURCES = {"newton_half_forces": "blocked.cu", "window_forces": "blocked.cu",
+           "tiled_stencil_forces": "tiled.cu"}  # else step.cu
 
 
 def fail(msg):
@@ -176,17 +189,19 @@ def timed_run(label, sim, state, steps):
     return state
 
 
-def measured_segment(sim, state, dev, warm, measure, profile_steps):
+def measured_segment(sim, state, dev, warm, measure, profile_steps,
+                     kernel_fn=None, segment=None):
     """``warm`` steps, then ``measure`` timed steps with the launch counts
-    zeroed just before them and read just after.  Returns (FastState,
-    measured wall s, rebuilds and kernel launches in the window)."""
+    zeroed just before them and read just after, on ``segment`` (default
+    ``make_fast_segment`` on ``kernel_fn``).  Returns (FastState, measured
+    wall s, rebuilds and kernel launches in the window)."""
     import torch
 
     from lammps_le_torch.fast import kernels as K
     from lammps_le_torch.fast import make_fast_segment, to_fast
 
-    segment = make_fast_segment(sim, dev)
-    fs = to_fast(state, sim)
+    segment = segment or make_fast_segment(sim, dev, kernel_fn)
+    fs = to_fast(state, sim, kernel_fn)
     b0 = fs.step
     bend = b0 + warm + measure
     segment(fs, b0, warm, b0, bend)
@@ -207,10 +222,10 @@ def measured_segment(sim, state, dev, warm, measure, profile_steps):
     return fs, wall, rebuilds, launches
 
 
-def drive(system, data, dev, profile_steps=0):
-    """bench.py's thermalize / settle / measure phases on the port.
-    Returns (FastState, production Simulation, measured wall s,
-    rebuilds and kernel launches in the measured window)."""
+def drive(system, data, dev):
+    """bench.py's thermalize / settle phases on the port.  Returns the
+    production Simulation and the settled State that its measured phase
+    starts from."""
     import torch
 
     from lammps_le_torch import rng
@@ -232,12 +247,10 @@ def drive(system, data, dev, profile_steps=0):
                         ex_btype=2)
     state = timed_run("settle", settle, state, SETTLE)
     # bench.py's R=1 replica: key folded with replica seed 100
-    state = state.replace(
+    return sim, state.replace(
         flags=torch.zeros_like(state.flags),
         key=torch.tensor(rng.fold_in(state.key.tolist(), 100),
                          dtype=torch.int64, device=dev))
-    return (sim,) + measured_segment(sim, state, dev, WARM, MEASURE,
-                                     profile_steps)
 
 
 def drive_config6(data, system, dev, profile_steps=0):
@@ -360,6 +373,33 @@ def stencil_bound(name, fs, g, maps, n):
             ops += int((n_i * torch.roll(occ, -delta)).sum()) * PAIR_OPS[name]
     nbytes = cap * P * (12 + 4 + 1 + 4 + 12) + P * (1 + 6 * newton)
     return bound(nbytes, ops)
+
+
+def window_bound(wargs, n):
+    """window_forces' bound on these windows (its ``args``): the window
+    planes (the margins' copies included) in and the window forces and
+    tallies out once; operations for the pairs the windows hold, counted
+    as ``stencil_bound`` counts the Newton-half stencil's, each window
+    rolled on itself."""
+    import torch
+
+    from lammps_le_torch.fast import kernels_ref as R
+
+    xw, bidw, hnw, pidw, own = wargs[:5]
+    period, (sx, sy, sz) = wargs[7], wargs[8]
+    cap, Q = bidw.shape
+    occ = (bidw < n).sum(0, dtype=torch.int64).view(-1, period)
+    n_i = R.valid_mask(bidw, own, n).sum(0, dtype=torch.int64).view(
+        -1, period)
+    ops = 0
+    for (a, b, c) in R.HALF_OFFSETS:
+        delta = a * sx + b * sy + c * sz
+        if delta == 0:
+            ops += int((n_i * (occ - 1)).sum()) * PAIR_OPS["stencil_forces"]
+        else:
+            ops += int((n_i * torch.roll(occ, -delta, -1)).sum()) * PAIR_OPS[
+                "window_forces"]
+    return bound(cap * Q * (12 + 4 + 1 + 4 + 12) + Q + 5 * 4, ops)
 
 
 def max_cell_count(fs, system):
@@ -671,6 +711,224 @@ def newton_phase(fs, sim, g):
         t_full=timings(lambda: K.stencil_forces(*st_args), 20))
 
 
+def shard_phase(fs, sim, g, dev):
+    """window_forces vs its plain version on the windows of the measured
+    100k planes at each sp of SP_PHASES (forces within 3e-5 max|f|,
+    energies, exact counts, two launches bitwise equal), and the sharded
+    stencil's assembled, folded forces vs stencil_forces on the same
+    planes (2e-4 max|f|, flags and clamps equal, ghost columns 0).
+    Prints per sp the device ms of window_forces, of the whole sharded
+    stencil (windows, kernel, reactions, fold), of stencil_forces and of
+    newton_half_forces.  Returns the record of window_forces at
+    SP_PATH, the path's slab count (no launch count)."""
+    import torch
+
+    from lammps_le_torch.fast import kernels as K
+    from lammps_le_torch.fast import kernels_ref as R
+    from lammps_le_torch.fast.consts import StencilConsts
+    from lammps_le_torch.fast.maps import fast_maps
+    from lammps_le_torch.parallel.shard_step import make_sharded_kernel
+
+    system = sim.system
+    maps = fast_maps(system)
+    C, n = StencilConsts(system), system.n
+    planes = (fs.gx, fs.bid, fs.hn, fs.pid)
+    st_args = (*planes, g.interior, C, n, maps.strides, True)
+    nh_args = (*planes, g.interior, g.faces, C, n, maps.strides,
+               maps.fold_shifts, True)
+    gf_s, en_s, in_s = K.stencil_forces(*st_args)
+    valid = R.valid_mask(fs.bid, g.interior, n)
+    fmax = float(gf_s.abs().max())
+    t_full = timings(lambda: K.stencil_forces(*st_args), 20)
+    t_newton = timings(lambda: K.newton_half_forces(*nh_args), 20)
+    rec = None
+    for sp in SP_PHASES:
+        kern = make_sharded_kernel(system, maps, sim.ex_btype, [dev] * sp)
+        (slabs, wargs), = kern.window_args(*planes, True)
+        k1 = K.window_forces(*wargs)
+        k2 = K.window_forces(*wargs)
+        bitwise = all(torch.equal(a, b) for a, b in zip(k1, k2))
+        (f_k, st_k), (f_r, st_r) = k1, R.window_forces(*wargs)
+        wmax = float(f_r.abs().max())
+        err = float((f_k - f_r).abs().max())
+        tol = F_REL * max(wmax, 1.0)
+        de = (st_k[:2].double() - st_r[:2].double()).abs()
+        e_ok = bool(torch.all(de <= E_ABS + E_REL * st_r[:2].double().abs()))
+        counts_ok = torch.equal(st_k[2:], st_r[2:])
+        gf_k, en_k, in_k = kern(g, *planes, True)
+        err_full = float((gf_s * valid - gf_k).abs().max())
+        ghost = float(gf_k[:, :, ~g.interior].abs().max())
+        t_fn = timings(lambda: kern(g, *planes, True), 20)
+        print(f"sharded stencil sp={sp} (windows {tuple(wargs[0].shape)}, "
+              f"margin {kern.margin}, chunk {kern.chunk}): window_forces "
+              f"max_abs_err {err:.3g} (tol {tol:.3g}), stats "
+              f"{st_k.tolist()} vs plain {st_r.tolist()}, two launches "
+              f"bitwise {bitwise}; assembled vs stencil_forces max|df| "
+              f"{err_full:.3g}, energies {en_k.tolist()} vs "
+              f"{en_s.tolist()}, flags/clamps {in_k.tolist()} vs "
+              f"{in_s.tolist()}, ghost max {ghost}", flush=True)
+        if not err <= tol or not e_ok or not counts_ok:
+            fail(f"window_forces at sp={sp}: {err} vs tol {tol}, stats "
+                 f"{st_k.tolist()} vs {st_r.tolist()}")
+        if not bitwise:
+            fail(f"two window_forces launches at sp={sp} differ")
+        if not err_full <= F_REL_STENCILS * max(fmax, 1.0) or not (
+                torch.equal(in_k, in_s)) or ghost != 0.0:
+            fail(f"sharded stencil at sp={sp} vs stencil_forces: "
+                 f"{err_full}, {in_k.tolist()} vs {in_s.tolist()}, ghost "
+                 f"{ghost}")
+        r = dict(
+            replaces="lammps_le_tpu/parallel/shard_step.py:55",
+            max_abs_err=err, tol=f"{F_REL}*max|f|={tol:.3g}; bitwise run to "
+            f"run; assembled vs stencil_forces {F_REL_STENCILS}*max|f|",
+            bound=window_bound(wargs, n),
+            t=timings(lambda: K.window_forces(*wargs), 20),
+            t_plain=timings(lambda: R.window_forces(*wargs), 3, 1))
+        print(f"sharded stencil sp={sp}, device ms per call ({card_line()}): "
+              f"window_forces {r['t'][0]:.4f} (bound {r['bound'][0]:.4f} by "
+              f"{r['bound'][1]}; plain {r['t_plain'][0]:.4f}), the whole "
+              f"sharded stencil {t_fn[0]:.4f} (wall {t_fn[1]:.4f}), "
+              f"stencil_forces {t_full[0]:.4f}, newton_half_forces "
+              f"{t_newton[0]:.4f}", flush=True)
+        if sp == SP_PATH:
+            rec = r
+    return rec
+
+
+def tiled_phase(fs, sim, g):
+    """tiled_stencil_forces vs its plain version on the measured 100k
+    planes (forces within 3e-5 max|f|, energies, flags and clamps equal)
+    and vs stencil_forces (2e-4 max|f|, flags and clamps equal).  Returns
+    its record (no launch count), with stencil_forces' time on the same
+    planes."""
+    import torch
+
+    from lammps_le_torch.fast import kernels as K
+    from lammps_le_torch.fast import kernels_ref as R
+    from lammps_le_torch.fast.consts import StencilConsts
+    from lammps_le_torch.fast.maps import fast_maps
+
+    system = sim.system
+    maps = fast_maps(system)
+    n = system.n
+    args = (fs.gx, fs.bid, fs.hn, fs.pid, g.interior, StencilConsts(system),
+            n, maps.strides, True)
+    gf_k, en_k, in_k = K.tiled_stencil_forces(*args)
+    gf_r, en_r, in_r = R.tiled_stencil_forces(*args)
+    gf_s, en_s, in_s = K.stencil_forces(*args)
+    fmax = float(gf_r.abs().max())
+    err = float((gf_k - gf_r).abs().max())
+    tol = F_REL * max(fmax, 1.0)
+    err_full = float((gf_s - gf_k).abs().max())
+    de = (en_k.double() - en_r.double()).abs()
+    e_ok = bool(torch.all(de <= E_ABS + E_REL * en_r.double().abs()))
+    print(f"tiled_stencil_forces at {tuple(fs.gx.shape)}: max_abs_err "
+          f"{err:.3g} (tol {tol:.3g}), energies {en_k.tolist()} vs plain "
+          f"{en_r.tolist()}, flags/clamps {in_k.tolist()} vs "
+          f"{in_r.tolist()}; vs stencil_forces max|df| {err_full:.3g}, "
+          f"energies {en_s.tolist()}, flags/clamps {in_s.tolist()}",
+          flush=True)
+    if not err <= tol or not e_ok or not torch.equal(in_k, in_r):
+        fail(f"tiled_stencil_forces vs its plain version: {err} (tol {tol}),"
+             f" {en_k.tolist()} vs {en_r.tolist()}, {in_k.tolist()} vs "
+             f"{in_r.tolist()}")
+    if not err_full <= F_REL_STENCILS * max(fmax, 1.0) or not torch.equal(
+            in_s, in_k):
+        fail(f"tiled_stencil_forces vs stencil_forces: {err_full}, "
+             f"{in_k.tolist()} vs {in_s.tolist()}")
+    return dict(
+        replaces="lammps_le_tpu/fast/pallas_kernel.py:59", max_abs_err=err,
+        tol=f"{F_REL}*max|f|={tol:.3g}; vs stencil_forces "
+        f"{F_REL_STENCILS}*max|f|",
+        bound=stencil_bound("tiled_stencil_forces", fs, g, maps, n),
+        t=timings(lambda: K.tiled_stencil_forces(*args), 20),
+        t_plain=timings(lambda: R.tiled_stencil_forces(*args), 3, 1),
+        t_full=timings(lambda: K.stencil_forces(*args), 20))
+
+
+def bead_positions(fs, system):
+    """The beads' positions, in bead order, from the planes."""
+    from lammps_le_torch.fast.engine import extract_beads
+    from lammps_le_torch.fast.maps import fast_maps
+
+    return extract_beads(fs, fast_maps(system))[0]
+
+
+def witness(label, sim, start, dev, kernel_fn, fs_ref, x_full,
+            newton=False):
+    """The path's window once more from the same settled state, with every
+    call of its stencil ``kernel_fn`` also held against another stencil on
+    the planes that call saw: with ``newton``, the whole-grid Newton-half
+    stencil (forces within 3e-5 max|f|), else stencil_forces (2e-4
+    max|f|); and against stencil_forces' flags and clamps (equal).  The
+    path's own stencil drives the run, so it is the measured run again
+    (its end is compared bitwise with ``fs_ref``).  A FENE clamp that the
+    full stencil counts on the same planes comes from the trajectory, not
+    from the path's stencil; how far the trajectory has drifted from the
+    full-stencil path's is the largest minimum-image distance of a bead
+    from its place ``x_full`` at the end of that path.  Prints the calls
+    with clamps and the largest deviation from stencil_forces; fails on a
+    disagreement."""
+    import torch
+
+    from lammps_le_torch.fast import kernels as K
+    from lammps_le_torch.fast import kernels_ref as R
+    from lammps_le_torch.fast.consts import StencilConsts
+    from lammps_le_torch.fast.maps import fast_maps
+
+    system = sim.system
+    maps = fast_maps(system)
+    C, n = StencilConsts(system), system.n
+    held, tol = (("newton_half_forces", F_REL) if newton
+                 else ("stencil_forces", F_REL_STENCILS))
+    log = []
+
+    def shadowed(g, gx, bid, hn, pid, energy: bool):
+        out = kernel_fn(g, gx, bid, hn, pid, energy)
+        gf_s, _, in_s = K.stencil_forces(gx, bid, hn, pid, g.interior, C, n,
+                                         maps.strides, energy)
+        valid = R.valid_mask(bid, g.interior, n)
+        scale = torch.clamp(gf_s.abs().max(), min=1.0)
+        err_full = (gf_s * valid - out[0]).abs().max() / scale
+        err = err_full
+        if newton:
+            gf_n = K.newton_half_forces(
+                gx, bid, hn, pid, g.interior, g.faces, C, n, maps.strides,
+                maps.fold_shifts, energy)[0]
+            err = (gf_n - out[0]).abs().max() / scale
+        log.append(torch.cat([torch.stack([err, err_full]).double(),
+                              out[2].double(), in_s.double()]))
+        return out
+
+    fs = measured_segment(sim, start, dev, WARM, MEASURE, 0, shadowed)[0]
+    rows = torch.stack(log).cpu()
+    worst, worst_full = float(rows[:, 0].max()), float(rows[:, 1].max())
+    over = int((rows[:, 1] > F_REL_STENCILS).sum())
+    differ = (rows[:, 2:4] != rows[:, 4:6]).any(1).nonzero().view(-1)
+    clamped = [(int(k), int(rows[k, 3]), int(rows[k, 5]))
+               for k in (rows[:, 3] + rows[:, 5]).nonzero().view(-1)]
+    same = (torch.equal(fs.gx, fs_ref.gx) and torch.equal(fs.gv, fs_ref.gv)
+            and int(fs.n_clamps) == int(fs_ref.n_clamps))
+    box = torch.as_tensor(np.asarray(system.box_size, np.float32),
+                          device=fs.gx.device)
+    d = bead_positions(fs, system) - x_full
+    drift = float((d - box * torch.round(d / box)).norm(dim=-1).max())
+    print(f"witness {label}: {len(log)} stencil calls (call 0 is the "
+          f"set-up), each against {held} on its planes: max|df| / max(max|f|"
+          f", 1) {worst:.3g} (tol {tol}); against stencil_forces "
+          f"{worst_full:.3g}, over {F_REL_STENCILS} in {over} calls; "
+          f"flags/clamps differ from stencil_forces' in {len(differ)} calls;"
+          f" (call, clamps, full-stencil clamps) where either clamps: "
+          f"{clamped}; end bitwise the measured run's {same}; a bead at most"
+          f" {drift:.4g} from its place at the end of the full-stencil path",
+          flush=True)
+    if not worst <= tol or len(differ):
+        fail(f"witness {label}: the path's stencil and {held} disagree on "
+             f"the run's planes ({worst}, calls {differ.tolist()[:10]})")
+    if not same:
+        fail(f"witness {label}: the run did not repeat the measured run")
+
+
 def overrun(sim, fs, dev, steps):
     """From copies of the checked config-6 state, ``steps`` steps past the
     measured window on each stencil (the engine's Newton-half one, then
@@ -707,36 +965,44 @@ def overrun(sim, fs, dev, steps):
               f"{marks}", flush=True)
 
 
-def small_end_to_end(dev, steps=40, newton_half=False):
+def small_end_to_end(dev, steps=40, stencil="stencil_forces"):
     """A 2,000-bead run with every LE fix on the card (kernels) and on the
-    CPU (plain versions), on the full stencil or (``newton_half``) on the
-    Newton-half one: the same events, positions within 1e-3; the CPU run
-    launches no kernel, the card run each of its kernels once a step."""
+    CPU (plain versions), on the stencil ``stencil`` (the engine's full
+    one, or as kernel_fn the Newton-half, the tiled or, with two slabs on
+    the run's device, the sharded one): the same events, positions within
+    1e-3; the CPU run launches no kernel, the card run each of its
+    kernels once a step."""
     import torch
 
     from lammps_le_torch.fast import kernels as K
     from lammps_le_torch.fast import run_fast
     from lammps_le_torch.fast.blocked_kernel import make_blocked_kernel
     from lammps_le_torch.fast.maps import fast_maps
+    from lammps_le_torch.fast.pallas_kernel import make_pallas_kernel
     from lammps_le_torch.fixes import NVE, Langevin
     from lammps_le_torch.integrate import Simulation
+    from lammps_le_torch.parallel.shard_step import make_sharded_kernel
     from lammps_le_torch.state import init_state
 
     data, system = production_config(2000, seed=5)
+    maps = fast_maps(system)
     warm = Simulation(system=system, dt=0.006, ex_btype=2, fixes=(
         NVE(), Langevin(t_start=1.0, t_stop=1.0, damp=1.0, seed=7)))
     sim = Simulation(system=system, dt=0.005, energy_every=4, ex_btype=2,
                      fixes=le_fixes(5, 7, 0.3))
-    kernel_fn = (make_blocked_kernel(system, fast_maps(system), 2)
-                 if newton_half else None)
-    stencil = "newton_half_forces" if newton_half else "stencil_forces"
+    kernel_fns = {
+        "stencil_forces": lambda d: None,
+        "newton_half_forces": lambda d: make_blocked_kernel(system, maps, 2),
+        "tiled_stencil_forces": lambda d: make_pallas_kernel(system, maps, 2),
+        "window_forces": lambda d: make_sharded_kernel(system, maps, 2,
+                                                       [d] * 2)}
     out = {}
     for d in ("cpu", dev):
         st = init_state(system, data.x, types=data.types, seed=11, device=d)
         st = run_fast(warm, st, 30)
         st = seed_extruders(st, 20, 100, system.max_extruders)
         K.reset_launches()
-        st = run_fast(sim, st, steps, kernel_fn)
+        st = run_fast(sim, st, steps, kernel_fns[stencil](d))
         out[str(d)] = st, dict(K.LAUNCHES)
     (a, la), (b, lb) = out["cpu"], out[str(dev)]
     dx = float((a.x - b.x.cpu()).abs().max())
@@ -753,8 +1019,7 @@ def small_end_to_end(dev, steps=40, newton_half=False):
     if not same or not dx < 1e-3 or int(b.n_moves) == 0:
         fail("small end-to-end run: card and CPU disagree")
     # run_fast's setup evaluates the forces once more (to_fast)
-    want = dict.fromkeys(lb, steps)
-    want["stencil_forces"] = want["newton_half_forces"] = 0
+    want = path_launches(lb, stencil, steps)
     want[stencil] = want["extruder_springs"] = steps + 1
     if any(la.values()) or lb != want:
         fail(f"small end-to-end launches: cpu {la}, cuda {lb} (want {want})")
@@ -768,6 +1033,17 @@ def print_kernel(path, name, r):
           f"back-to-back call {r['t'][1]:.4f} ms (plain "
           f"{r['t_plain'][1]:.4f} ms); max_abs_err {r['max_abs_err']:.3g} "
           f"({r['tol']})", flush=True)
+
+
+def path_launches(launches, stencil, steps=MEASURE):
+    """The launches a path's measured window must hold: ``steps`` of its
+    stencil and of each kernel every path runs, none of the other
+    stencils."""
+    stencils = ("stencil_forces", "newton_half_forces", "window_forces",
+                "tiled_stencil_forces")
+    want = {k: 0 if k in stencils else steps for k in launches}
+    want[stencil] = steps
+    return want
 
 
 def path_records(path, phases, launches):
@@ -797,7 +1073,10 @@ def main(argv=None):
     from lammps_le_torch.csrc.build import build
     from lammps_le_torch.fast.engine import whole_planes_fit
     from lammps_le_torch.fast.maps import fast_maps
+    from lammps_le_torch.fast.pallas_kernel import make_pallas_kernel
     from lammps_le_torch.fast.place import GridConsts
+    from lammps_le_torch.parallel.shard_step import shardable
+    from lammps_le_torch.parallel.spatial import make_sharded_segment
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -815,19 +1094,61 @@ def main(argv=None):
     print(f"{system.n} beads, grid {system.neighbor.nx}x{system.neighbor.ny}"
           f"x{system.neighbor.nz}, cap {system.neighbor.cell_cap}",
           flush=True)
-    sim, fs, wall, rebuilds, launches = drive(system, data, dev,
-                                              args.profile)
+    sim, start = drive(system, data, dev)
+    fs, wall, rebuilds, launches = measured_segment(
+        sim, start, dev, WARM, MEASURE, args.profile)
     # every kernel of the path launches once a production step; rebuilds
     # and LE events launch none
-    want = dict.fromkeys(launches, MEASURE)
-    want["newton_half_forces"] = 0
     check_run("production", fs, system, wall, rebuilds, launches, MEASURE,
-              GRID, want)
+              GRID, path_launches(launches, "stencil_forces"))
+    x_full = bead_positions(fs, system)
     g = GridConsts.build(system, fast_maps(system), dev)
     recs = path_records("100k", dict(
         stencil_forces=stencil_phase(fs, sim, g),
         **kernel_phases(fs, sim, g)), launches)
-    del fs, g
+    sps = {"100k full stencil": MEASURE / wall}
+    del fs
+    torch.cuda.empty_cache()
+
+    # path 3, the sharded slab stencil: the reference's gate, then the
+    # same measured phase from the same settled state at SP_PATH slabs
+    maps = fast_maps(system)
+    for sp in (1, 2, 4):
+        print(f"shardable at sp={sp}: "
+              f"{shardable(system, maps, [dev] * sp) or 'yes'}", flush=True)
+    segment = make_sharded_segment(sim, [dev] * SP_PATH)
+    fs, wall, rebuilds, launches = measured_segment(
+        sim, start, dev, WARM, MEASURE, args.profile, segment.kernel_fn,
+        segment)
+    check_run(f"sharded sp={SP_PATH}", fs, system, wall, rebuilds, launches,
+              MEASURE, GRID, path_launches(launches, "window_forces"))
+    sps[f"100k sharded sp={SP_PATH}"] = MEASURE / wall
+    witness(f"sharded sp={SP_PATH}", sim, start, dev, segment.kernel_fn, fs,
+            x_full, newton=True)
+    recs += path_records("100k sharded", dict(
+        window_forces=shard_phase(fs, sim, g, dev)), launches)
+    del fs, segment
+    torch.cuda.empty_cache()
+
+    # path 4, the tiled full stencil as kernel_fn
+    tiled_fn = make_pallas_kernel(system, maps, sim.ex_btype)
+    fs, wall, rebuilds, launches = measured_segment(
+        sim, start, dev, WARM, MEASURE, args.profile, tiled_fn)
+    check_run("tiled", fs, system, wall, rebuilds, launches, MEASURE, GRID,
+              path_launches(launches, "tiled_stencil_forces"))
+    sps["100k tiled stencil"] = MEASURE / wall
+    witness("tiled", sim, start, dev, tiled_fn, fs, x_full)
+    tiled = tiled_phase(fs, sim, g)
+    recs += path_records("100k tiled", dict(tiled_stencil_forces=tiled),
+                         launches)
+    print(f"100k stencils, device ms per call ({card}): "
+          f"tiled_stencil_forces {tiled['t'][0]:.4f} ({tiled['t'][2]}; bound "
+          f"{tiled['bound'][0]:.4f} by {tiled['bound'][1]}), stencil_forces "
+          f"{tiled['t_full'][0]:.4f} ({tiled['t_full'][2]}; wall per "
+          f"back-to-back call {tiled['t_full'][1]:.4f})", flush=True)
+    print(f"100k steps/s in this call ({card}): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sps.items()), flush=True)
+    del fs, g, start, x_full
     torch.cuda.empty_cache()
 
     # config 6: past the whole-plane gate, the Newton-half stencil
@@ -844,10 +1165,9 @@ def main(argv=None):
     torch.cuda.reset_peak_memory_stats()
     sim, fs, wall, rebuilds, launches = drive_config6(data, system, dev,
                                                       args.profile)
-    want = dict.fromkeys(launches, C6["measure"])
-    want["stencil_forces"] = 0
     check_run("config 6", fs, system, wall, rebuilds, launches,
-              C6["measure"], C6["grid"], want)
+              C6["measure"], C6["grid"],
+              path_launches(launches, "newton_half_forces", C6["measure"]))
     print(f"config 6 peak device memory {torch.cuda.max_memory_allocated()} "
           f"B of {torch.cuda.get_device_properties(0).total_memory} B "
           f"({card})", flush=True)
@@ -869,12 +1189,11 @@ def main(argv=None):
           f"newton_half_forces {full['t_plain'][0]:.4f}", flush=True)
 
     small_end_to_end(dev)
-    small_end_to_end(dev, newton_half=True)
+    small_end_to_end(dev, stencil="newton_half_forces")
 
     print(json.dumps({"kernels": [
         {"name": name, "path": path, "route": "cuda",
-         "source": "lammps_le_torch/csrc/" + (
-             "blocked.cu" if name == "newton_half_forces" else "step.cu"),
+         "source": "lammps_le_torch/csrc/" + SOURCES.get(name, "step.cu"),
          "replaces": r["replaces"], "launches": r["launches"],
          "max_abs_err": r["max_abs_err"], "ms": r["t"][0],
          "ms_source": r["t"][2], "plain_ms": r["t_plain"][0],

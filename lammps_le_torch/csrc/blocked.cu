@@ -45,6 +45,20 @@
 //
 // The wrapper allocates the 14 (3, cap, P) work planes (own forces and
 // the 13 reaction buffers; 0.54 GB at config 6), reused for the folds.
+//
+// window_forces <- lammps_le_tpu/parallel/shard_step.py:55 _window_call
+// (K4), whose body is the same offset loop over each slab's window
+// [M | C | M] of the sharded stencil.  Steps 1, 2 and 4 above run over S
+// windows of W = 2M + C columns laid side by side in the planes: a window
+// is the period of its column rolls, (w + d) mod W, and its own interior
+// columns are the i side.  A second grid dimension runs over the windows,
+// so one launch covers every slab of a device.  There is no ghost fold
+// (the caller folds the assembled planes), and the tallies come out as
+// raw sums, which the caller adds over devices before it halves them.
+//
+// Bound: as the whole-grid form, with the margins' copies in the window
+// planes and their reaction buffers (chip_smoke.py computes it from a
+// run's windows).
 
 #include "common.cuh"
 
@@ -58,6 +72,8 @@ namespace {
 
 constexpr int kHalf = 14;  // the self cell + 13 forward offsets
 
+// columns [blockIdx.y * period, (blockIdx.y + 1) * period) are one period
+// of the rolls: the whole grid (period P, one window) or a slab's window
 template <int MAXCAP>
 __global__ void __launch_bounds__(kThreads)
     newton_pair_kernel(const float* __restrict__ gx,
@@ -66,15 +82,17 @@ __global__ void __launch_bounds__(kThreads)
                        const int* __restrict__ pid,
                        const uint8_t* __restrict__ interior,
                        float* __restrict__ work, float* __restrict__ fpart,
-                       int* __restrict__ ipart, StencilArgs a) {
+                       int* __restrict__ ipart, StencilArgs a, int period) {
   __shared__ float shf[32];
   __shared__ int shi[32];
   const int cap = a.cap, P = a.P, n = a.n;
   const long capP = (long)cap * P;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  const int base = blockIdx.y * period;
+  const int p = base + w;
   PairTally tl = {0.f, 0.f, 0, 0};
   int nlink = 0;
-  if (p < P) {
+  if (w < period) {
     float xi[MAXCAP], yi[MAXCAP], zi[MAXCAP];
     int bi[MAXCAP], u1i[MAXCAP], pi[MAXCAP];
     float fx[MAXCAP], fy[MAXCAP], fz[MAXCAP];
@@ -98,8 +116,9 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     for (int o = 0; o < kHalf; ++o) {
-      int cj = p + a.delta[o];  // delta in [0, P)
-      if (cj >= P) cj -= P;
+      int cj = w + a.delta[o];  // delta in [0, period)
+      if (cj >= period) cj -= period;
+      cj += base;
       const int wgt = o ? 2 : 1;
       float* R = work + (long)o * 3 * capP;
       for (int rj = 0; rj < cap; ++rj) {
@@ -147,23 +166,55 @@ __global__ void __launch_bounds__(kThreads)
   block_tallies(tl, nlink, fpart, ipart, shf, shi);
 }
 
-// own force minus the reactions left on the slot, in offset order
+// own force minus the reactions left on the slot, in offset order; one
+// thread per slot of the period blockIdx.y (as newton_pair_kernel)
 __global__ void newton_gather_kernel(const float* __restrict__ work,
-                                     float* __restrict__ gf, StencilArgs a) {
-  const int P = a.P;
-  const long capP = (long)a.cap * P;
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= capP) return;
-  const int c = (int)(t % P);
-  const long row = t - c;
+                                     float* __restrict__ gf, StencilArgs a,
+                                     int period) {
+  const long capP = (long)a.cap * a.P;
+  const long u = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (u >= (long)a.cap * period) return;
+  const int w = (int)(u % period);
+  const long row = (u / period) * a.P + (long)blockIdx.y * period;
+  const long t = row + w;
   for (int k = 0; k < 3; ++k) {
     float v = work[k * capP + t];
     for (int o = 1; o < kHalf; ++o) {
-      int cs = c - a.delta[o];
-      if (cs < 0) cs += P;
-      v = v - work[(3L * o + k) * capP + row + cs];
+      int ws = w - a.delta[o];
+      if (ws < 0) ws += period;
+      v = v - work[(3L * o + k) * capP + row + ws];
     }
     gf[k * capP + t] = v;
+  }
+}
+
+// the raw tally sums of every block: [e_lj, e_b, bond sightings, clamp
+// events, interior links]
+__global__ void window_finish_kernel(const float* __restrict__ fpart,
+                                     const int* __restrict__ ipart,
+                                     int nblocks, float* __restrict__ out) {
+  __shared__ float shf[32];
+  __shared__ int shi[32];
+  float e_lj = 0.f, e_b = 0.f;
+  int nb = 0, ncl = 0, nlink = 0;
+  for (int b = threadIdx.x; b < nblocks; b += blockDim.x) {
+    e_lj += fpart[2 * b];
+    e_b += fpart[2 * b + 1];
+    nb += ipart[3 * b];
+    ncl += ipart[3 * b + 1];
+    nlink += ipart[3 * b + 2];
+  }
+  e_lj = block_sum(e_lj, shf);
+  e_b = block_sum(e_b, shf);
+  nb = block_sum_int(nb, shi);
+  ncl = block_sum_int(ncl, shi);
+  nlink = block_sum_int(nlink, shi);
+  if (threadIdx.x == 0) {
+    out[0] = e_lj;
+    out[1] = e_b;
+    out[2] = (float)nb;
+    out[3] = (float)ncl;
+    out[4] = (float)nlink;
   }
 }
 
@@ -191,10 +242,39 @@ __global__ void fold_kernel(const float* __restrict__ in,
 template <int MAXCAP>
 void launch_pair(const float* gx, const int* bid, const uint8_t* hn,
                  const int* pid, const uint8_t* interior, float* work,
-                 float* fpart, int* ipart, const StencilArgs& a,
-                 cudaStream_t s) {
-  newton_pair_kernel<MAXCAP><<<blocks_for(a.P), kThreads, 0, s>>>(
-      gx, bid, hn, pid, interior, work, fpart, ipart, a);
+                 float* fpart, int* ipart, const StencilArgs& a, int period,
+                 int nwin, cudaStream_t s) {
+  newton_pair_kernel<MAXCAP>
+      <<<dim3(blocks_for(period), nwin), kThreads, 0, s>>>(
+          gx, bid, hn, pid, interior, work, fpart, ipart, a, period);
+}
+
+// the pair pass at the smallest row bound >= cap; false past 32 rows
+bool pair_pass(const float* gx, const int* bid, const uint8_t* hn,
+               const int* pid, const uint8_t* colmask, float* work,
+               float* fpart, int* ipart, const StencilArgs& a, int period,
+               int nwin, cudaStream_t s) {
+  if (a.cap <= 8)
+    launch_pair<8>(gx, bid, hn, pid, colmask, work, fpart, ipart, a, period,
+                   nwin, s);
+  else if (a.cap <= 9)
+    launch_pair<9>(gx, bid, hn, pid, colmask, work, fpart, ipart, a, period,
+                   nwin, s);
+  else if (a.cap <= 10)
+    launch_pair<10>(gx, bid, hn, pid, colmask, work, fpart, ipart, a, period,
+                    nwin, s);
+  else if (a.cap <= 12)
+    launch_pair<12>(gx, bid, hn, pid, colmask, work, fpart, ipart, a, period,
+                    nwin, s);
+  else if (a.cap <= 16)
+    launch_pair<16>(gx, bid, hn, pid, colmask, work, fpart, ipart, a, period,
+                    nwin, s);
+  else if (a.cap <= 32)
+    launch_pair<32>(gx, bid, hn, pid, colmask, work, fpart, ipart, a, period,
+                    nwin, s);
+  else
+    return false;
+  return true;
 }
 
 }  // namespace
@@ -213,23 +293,11 @@ int lle_newton_half_forces(const float* gx, const int* bid, const uint8_t* hn,
   cudaStream_t s = (cudaStream_t)stream;
   const int P = a.P;
   const long capP = (long)a.cap * P;
-  if (a.cap <= 8)
-    launch_pair<8>(gx, bid, hn, pid, interior, work, fpart, ipart, a, s);
-  else if (a.cap <= 9)
-    launch_pair<9>(gx, bid, hn, pid, interior, work, fpart, ipart, a, s);
-  else if (a.cap <= 10)
-    launch_pair<10>(gx, bid, hn, pid, interior, work, fpart, ipart, a, s);
-  else if (a.cap <= 12)
-    launch_pair<12>(gx, bid, hn, pid, interior, work, fpart, ipart, a, s);
-  else if (a.cap <= 16)
-    launch_pair<16>(gx, bid, hn, pid, interior, work, fpart, ipart, a, s);
-  else if (a.cap <= 32)
-    launch_pair<32>(gx, bid, hn, pid, interior, work, fpart, ipart, a, s);
-  else
+  if (!pair_pass(gx, bid, hn, pid, interior, work, fpart, ipart, a, P, 1, s))
     return (int)cudaErrorInvalidValue;
   stencil_finish_kernel<<<1, kThreads, 0, s>>>(fpart, ipart, blocks_for(P),
                                                en, out);
-  newton_gather_kernel<<<blocks_for(capP), kThreads, 0, s>>>(work, gf, a);
+  newton_gather_kernel<<<blocks_for(capP), kThreads, 0, s>>>(work, gf, a, P);
   // folds z -> y -> x: gf -> work plane 0 -> work plane 1 -> gf
   const float* src[3] = {gf, work, work + 3 * capP};
   float* dst[3] = {work, work + 3 * capP, gf};
@@ -240,6 +308,28 @@ int lle_newton_half_forces(const float* gx, const int* bid, const uint8_t* hn,
         faces + (long)(2 * axis + 1) * P, f.shift[axis][0], f.shift[axis][1],
         3L * a.cap, P);
   }
+  return (int)cudaGetLastError();
+}
+
+// blocks of the window kernel's pair pass: the size of its partials
+int lle_window_blocks(int period, int nwin) {
+  return blocks_for(period) * nwin;
+}
+
+// nwin windows of `period` columns side by side (a.P = nwin * period);
+// ownint: each window's own interior columns
+int lle_window_forces(const float* xw, const int* bid, const uint8_t* hn,
+                      const int* pid, const uint8_t* ownint, float* work,
+                      float* f, float* fpart, int* ipart, float* stats,
+                      StencilArgs a, int period, int nwin, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!pair_pass(xw, bid, hn, pid, ownint, work, fpart, ipart, a, period,
+                 nwin, s))
+    return (int)cudaErrorInvalidValue;
+  window_finish_kernel<<<1, kThreads, 0, s>>>(
+      fpart, ipart, lle_window_blocks(period, nwin), stats);
+  newton_gather_kernel<<<dim3(blocks_for((long)a.cap * period), nwin),
+                         kThreads, 0, s>>>(work, f, a, period);
   return (int)cudaGetLastError();
 }
 

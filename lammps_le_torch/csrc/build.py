@@ -7,7 +7,8 @@ its own library, and the nvcc runs of all sources start together:
          lammps_le_torch/csrc/<src>.cu
 
 ``step.cu`` holds the four kernels of the 100k path, ``blocked.cu`` the
-Newton-half stencil past the whole-plane gate; both include
+Newton-half stencil past the whole-plane gate and the sharded stencil's
+window kernel, ``tiled.cu`` the tiled full stencil; each includes
 ``common.cuh``.  A library's name carries a hash of its source, the header
 and the flags, so an edited source is rebuilt.  ``-fmad=false`` keeps
 every multiply and add separately rounded, as in the plain PyTorch
@@ -25,7 +26,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent
-SOURCES = {"step": CSRC / "step.cu", "blocked": CSRC / "blocked.cu"}
+SOURCES = {"step": CSRC / "step.cu", "blocked": CSRC / "blocked.cu",
+           "tiled": CSRC / "tiled.cu"}
 HEADER = CSRC / "common.cuh"
 BUILD_DIR = CSRC.parent / "build"
 NVCC_FLAGS = [

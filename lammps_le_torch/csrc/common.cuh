@@ -1,7 +1,7 @@
-// Shared pieces of the Hopper kernels (step.cu, blocked.cu): the stencil
-// argument block, the block reductions, the one-block finishing pass of
-// the stencil tallies and the per-pair stencil math.  Each .cu file is
-// its own library, so the helpers have internal linkage in each.
+// Shared pieces of the Hopper kernels (step.cu, blocked.cu, tiled.cu): the
+// stencil argument block, the block reductions, the one-block finishing
+// pass of the stencil tallies and the per-pair stencil math.  Each .cu
+// file is its own library, so the helpers have internal linkage in each.
 
 #pragma once
 
@@ -11,11 +11,12 @@
 // stencil arguments, passed by value (mirrored by kernels.StencilArgs);
 // at file scope so the C entry points taking them keep external linkage.
 // delta: column offsets of the stencil's offsets (27 for the full
-// stencil; the self cell + 13 forward ones for the Newton-half stencil)
+// stencil; the self cell + 13 forward ones for the Newton-half stencil);
+// P: the planes' row stride (all windows' columns for the window kernel)
 struct StencilArgs {
   float lj1, lj2, lj3, lj4, cutsq, offe, floorsq;
   float inv_r0sq, neg_kf, sigf_sq, wca_cutsq, wca_floorsq, f_wca, e_wca;
-  float epsf, e_fene, bond_reach_sq;
+  float epsf, e_fene, bond_reach_sq, r0sq;
   int has_bond, wca_is_lj, energy;
   int cap, P, n;
   int delta[27];
@@ -26,27 +27,37 @@ namespace {
 constexpr int kThreads = 256;
 
 // ---------------------------------------------------------------------
-// block reductions (kThreads threads, warp shuffles + shared memory)
+// block reductions (warp shuffles + shared memory) over a block of whole
+// warps, up to 1024 threads, in one or two dimensions; the result is
+// valid in thread 0
+
+__device__ __forceinline__ int thread_rank() {
+  return threadIdx.y * blockDim.x + threadIdx.x;
+}
+
+__device__ __forceinline__ int block_rank() {
+  return blockIdx.y * gridDim.x + blockIdx.x;
+}
 
 __device__ float block_sum(float v, float* sh) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = thread_rank(), lane = t & 31, warp = t >> 5;
   __syncthreads();
   if (lane == 0) sh[warp] = v;
   __syncthreads();
-  v = threadIdx.x < kThreads / 32 ? sh[threadIdx.x] : 0.f;
+  v = t < (int)(blockDim.x * blockDim.y) / 32 ? sh[t] : 0.f;
   if (warp == 0)
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;  // valid in thread 0
+  return v;
 }
 
 __device__ int block_sum_int(int v, int* sh) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = thread_rank(), lane = t & 31, warp = t >> 5;
   __syncthreads();
   if (lane == 0) sh[warp] = v;
   __syncthreads();
-  v = threadIdx.x < kThreads / 32 ? sh[threadIdx.x] : 0;
+  v = t < (int)(blockDim.x * blockDim.y) / 32 ? sh[t] : 0;
   if (warp == 0)
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   return v;
@@ -57,11 +68,11 @@ __device__ int block_sum_int(int v, int* sh) {
 __device__ float block_max(float v, float* sh) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, o));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = thread_rank(), lane = t & 31, warp = t >> 5;
   __syncthreads();
   if (lane == 0) sh[warp] = v;
   __syncthreads();
-  v = threadIdx.x < kThreads / 32 ? sh[threadIdx.x] : 0.f;
+  v = t < (int)(blockDim.x * blockDim.y) / 32 ? sh[t] : 0.f;
   if (warp == 0)
     for (int o = 16; o > 0; o >>= 1)
       v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, o));
@@ -70,7 +81,7 @@ __device__ float block_max(float v, float* sh) {
 
 __device__ float block_bcast(float v, float* sh) {
   __syncthreads();
-  if (threadIdx.x == 0) sh[0] = v;
+  if (thread_rank() == 0) sh[0] = v;
   __syncthreads();
   return sh[0];
 }
@@ -89,12 +100,13 @@ __device__ void block_tallies(PairTally t, int nlink, float* fpart,
   const int nb = block_sum_int(t.nb, shi);
   const int ncl = block_sum_int(t.ncl, shi);
   nlink = block_sum_int(nlink, shi);
-  if (threadIdx.x == 0) {
-    fpart[2 * blockIdx.x] = e_lj;
-    fpart[2 * blockIdx.x + 1] = e_b;
-    ipart[3 * blockIdx.x] = nb;
-    ipart[3 * blockIdx.x + 1] = ncl;
-    ipart[3 * blockIdx.x + 2] = nlink;
+  if (thread_rank() == 0) {
+    const int b = block_rank();
+    fpart[2 * b] = e_lj;
+    fpart[2 * b + 1] = e_b;
+    ipart[3 * b] = nb;
+    ipart[3 * b + 1] = ncl;
+    ipart[3 * b + 2] = nlink;
   }
 }
 

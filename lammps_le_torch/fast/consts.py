@@ -61,6 +61,8 @@ class StencilConsts:
         self.kf = kf
         r0sq = r0f * r0f
         self.inv_r0sq = 1.0 / r0sq if r0sq else 0.0
+        # the tiled stencil divides by r0^2 (pallas_kernel.py:78)
+        self.r0sq = r0sq if r0sq else 1.0
         self.neg_kf = -kf
         self.sigf_sq = sigf * sigf
         self.wca_cutsq = 2.0 ** (1.0 / 3.0) * sigf * sigf

@@ -1,5 +1,5 @@
 """Wrappers of the Hopper kernels of the LE step (``csrc/step.cu``,
-``csrc/blocked.cu``).
+``csrc/blocked.cu``, ``csrc/tiled.cu``).
 
 Each wrapper takes the tensors of the plain version in ``kernels_ref.py``
 and returns the same results.  On CPU tensors it runs the plain version;
@@ -15,6 +15,8 @@ stencil_forces         pallas_step.py:249-510, 753-774 (K1 / K2b)
 extruder_springs       pallas_step.py:776-930 (K2c)
 langevin_kick_monitor  pallas_step.py:932-1000 (K2d + K2e)
 newton_half_forces     blocked_kernel.py:90 (K3), body K1
+window_forces          parallel/shard_step.py:55 (K4), body K1
+tiled_stencil_forces   pallas_kernel.py:59 (K5)
 =====================  ==================================================
 """
 
@@ -29,7 +31,8 @@ from . import kernels_ref as ref
 
 LAUNCHES = {"kick_drift_halo": 0, "stencil_forces": 0,
             "extruder_springs": 0, "langevin_kick_monitor": 0,
-            "newton_half_forces": 0}
+            "newton_half_forces": 0, "window_forces": 0,
+            "tiled_stencil_forces": 0}
 
 _LIBS = None
 _P = ctypes.c_void_p
@@ -41,7 +44,7 @@ class StencilArgs(ctypes.Structure):
     _fields_ = ([(k, _F) for k in (
         "lj1", "lj2", "lj3", "lj4", "cutsq", "offe", "floorsq", "inv_r0sq",
         "neg_kf", "sigf_sq", "wca_cutsq", "wca_floorsq", "f_wca", "e_wca",
-        "epsf", "e_fene", "bond_reach_sq")]
+        "epsf", "e_fene", "bond_reach_sq", "r0sq")]
         + [(k, _I) for k in ("has_bond", "wca_is_lj", "energy", "cap", "P",
                              "n")]
         + [("delta", _I * 27)])
@@ -92,7 +95,19 @@ def _lib(name="step"):
         blk.lle_newton_half_forces.argtypes = (
             [_P] * 12 + [StencilArgs, FoldArgs, _P])
         blk.lle_newton_half_forces.restype = _I
-        _LIBS = {"step": lib, "blocked": blk}
+        blk.lle_window_forces.argtypes = (
+            [_P] * 10 + [StencilArgs, _I, _I, _P])
+        blk.lle_window_forces.restype = _I
+        blk.lle_window_blocks.argtypes = [_I, _I]
+        blk.lle_window_blocks.restype = _I
+        tld = ctypes.CDLL(str(paths["tiled"]))
+        tld.lle_tiled_max_cap.restype = _I
+        tld.lle_tiled_blocks.argtypes = [_I]
+        tld.lle_tiled_blocks.restype = _I
+        tld.lle_tiled_stencil_forces.argtypes = [_P] * 10 + [StencilArgs,
+                                                             _P]
+        tld.lle_tiled_stencil_forces.restype = _I
+        _LIBS = {"step": lib, "blocked": blk, "tiled": tld}
     return _LIBS[name]
 
 
@@ -167,7 +182,7 @@ def _stencil_args(C, n, strides, offsets, energy, cap, P):
     return StencilArgs(
         C.lj1, C.lj2, C.lj3, C.lj4, C.cutsq, C.offe, C.floorsq, C.inv_r0sq,
         C.neg_kf, C.sigf_sq, C.wca_cutsq, C.wca_floorsq, C.f_wca, C.e_wca,
-        C.epsf, C.e_fene, C.bond_reach_sq, int(C.kf != 0.0),
+        C.epsf, C.e_fene, C.bond_reach_sq, C.r0sq, int(C.kf != 0.0),
         int(C.wca_is_lj), int(energy), cap, P, n,
         (_I * 27)(*deltas))  # unused slots stay 0
 
@@ -238,6 +253,69 @@ def newton_half_forces(gx, bid, hn, pid, interior, faces, C, n: int,
         _ptr(en), _ptr(ints), a, f, _stream())
     _raise("newton_half_forces", err)
     LAUNCHES["newton_half_forces"] += 1
+    return gf, en, ints
+
+
+def window_forces(xw, bidw, hnw, pidw, ownint, C, n: int, period: int,
+                  strides, energy: bool):
+    """The Newton-half offset loop over S margin-extended slab windows of
+    ``period`` columns, laid side by side, in one launch (the sharded
+    stencil's window call, kernels_ref.window_forces).  Returns (f (3,
+    cap, S * period), stats (5,) = [e_lj, e_b, bond sightings, clamp
+    events, interior links]).  Deterministic: no atomics."""
+    if _on_cpu(xw):
+        return ref.window_forces(xw, bidw, hnw, pidw, ownint, C, n, period,
+                                 strides, energy)
+    cap, Q = _stencil_inputs(xw, bidw, hnw, pidw, ownint)
+    sx, sy, sz = strides
+    if Q % period or sx + sy + sz >= period:
+        raise ValueError(f"window_forces: {Q} columns are not windows of "
+                         f"{period} wider than the margin {sx + sy + sz}")
+    blk = _lib("blocked")
+    if cap > blk.lle_newton_max_cap():
+        raise ValueError(f"window_forces: cell cap {cap} is past the "
+                         f"{blk.lle_newton_max_cap()} rows the kernel is "
+                         f"built for")
+    nblk = blk.lle_window_blocks(period, Q // period)
+    dev = xw.device
+    work = torch.empty((len(ref.HALF_OFFSETS), 3, cap, Q),
+                       dtype=torch.float32, device=dev)
+    f = torch.empty_like(xw)
+    fpart = torch.empty(2 * nblk, dtype=torch.float32, device=dev)
+    ipart = torch.empty(3 * nblk, dtype=torch.int32, device=dev)
+    stats = torch.empty(5, dtype=torch.float32, device=dev)
+    a = _stencil_args(C, n, strides, ref.HALF_OFFSETS, energy, cap, Q)
+    err = blk.lle_window_forces(
+        _ptr(xw), _ptr(bidw), _ptr(hnw), _ptr(pidw), _ptr(ownint),
+        _ptr(work), _ptr(f), _ptr(fpart), _ptr(ipart), _ptr(stats), a,
+        period, Q // period, _stream())
+    _raise("window_forces", err)
+    LAUNCHES["window_forces"] += 1
+    return f, stats
+
+
+def tiled_stencil_forces(gx, bid, hn, pid, interior, C, n: int, strides,
+                         energy: bool):
+    """The tiled full 27-offset stencil in K5's formulas
+    (kernels_ref.tiled_stencil_forces).  Returns what ``stencil_forces``
+    returns."""
+    if _on_cpu(gx):
+        return ref.tiled_stencil_forces(gx, bid, hn, pid, interior, C, n,
+                                        strides, energy)
+    cap, P = _stencil_inputs(gx, bid, hn, pid, interior)
+    tld = _lib("tiled")
+    if cap > tld.lle_tiled_max_cap():
+        raise ValueError(f"tiled_stencil_forces: cell cap {cap} is past the "
+                         f"{tld.lle_tiled_max_cap()} rows the kernel is "
+                         f"built for")
+    gf, fpart, ipart, en, ints = _stencil_outputs(gx,
+                                                  tld.lle_tiled_blocks(P))
+    a = _stencil_args(C, n, strides, _OFFSETS, energy, cap, P)
+    err = tld.lle_tiled_stencil_forces(
+        _ptr(gx), _ptr(bid), _ptr(hn), _ptr(pid), _ptr(interior), _ptr(gf),
+        _ptr(fpart), _ptr(ipart), _ptr(en), _ptr(ints), a, _stream())
+    _raise("tiled_stencil_forces", err)
+    LAUNCHES["tiled_stencil_forces"] += 1
     return gf, en, ints
 
 

@@ -2,10 +2,11 @@
 
 They follow the reference's XLA chain op for op (engine.make_kernel
 engine.py:618-786, make_extruder_pass 838-899 and the reactive ``step``
-1348-1455), and the blocked Newton-half stencil (blocked_kernel.py:90),
-with exact division, in any float type.  On CPU tensors the
-wrappers in ``kernels.py`` run these; on the card ``chip_smoke.py`` holds
-each CUDA kernel against them.
+1348-1455), the blocked Newton-half stencil (blocked_kernel.py:90), the
+sharded slab stencil's window call (parallel/shard_step.py:55) and the
+tiled full stencil (pallas_kernel.py:59), with exact division, in any
+float type.  On CPU tensors the wrappers in ``kernels.py`` run these; on
+the card ``chip_smoke.py`` holds each CUDA kernel against them.
 """
 
 from __future__ import annotations
@@ -47,6 +48,17 @@ def _shift_minor(a, delta: int, fill):
     return torch.cat([pad, a[..., :delta]], dim=-1)
 
 
+def _lj(C, rsq_den, w_f, w_e, energy: bool):
+    """The LJ force factor weighted by ``w_f`` and, with ``energy``, the
+    pair energy weighted by ``w_e``, at the evaluation distance
+    ``rsq_den`` (pair_lj_cut.cpp:119-131).  Returns (r2, r6, ffac, el)."""
+    r2 = 1.0 / rsq_den
+    r6 = r2 * r2 * r2
+    ffac = r6 * (C.lj1 * r6 - C.lj2) * r2 * w_f
+    el = (r6 * (C.lj3 * r6 - C.lj4) - C.offe) * w_e if energy else None
+    return r2, r6, ffac, el
+
+
 def _pair_terms(C, i, j, w_i, energy: bool):
     """LJ + FENE + exclusion terms of broadcast (i, j) slot pairs
     (engine.make_kernel engine.py:683-756, make_offset_loop
@@ -82,10 +94,9 @@ def _pair_terms(C, i, j, w_i, energy: bool):
             torch.clamp(torch.where(in_cut & nz_pair, rsq, one),
                         min=C.floorsq))
         w12 = torch.where(lj_ok, w_i, zero)
-    r2 = 1.0 / rsq_den
-    r6 = r2 * r2 * r2
-    ffac = r6 * (C.lj1 * r6 - C.lj2) * r2 * w12
-    el = w_b = w_cl = eb = None
+    w_lj = torch.where(lj_ok, w_i, zero) if C.wca_is_lj else w12
+    r2, r6, ffac, el = _lj(C, rsq_den, w12, w_lj, energy)
+    w_b = w_cl = eb = None
     if C.kf != 0.0:
         w_b = torch.where(w_b_m, w_i, zero)
         rsq_b = torch.where(bonded, rsq, one)
@@ -104,9 +115,6 @@ def _pair_terms(C, i, j, w_i, energy: bool):
         if energy:
             eb = C.e_fene * torch.log(rlog) + torch.where(
                 wca, C.e_wca * sr6 * (sr6 - 1.0) + C.epsf, zero)
-    if energy:
-        w_lj = torch.where(lj_ok, w_i, zero) if C.wca_is_lj else w12
-        el = (r6 * (C.lj3 * r6 - C.lj4) - C.offe) * w_lj
     return dx, dy, dz, ffac, el, w_b, w_cl, eb
 
 
@@ -186,24 +194,37 @@ def newton_half_forces(gx, bid, hn, pid, interior, faces, C, n: int,
     then fold onto the interior cells they image, z -> y -> x
     (blocked_kernel.py:261-269, comm_brick.cpp:519 reverse_comm), leaving
     ghost columns zero.  Returns what ``stencil_forces`` returns."""
+    valid = valid_mask(bid, interior, n)
+    f, e_lj, e_b, nb_found, n_clamp = _half_offset_loop(
+        gx, bid, hn, pid, valid, C, n, strides, energy,
+        lambda p, s: torch.roll(p, s, -1))
+    f = ghost_fold(f, faces, fold_shifts)
+    en, ints = _tallies(e_lj, e_b, nb_found, n_clamp, valid, hn)
+    return f, en, ints
+
+
+def _half_offset_loop(gx, bid, hn, pid, valid, C, n: int, strides,
+                      energy: bool, roll):
+    """The Newton-half offset loop (make_offset_loop pallas_step.py:300-
+    510) over planes whose column axis ``roll(p, s)`` rolls by ``s`` (the
+    whole grid, or each window of a slab decomposition).  Only ``valid``
+    slots act as i.  Returns (f, e_lj, e_b, nb_found, n_clamp): forces
+    with the reactions subtracted in, and the weighted sums."""
     dtype = gx.dtype
-    cap, P = bid.shape
     sx, sy, sz = strides
     X, Y, Z = gx[0], gx[1], gx[2]
-    valid = valid_mask(bid, interior, n)
     w_i = valid[:, None, :].to(dtype)
     zero = torch.zeros((), dtype=dtype, device=gx.device)
     u1 = torch.where(hn, bid + 1, n + 2)
     i = (X[:, None, :], Y[:, None, :], Z[:, None, :], bid[:, None, :],
          u1[:, None, :], pid[:, None, :])
-    f = torch.zeros((3, cap, P), dtype=dtype, device=gx.device)
+    f = torch.zeros_like(gx)
     e_lj = e_b = nb_found = n_clamp = zero
     for (a, b, c) in HALF_OFFSETS:
         delta = a * sx + b * sy + c * sz
         wgt = 1.0 if delta == 0 else 2.0
-        # j planes at column (c + delta) mod P
-        j = tuple(torch.roll(p, -delta, -1)[None] for p in (X, Y, Z, bid,
-                                                            u1))
+        # j planes at column (c + delta) mod the period
+        j = tuple(roll(p, -delta)[None] for p in (X, Y, Z, bid, u1))
         dx, dy, dz, ffac, el, w_b, w_cl, eb = _pair_terms(C, i, j, w_i,
                                                           energy)
         if w_b is not None:
@@ -216,16 +237,133 @@ def newton_half_forces(gx, bid, hn, pid, interior, faces, C, n: int,
         pair_f = torch.stack([dx * ffac, dy * ffac, dz * ffac])
         f = f + torch.sum(pair_f, dim=2)
         if delta:
-            f = f - torch.roll(torch.sum(pair_f, dim=1), delta, -1)
-    faces = faces.to(dtype)
+            f = f - roll(torch.sum(pair_f, dim=1), delta)
+    return f, e_lj, e_b, nb_found, n_clamp
+
+
+def ghost_fold(f, faces, fold_shifts):
+    """Reactions left on ghost columns folded onto the interior cells they
+    image, z -> y -> x, as the reference's masked rolls
+    (blocked_kernel.py:261-269, shard_step.py:229-237; comm_brick.cpp:519
+    reverse_comm), leaving ghost columns zero.  ``faces`` (6, P) bool and
+    ``fold_shifts`` are FastMaps' fold constants.  Besides the plain
+    Newton-half stencil, the sharded stencil folds its assembled planes
+    with it on every device: there the reference folds in XLA, outside
+    its kernel, and the port in plain PyTorch."""
+    P = f.shape[-1]
+    faces = faces.to(f.dtype)
     for axis in (2, 1, 0):
         s_lo, s_hi = fold_shifts[axis]
         m_lo, m_hi = faces[2 * axis], faces[2 * axis + 1]
         keep = 1.0 - m_lo - m_hi
         f = (f * keep + torch.roll(f * m_lo, (P - s_lo) % P, -1)
              + torch.roll(f * m_hi, (P - s_hi) % P, -1))
-    en, ints = _tallies(e_lj, e_b, nb_found, n_clamp, valid, hn)
-    return f, en, ints
+    return f
+
+
+def window_forces(xw, bidw, hnw, pidw, ownint, C, n: int, period: int,
+                  strides, energy: bool):
+    """The sharded stencil's window call (shard_step._window_call
+    shard_step.py:55, K4; body make_offset_loop): the Newton-half offset
+    loop over every slab's margin-extended window, with the reactions
+    kept in the window and no ghost fold.
+
+    The planes hold S windows of ``period`` columns side by side: ``xw``
+    (3, cap, S * period), ``bidw``/``hnw``/``pidw`` (cap, S * period),
+    ``ownint`` (S * period,) bool, each slab's own interior columns.  A
+    slot acts as i where it holds a bead in an own interior column; the
+    j column of offset d is (w + d) mod ``period`` in the same window
+    (shard_step.py:152-158).  Returns (f (3, cap, S * period), stats (5,)
+    = [e_lj, e_b, bond sightings, clamp events, interior links], summed
+    over the windows, unhalved)."""
+    S = xw.shape[-1] // period
+    valid = valid_mask(bidw, ownint, n)
+
+    def roll(p, s):
+        shape = p.shape
+        return torch.roll(p.reshape(shape[:-1] + (S, period)), s,
+                          -1).reshape(shape)
+
+    f, e_lj, e_b, nb_found, n_clamp = _half_offset_loop(
+        xw, bidw, hnw, pidw, valid, C, n, strides, energy, roll)
+    n_links = torch.sum(valid & hnw).to(xw.dtype)
+    return f, torch.stack([e_lj, e_b, nb_found, n_clamp, n_links])
+
+
+def tiled_stencil_forces(gx, bid, hn, pid, interior, C, n: int, strides,
+                         energy: bool):
+    """The tiled full 27-offset stencil (make_pallas_kernel
+    pallas_kernel.py:94-263, K5), in its own formulas, which differ from
+    ``stencil_forces``': the bonded test reads the has-next bits (the
+    same boolean as the chain codes); the exclusion is bonded or partner;
+    a bond needs rsq > 0 too; the bond's WCA is its own term at rsq
+    floored to the WCA floor, never merged into the LJ chain, and the
+    FENE log takes rsq / r0^2 by division.  The LJ force and energy terms
+    are ``_lj``, shared with ``_pair_terms``.  The i weight is the column's
+    interior bit; j columns outside [0, P) hold far-away empty slots (no
+    wrap).  Forces accumulate per (i row, j row) over the offsets and are
+    summed over the j rows at the end; tallies as ``stencil_forces``.
+    Returns what ``stencil_forces`` returns (f32 only, as K5)."""
+    dtype = gx.dtype
+    cap, P = bid.shape
+    sx, sy, sz = strides
+    X, Y, Z = gx[0], gx[1], gx[2]
+    w_i = interior[None, None, :].to(dtype)
+    zero = torch.zeros((), dtype=dtype, device=gx.device)
+    one = torch.ones((), dtype=dtype, device=gx.device)
+    xi, yi, zi = X[:, None, :], Y[:, None, :], Z[:, None, :]
+    bi, hi, pi = bid[:, None, :], hn[:, None, :], pid[:, None, :]
+    fx = torch.zeros((cap, cap, P), dtype=dtype, device=gx.device)
+    fy = torch.zeros_like(fx)
+    fz = torch.zeros_like(fx)
+    e_lj = e_b = nb_found = n_clamp = zero
+    for (a, b, c) in _OFFSETS:
+        delta = a * sx + b * sy + c * sz
+        xj, yj, zj, bj, hj = (_shift_minor(p, delta, fill)[None] for p, fill
+                              in ((X, _FAR), (Y, _FAR), (Z, _FAR), (bid, n),
+                                  (hn, False)))
+        dx = xi - xj
+        dy = yi - yj
+        dz = zi - zj
+        rsq = dx * dx + dy * dy + dz * dz
+        nz_pair = rsq > 0.0
+        bonded = ((bj == bi + 1) & hi) | ((bi == bj + 1) & hj)
+        in_cut = rsq < C.cutsq
+        w_lj = torch.where(in_cut & nz_pair & ~(bonded | (bj == pi)), w_i,
+                           zero)
+        rsq_lj = torch.clamp(torch.where(in_cut & nz_pair, rsq, one),
+                             min=C.floorsq)
+        _, _, ffac, el = _lj(C, rsq_lj, w_lj, w_lj, energy)
+        if energy:
+            e_lj = e_lj + torch.sum(el)
+        if C.kf != 0.0:
+            bond = bonded & nz_pair & (rsq < C.bond_reach_sq)
+            w_b = torch.where(bond, w_i, zero)
+            rsq_b = torch.where(bond, rsq, one)
+            rlog = 1.0 - rsq_b / C.r0sq
+            cl = rlog < 0.1
+            rlog = torch.where(cl, 0.1, rlog)
+            fb = C.neg_kf / rlog
+            rsq_w = torch.clamp(rsq_b, min=C.wca_floorsq)
+            sr2 = C.sigf_sq / rsq_w
+            sr6 = sr2 * sr2 * sr2
+            wca = rsq_b < C.wca_cutsq
+            fb = fb + torch.where(
+                wca, C.f_wca * sr6 * (sr6 - 0.5) / rsq_w, zero)
+            ffac = ffac + fb * w_b
+            nb_found = nb_found + torch.sum(w_b)
+            n_clamp = n_clamp + torch.sum(torch.where(cl, w_b, zero))
+            if energy:
+                e_b = e_b + torch.sum(w_b * (
+                    C.e_fene * torch.log(rlog) + torch.where(
+                        wca, C.e_wca * sr6 * (sr6 - 1.0) + C.epsf, zero)))
+        fx = fx + dx * ffac
+        fy = fy + dy * ffac
+        fz = fz + dz * ffac
+    gf = torch.stack([fx.sum(dim=1), fy.sum(dim=1), fz.sum(dim=1)])
+    en, ints = _tallies(e_lj, e_b, nb_found, n_clamp,
+                        valid_mask(bid, interior, n), hn)
+    return gf, en, ints
 
 
 def extruder_springs(gx, gf, exl_slot, exr_slot, active, S):

@@ -3,7 +3,8 @@ plain version of csrc/blocked.cu) against the reference: the blocked
 Pallas kernel K3 in interpret mode (two lane blocks, the last partial) at
 its f32 tolerances (forces 3e-5 * max|f|, energies 5e-2 + 1e-4 * |e| as
 tests/test_blocked_kernel.py:99-104, flags and clamps equal, ghost
-columns exactly zero), and engine.make_kernel in f64 at 1e-10.  The
+columns exactly zero; one reference call, with energies, for both energy
+modes), and engine.make_kernel in f64 at 1e-10.  The
 engine picks it past the reference's whole-plane gate in f32 only.  The
 engine run on it is pinned in tests/test_torch_segment.py, the CUDA kernel
 in tests/test_torch_cuda.py."""
@@ -31,11 +32,11 @@ NP = {"float32": np.float32, "float64": np.float64}
 
 
 @functools.lru_cache(maxsize=None)
-def _grid(dtype="float32", fene_sigma=1.0):
+def _grid(dtype="float32", fene_sigma=1.0, cap=8):
     """melt32 on the grid with one FENE bond past the clamp and one past
-    the stencil's reach (both flags set)."""
+    the stencil's reach (both flags set); its fullest cell holds 6."""
     _, d = melt_arrays()
-    system, _ = make_system(dtype=dtype, fene_sigma=fene_sigma)
+    system, _ = make_system(dtype=dtype, fene_sigma=fene_sigma, cap=cap)
     x = d["x"].astype(NP[dtype]).copy()
     x[100, 0] += 1.45
     x[300, 1] += 4.5
@@ -57,21 +58,22 @@ def _port(dtype, energy, fene_sigma=1.0):
 
 
 @functools.lru_cache(maxsize=None)
-def _k3(energy):
+def _k3():
     """The reference's K3 in interpret mode, 384-lane blocks over P = 512
-    (two blocks, the second partial); one call per energy mode."""
+    (two blocks, the second partial), with energies: one call, shared by
+    both energy modes of the port (the energy mode only adds the energy
+    sums; forces, flags and clamps are the same)."""
     system, maps, _, (bid, hn, pid), gx = _grid()
     jmaps = ref.fast_maps(system)
     kern = make_blocked_kernel(system, jmaps, 2, interpret=True, cl=384)
     assert kern.n_blocks == 2 and jmaps.P % kern.block_lanes != 0
-    out = kern(*(jnp.asarray(t.numpy()) for t in (gx, bid, hn, pid)),
-               energy)
+    out = kern(*(jnp.asarray(t.numpy()) for t in (gx, bid, hn, pid)), True)
     return tuple(np.asarray(o) for o in out)
 
 
 @pytest.mark.parametrize("energy", [True, False])
 def test_newton_half_vs_blocked_kernel_interpret(energy):
-    gf_w, el_w, eb_w, fl_w, cl_w = _k3(energy)
+    gf_w, el_w, eb_w, fl_w, cl_w = _k3()
     gf, en, ints = _port("float32", energy)
     scale = max(float(np.abs(gf_w).max()), 1.0)
     assert float(np.abs(gf.numpy() - gf_w).max()) <= 3e-5 * scale
@@ -79,6 +81,8 @@ def test_newton_half_vs_blocked_kernel_interpret(energy):
         for got, want in ((en[0], el_w), (en[1], eb_w)):
             assert abs(float(got) - float(want)) <= (
                 5e-2 + 1e-4 * abs(float(want)))
+    else:
+        assert float(en.abs().max()) == 0.0
     assert [int(ints[0]), int(ints[1])] == [int(fl_w), int(cl_w)]
     assert int(ints[0]) == 64 | 8 and int(ints[1]) >= 1
 
@@ -88,7 +92,7 @@ def test_newton_half_ghost_columns_zero():
     zero, in the port as in K3 (comm_brick.cpp:519 reverse_comm)."""
     _, maps, g, _, _ = _grid()
     ghost = ~maps.interior[:maps.p_raw]
-    gf_w = _k3(False)[0]
+    gf_w = _k3()[0]
     gf = _port("float32", False)[0].numpy()
     assert np.all(gf_w[:, :, :maps.p_raw][:, :, ghost] == 0.0)
     assert np.all(gf[:, :, :maps.p_raw][:, :, ghost] == 0.0)

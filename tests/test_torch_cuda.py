@@ -154,6 +154,53 @@ def test_langevin_kick_monitor(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sp,energy", [(2, True), (4, False), (1, True)])
+def test_window_forces(dev, sp, energy):
+    """The sharded stencil's window kernel against its plain version on
+    sp windows (one launch for all), two launches bitwise equal; the
+    assembled, folded forces against stencil_forces, ghost columns 0."""
+    from lammps_le_torch.parallel.shard_step import make_sharded_kernel
+
+    system, maps, g, p, _ = _planes(dev)
+    kern = make_sharded_kernel(system, maps, 2, [dev] * sp)
+    (slabs, args), = kern.window_args(p[0], p[3], p[4], p[5], energy)
+    assert slabs == list(range(sp))
+    K.reset_launches()
+    a = K.window_forces(*args)
+    b = K.window_forces(*args)
+    r = R.window_forces(*args)
+    assert K.LAUNCHES["window_forces"] == 2
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert _close(a[0], r[0])
+    assert float((a[1][:2] - r[1][:2]).abs().max()) <= 2e-2
+    assert torch.equal(a[1][2:], r[1][2:])
+    gf, en, ints = kern(g, p[0], p[3], p[4], p[5], energy)
+    full = K.stencil_forces(p[0], p[3], p[4], p[5], g.interior,
+                            StencilConsts(system), system.n, maps.strides,
+                            energy)
+    valid = R.valid_mask(p[3], g.interior, system.n)
+    assert float((full[0] * valid - gf).abs().max()) <= 2e-4 * max(
+        float(full[0].abs().max()), 1.0)
+    assert torch.equal(ints, full[2]) and int(ints[0]) == 64 | 8
+    assert float(gf[:, :, ~g.interior].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap,energy", [(9, True), (9, False), (16, True)])
+def test_tiled_stencil_forces(dev, cap, energy):
+    system, maps, g, p, _ = _planes(dev, cap)
+    args = (p[0], p[3], p[4], p[5], g.interior, StencilConsts(system),
+            system.n, maps.strides, energy)
+    K.reset_launches()
+    fk, ek, ik = K.tiled_stencil_forces(*args)
+    fr, er, ir = R.tiled_stencil_forces(*args)
+    assert K.LAUNCHES["tiled_stencil_forces"] == 1
+    assert _close(fk, fr)
+    assert float((ek - er).abs().max()) <= 2e-2
+    assert torch.equal(ik, ir) and int(ik[0]) == 64 | 8
+
+
+@pytest.mark.cuda
 def test_engine_on_card_matches_cpu(dev):
     """40 steps with every LE fix: the same events on the card (kernels)
     as on the CPU (plain versions), positions within 1e-3, each kernel
@@ -165,4 +212,12 @@ def test_engine_on_card_matches_cpu(dev):
 def test_newton_half_engine_on_card_matches_cpu(dev):
     """The same on the Newton-half stencil (the engine's kernel past the
     whole-plane gate), passed in as kernel_fn."""
-    chip_smoke.small_end_to_end(dev, newton_half=True)
+    chip_smoke.small_end_to_end(dev, stencil="newton_half_forces")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stencil", ["window_forces", "tiled_stencil_forces"])
+def test_kernel_path_engine_on_card_matches_cpu(dev, stencil):
+    """The same on the sharded slab stencil (two slabs on the card) and on
+    the tiled full stencil, each passed in as kernel_fn."""
+    chip_smoke.small_end_to_end(dev, stencil=stencil)

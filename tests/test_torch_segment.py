@@ -2,9 +2,11 @@
 all three LE fixes for 20 steps gives the same extruder tables, LE
 counters, flags, step and rebuild schedule as make_fast_segment(
 pallas=False), positions within 1e-3 and epair within 0.1 (the
-tolerances of tests/test_pallas_step.py:105-128), on the full stencil and
-on the Newton-half stencil of grids past the whole-plane gate (the same
-reference run); one step also against the fused Pallas kernel in
+tolerances of tests/test_pallas_step.py:105-128), on the full stencil, on
+the Newton-half stencil of grids past the whole-plane gate, on the
+sharded slab stencil at sp=2 (make_sharded_segment) and on the tiled
+full stencil (make_pallas_kernel as kernel_fn), all against the same
+reference run; one step also against the fused Pallas kernel in
 interpret mode.  The port runs where jax is absent without loading the
 reference package, its entry points default to the card, and it refuses
 what it does not cover."""
@@ -31,7 +33,9 @@ from lammps_le_torch.fast import (fast_block_reason, from_fast,
                                   to_fast)
 from lammps_le_torch.fast.blocked_kernel import make_blocked_kernel
 from lammps_le_torch.fast.maps import fast_maps
+from lammps_le_torch.fast.pallas_kernel import make_pallas_kernel
 from lammps_le_torch.integrate import Simulation
+from lammps_le_torch.parallel.spatial import make_sharded_segment
 from lammps_le_torch.state import init_state, state_from_arrays
 from lammps_le_tpu.fast import engine as ref
 from lammps_le_tpu.integrate import Simulation as RefSimulation
@@ -72,19 +76,27 @@ def _ref_run(nsteps, energy_every, pallas=False):
     return arrays_of(js), fj
 
 
-def _run_both(nsteps, energy_every, pallas=False, kernel_fn=None):
+def _run_both(nsteps, energy_every, pallas=False, kernel_fn=None,
+              mesh=None):
+    """Both engines from the same start; the port on ``kernel_fn``, or on
+    make_sharded_segment over ``mesh``."""
     system, _ = melt_arrays()
     sim = _sims(system, energy_every)[1]
     start, fj = _ref_run(nsteps, energy_every, pallas)
     b = int(start["step"])
-    tseg = make_fast_segment(sim, "cpu", kernel_fn)
+    if mesh is None:
+        tseg = make_fast_segment(sim, "cpu", kernel_fn)
+    else:
+        tseg = make_sharded_segment(sim, mesh)
+        kernel_fn = tseg.kernel_fn
     ft = to_fast(state_from_arrays(start, "cpu"), sim, kernel_fn)
     ft = tseg(ft, b, nsteps, b, b + nsteps)
     return system, fj, ft
 
 
-def _check_segment(kernel_fn=None):
-    system, fj, ft = _run_both(20, energy_every=4, kernel_fn=kernel_fn)
+def _check_segment(kernel_fn=None, mesh=None):
+    system, fj, ft = _run_both(20, energy_every=4, kernel_fn=kernel_fn,
+                               mesh=mesh)
     np.testing.assert_array_equal(np.asarray(fj.ex_left), ft.ex_left.numpy())
     np.testing.assert_array_equal(np.asarray(fj.ex_right),
                                   ft.ex_right.numpy())
@@ -117,6 +129,18 @@ def test_newton_half_segment_matches_reference_xla_chain():
     the same reference run."""
     system, _ = melt_arrays()
     _check_segment(make_blocked_kernel(system, fast_maps(system), 2))
+
+
+@pytest.mark.parametrize("path", ["sharded_sp2", "tiled"])
+def test_kernel_path_segment_matches_reference_xla_chain(path):
+    """The sharded slab stencil (K4's counterpart, two slabs) through
+    make_sharded_segment, and the tiled full stencil (K5's counterpart)
+    as kernel_fn, against the same reference run."""
+    system, _ = melt_arrays()
+    if path == "tiled":
+        _check_segment(make_pallas_kernel(system, fast_maps(system), 2))
+    else:
+        _check_segment(mesh=["cpu"] * 2)
 
 
 def test_one_step_matches_fused_pallas_interpret():
@@ -199,10 +223,13 @@ import numpy as np, torch
 from lammps_le_torch.io.data import system_from_data
 from lammps_le_torch.scene import serpentine
 from lammps_le_torch.system import BOND_FENE, BOND_HARMONIC, BondParams, PairLJCut
-from lammps_le_torch.fast import run_fast
+from lammps_le_torch.fast import from_fast, run_fast, to_fast
 from lammps_le_torch.fast.blocked_kernel import make_blocked_kernel
 from lammps_le_torch.fast.engine import select_kernel
 from lammps_le_torch.fast.maps import fast_maps
+from lammps_le_torch.fast.pallas_kernel import make_pallas_kernel
+from lammps_le_torch.parallel.shard_step import shardable
+from lammps_le_torch.parallel.spatial import make_sharded_segment
 from lammps_le_torch.csrc import build
 from lammps_le_torch.fixes import NVE, Langevin, Extrusion
 from lammps_le_torch.integrate import Simulation
@@ -225,7 +252,14 @@ assert select_kernel(system, fast_maps(system), 2).__qualname__.startswith(
     "make_kernel")
 st = run_fast(sim, st, 2,
               kernel_fn=make_blocked_kernel(system, fast_maps(system), 2))
-assert int(st.step) == 2 and bool(torch.isfinite(st.x).all())
+st = run_fast(sim, st, 2,
+              kernel_fn=make_pallas_kernel(system, fast_maps(system), 2))
+assert shardable(system, fast_maps(system), ["cpu"] * 2) is None
+seg = make_sharded_segment(sim, ["cpu"] * 2)
+fs = to_fast(st, sim, seg.kernel_fn)
+seg(fs, 4, 2, 4, 6)
+st = from_fast(fs, system)
+assert int(st.step) == 6 and bool(torch.isfinite(st.x).all())
 assert not any(m.split(".")[0] in ("jax", "flax", "lammps_le_tpu")
                and sys.modules[m] for m in list(sys.modules))
 print("ok", int(st.n_moves))

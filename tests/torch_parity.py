@@ -5,6 +5,7 @@ between the reference's jax State and the port's torch State."""
 import functools
 
 import numpy as np
+import torch
 
 import jax.numpy as jnp
 
@@ -13,6 +14,11 @@ from lammps_le_tpu.io.data import system_from_data
 from lammps_le_tpu.scene import serpentine
 from lammps_le_tpu.system import (BOND_FENE, BOND_HARMONIC, BondParams,
                                   PairLJCut)
+
+# one intra-op thread for the port's plain versions: their tensors are
+# small, and the parallel test run puts several workers on each core,
+# where more threads only contend (the port's tests are timed so, too)
+torch.set_num_threads(1)
 
 STATE_FIELDS = ("x", "v", "f", "img", "type", "ex_left", "ex_right", "key",
                 "step", "flags", "epair", "ebond", "n_moves", "n_loads",
