@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the lammps_le_torch port on one CUDA card.
 
-Drives the port's four paths through its user entry points:
+The instructions one IEEE reciprocal issues, read from the built
+library's SASS, and the card's SM count and clock set the operation
+bounds of every kernel.  It drives the port's five paths through its
+user entry points:
 
 1. bench.py's production LE configuration (bench.py:398-486): a
    100,000-bead serpentine chromosome on the grid-resident fast engine,
@@ -14,19 +17,25 @@ Drives the port's four paths through its user entry points:
 3. the 100k configuration's 1,500 measured steps, from the same settled
    state, on the sharded slab stencil (make_sharded_segment) at sp=2 with
    both slabs on the card;
-4. the same on the tiled full stencil (make_pallas_kernel as kernel_fn).
+4. the same on the tiled full stencil (make_pallas_kernel as kernel_fn);
+5. the 100k configuration anew with its Langevin fix on the group of
+   beads 1-90,000 with ``zero yes`` (the last tenth runs NVE).
 
 After each it holds that path's hand-written CUDA kernels against their
 plain PyTorch versions at the shapes the run gave them and times both
-(one record per path and kernel; paths 3 and 4 record their stencil, the
-other kernels having run at path 1's shapes), and the stencils of paths
-3 and 4 against the full stencil on the same planes; it repeats paths 3
-and 4 with every stencil call held against another stencil on the
-planes of that call (``witness``); after config 6 it
-runs copies of its state on past the window on both stencils, printing
-flags and the fullest cell; then it runs a small system end to end on the
-card and on the CPU, on the full and Newton-half stencils, to compare the
-two.
+(one record per path and kernel; paths 3, 4 and 5 record their stencil or
+their Langevin kernel, the other kernels having run at path 1's shapes),
+and the stencils of paths 3 and 4 against the full stencil on the same
+planes; it repeats paths 3 and 4 with every stencil call held against
+another stencil on the planes of that call (``witness``); after config 6
+it runs copies of its state on past the window on both stencils,
+printing flags and the fullest cell.  Then it runs the two microprobes
+(lammps_le_torch/probes), each as its ``__main__`` runs it at the TPU
+probes' shapes: P1, the IEEE reciprocal against ``rcp.approx`` in a
+division-bound chain and the latter's error, and P2, an f32 elementwise
+chain against packed bf16, each kernel held against its plain version.
+Last it runs a small system end to end on the card and on the CPU, on
+the full and Newton-half stencils, to compare the two.
 
     python3 chip_smoke.py [--profile STEPS] [--overrun STEPS]
 
@@ -65,9 +74,22 @@ GRID = (9, 33664)  # (cap, P) of the (3, cap, P) planes at that config
 C6 = dict(beads=1_000_000, thermalize=400, settle=200, warm=20,
           measure=600, n_ex0=5000, grid=(9, 358144))
 
-# the card's peaks for the bound columns (NVIDIA's H100 SXM data sheet, at
-# 700 W): memory bytes/s and f32 operations/s outside the tensor cores
-HBM_BPS, F32_OPS = 3.35e12, 67e12
+# the card's memory rate for the bound columns (NVIDIA's H100 SXM data
+# sheet, at 700 W)
+HBM_BPS = 3.35e12
+# instructions a clock per SM: f32 add, multiply, min/max (and every other
+# instruction: four schedulers issue one 32-lane warp instruction a clock
+# each), and the MUFU pipe of reciprocals and square roots (the CUDA C++
+# Programming Guide's arithmetic-instruction throughput table, compute
+# capability 9.0).  The card's SM count and maximum SM clock turn them
+# into rates (``set_rates``); an IEEE reciprocal costs the instructions
+# that the built library issues for one (probes.probe_rcp.rcp_price).
+LANES_SM, MUFU_LANES_SM = 128, 16
+RATES = {}  # f32 and mufu operations/s, the reciprocal's instructions
+# the bound columns before PR 5 charged every f32 operation, a division
+# as one, at the data sheet's 67 TFLOP/s, which counts an FMA as two
+# operations: the port builds with -fmad=false and issues no FMA
+F32_OPS_FMA = 67e12
 # f32 operations of one examined slot pair, the arithmetic every pair
 # does (3 differences, 5 for r^2, 1 division, 2 for r^6, 4 for the force
 # factor, 6 to scale and add the force); the Newton-half stencil adds 3
@@ -76,8 +98,13 @@ HBM_BPS, F32_OPS = 3.35e12, 67e12
 PAIR_OPS = {"stencil_forces": 21, "newton_half_forces": 24,
             "tiled_stencil_forces": 21, "window_forces": 24}
 SP_PATH, SP_PHASES = 2, (2, 4)  # slabs of path 3; of its kernel phase
+# the source of each kernel not in step.cu
 SOURCES = {"newton_half_forces": "blocked.cu", "window_forces": "blocked.cu",
-           "tiled_stencil_forces": "tiled.cu"}  # else step.cu
+           "tiled_stencil_forces": "tiled.cu", "rcp_chain": "probes.cu",
+           "rcp": "probes.cu", "elementwise_chain": "probes.cu"}
+# path 5: the thermostat's group, beads 1-90,000 of 100,000 (group chain
+# id 1:90000); the last tenth of the chromosome runs NVE
+N_CHAIN = 90_000
 
 
 def fail(msg):
@@ -139,13 +166,16 @@ def config6_system():
 
 
 def le_fixes(extrusion_every=1000, load_every=700, fraction=0.001,
-             release_r=0.0):
+             release_r=0.0, zero=False, group=None):
+    """bench.py's production fixes; ``zero`` and ``group`` are its
+    Langevin fix's options (path 5)."""
     from lammps_le_torch.fixes import (NVE, ExLoad, ExUnload, Extrusion,
                                        Langevin)
 
     return (
         NVE(),
-        Langevin(t_start=1.0, t_stop=1.0, damp=10.0, seed=904297),
+        Langevin(t_start=1.0, t_stop=1.0, damp=10.0, seed=904297, zero=zero,
+                 group=group),
         Extrusion(nevery=extrusion_every, neutral_type=1, ctcf_left=2,
                   ctcf_right=3, through_prob=0.5, btype=2,
                   ctcf_left_right=4, release_r=release_r),
@@ -175,14 +205,14 @@ def seed_extruders(state, n_ex, spacing, e_cap, reset_step=True):
                          step=zero.clone() if reset_step else state.step)
 
 
-def timed_run(label, sim, state, steps):
+def timed_run(label, sim, state, steps, groups=None):
     """``run_fast`` with its wall time and flags printed."""
     import torch
 
     from lammps_le_torch.fast import run_fast
 
     t0 = time.perf_counter()
-    state = run_fast(sim, state, steps)
+    state = run_fast(sim, state, steps, groups=groups)
     torch.cuda.synchronize()
     print(f"{label} {steps} steps {time.perf_counter() - t0:.2f} s, "
           f"flags={int(state.flags):#x}", flush=True)
@@ -190,18 +220,19 @@ def timed_run(label, sim, state, steps):
 
 
 def measured_segment(sim, state, dev, warm, measure, profile_steps,
-                     kernel_fn=None, segment=None):
+                     kernel_fn=None, segment=None, groups=None):
     """``warm`` steps, then ``measure`` timed steps with the launch counts
     zeroed just before them and read just after, on ``segment`` (default
-    ``make_fast_segment`` on ``kernel_fn``).  Returns (FastState, measured
-    wall s, rebuilds and kernel launches in the window)."""
+    ``make_fast_segment`` on ``kernel_fn``); ``groups`` as to_fast's.
+    Returns (FastState, measured wall s, rebuilds and kernel launches in
+    the window)."""
     import torch
 
     from lammps_le_torch.fast import kernels as K
     from lammps_le_torch.fast import make_fast_segment, to_fast
 
     segment = segment or make_fast_segment(sim, dev, kernel_fn)
-    fs = to_fast(state, sim, kernel_fn)
+    fs = to_fast(state, sim, kernel_fn, groups)
     b0 = fs.step
     bend = b0 + warm + measure
     segment(fs, b0, warm, b0, bend)
@@ -222,10 +253,11 @@ def measured_segment(sim, state, dev, warm, measure, profile_steps,
     return fs, wall, rebuilds, launches
 
 
-def drive(system, data, dev):
+def drive(system, data, dev, groups=None):
     """bench.py's thermalize / settle phases on the port.  Returns the
     production Simulation and the settled State that its measured phase
-    starts from."""
+    starts from.  With ``groups`` (path 5) the production Langevin fix
+    thermostats the group ``chain`` with ``zero yes``."""
     import torch
 
     from lammps_le_torch import rng
@@ -241,11 +273,12 @@ def drive(system, data, dev):
     state = timed_run("thermalize", warm, state, THERMALIZE)
 
     state = seed_extruders(state, N_EX0, n // N_EX0, system.max_extruders)
+    fixes = le_fixes(zero=True, group="chain") if groups else le_fixes()
     sim = Simulation(system=system, dt=0.006, energy_every=100,
-                     fixes=le_fixes(), ex_btype=2)
+                     fixes=fixes, ex_btype=2)
     settle = Simulation(system=system, dt=0.002, fixes=sim.fixes,
                         ex_btype=2)
-    state = timed_run("settle", settle, state, SETTLE)
+    state = timed_run("settle", settle, state, SETTLE, groups)
     # bench.py's R=1 replica: key folded with replica seed 100
     return sim, state.replace(
         flags=torch.zeros_like(state.flags),
@@ -338,12 +371,44 @@ def check_run(label, fs, system, wall, rebuilds, launches, measure, grid,
              f"(want {want})")
 
 
-def bound(nbytes, ops):
-    """(ms, what bounds it): the least time an H100 SXM takes to move
-    ``nbytes`` or to do ``ops`` f32 operations, whichever is longer."""
+def set_rates(card):
+    """RATES from this card: the f32 and MUFU rates from its SM count and
+    maximum SM clock (nvidia-smi), and the instructions one IEEE
+    reciprocal issues, from the SASS of the built probes library."""
+    import torch
+
+    from lammps_le_torch.probes.probe_rcp import rcp_price
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    price, exact, approx = rcp_price()
+    RATES.update(f32=LANES_SM * sms * mhz * 1e6,
+                 mufu=MUFU_LANES_SM * sms * mhz * 1e6, div=price)
+    print(f"bound rates ({card}): {sms} SMs at {mhz:.0f} MHz: f32 "
+          f"{RATES['f32']:.4g} operations/s ({LANES_SM} lanes a clock per "
+          f"SM; the data sheet's FMA-counted {F32_OPS_FMA:.3g}), MUFU "
+          f"{RATES['mufu']:.4g}/s; an IEEE reciprocal issues {price} "
+          f"instructions on its fast path (SASS of the one-pass kernels: "
+          f"exact {' '.join(exact)} | approximate {' '.join(approx)})",
+          flush=True)
+
+
+def bound(nbytes, ops, divs=0, mufu=0):
+    """(ms, what bounds it, the pre-PR 5 ms): the least time an H100 SXM
+    takes to move ``nbytes`` or to issue ``ops`` f32 operations,
+    ``divs`` IEEE reciprocals and ``mufu`` further MUFU operations,
+    whichever is longest.  Each reciprocal issues RATES["div"]
+    instructions, one of them on the MUFU pipe.  The pre-PR 5 figure
+    charged ops + divs at 67 TFLOP/s."""
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = ops / F32_OPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops = max((ops + divs * RATES["div"]) / RATES["f32"],
+                (divs + mufu) / RATES["mufu"]) * 1e3
+    old = max(t_bytes, (ops + divs) / F32_OPS_FMA * 1e3)
+    return ((t_bytes, "bytes", old) if t_bytes >= t_ops
+            else (t_ops, "operations", old))
 
 
 def stencil_bound(name, fs, g, maps, n):
@@ -364,15 +429,18 @@ def stencil_bound(name, fs, g, maps, n):
     occ = (fs.bid < n).sum(0, dtype=torch.int64)
     n_i = R.valid_mask(fs.bid, g.interior, n).sum(0, dtype=torch.int64)
     newton = name == "newton_half_forces"
-    ops = 0
+    ops = pairs = 0
     for (a, b, c) in (R.HALF_OFFSETS if newton else _OFFSETS):
         delta = a * sx + b * sy + c * sz
         if delta == 0:
-            ops += int((n_i * (occ - 1)).sum()) * PAIR_OPS["stencil_forces"]
+            k = int((n_i * (occ - 1)).sum())
+            ops += k * (PAIR_OPS["stencil_forces"] - 1)
         else:
-            ops += int((n_i * torch.roll(occ, -delta)).sum()) * PAIR_OPS[name]
+            k = int((n_i * torch.roll(occ, -delta)).sum())
+            ops += k * (PAIR_OPS[name] - 1)
+        pairs += k
     nbytes = cap * P * (12 + 4 + 1 + 4 + 12) + P * (1 + 6 * newton)
-    return bound(nbytes, ops)
+    return bound(nbytes, ops, divs=pairs)
 
 
 def window_bound(wargs, n):
@@ -391,15 +459,18 @@ def window_bound(wargs, n):
     occ = (bidw < n).sum(0, dtype=torch.int64).view(-1, period)
     n_i = R.valid_mask(bidw, own, n).sum(0, dtype=torch.int64).view(
         -1, period)
-    ops = 0
+    ops = pairs = 0
     for (a, b, c) in R.HALF_OFFSETS:
         delta = a * sx + b * sy + c * sz
         if delta == 0:
-            ops += int((n_i * (occ - 1)).sum()) * PAIR_OPS["stencil_forces"]
+            k = int((n_i * (occ - 1)).sum())
+            ops += k * (PAIR_OPS["stencil_forces"] - 1)
         else:
-            ops += int((n_i * torch.roll(occ, -delta, -1)).sum()) * PAIR_OPS[
-                "window_forces"]
-    return bound(cap * Q * (12 + 4 + 1 + 4 + 12) + Q + 5 * 4, ops)
+            k = int((n_i * torch.roll(occ, -delta, -1)).sum())
+            ops += k * (PAIR_OPS["window_forces"] - 1)
+        pairs += k
+    return bound(cap * Q * (12 + 4 + 1 + 4 + 12) + Q + 5 * 4, ops,
+                 divs=pairs)
 
 
 def max_cell_count(fs, system):
@@ -453,7 +524,10 @@ def timings(fn, reps, warmup=3):
     """(device ms, wall ms, source of the device ms) per call of ``fn``.
     Device time is the sum of the device activities a torch.profiler trace
     of ``reps`` calls holds (source "profiler").  The profiler now and then
-    records no device activity at all; after four such traces it is the
+    records no device activity at all, or an activity too few or too many:
+    each kernel's mean time then counts as often a call as the trace
+    holds it to the nearest whole number (source "profiler, normalised",
+    the counts printed).  After four traces with no device time it is the
     mean of CUDA-event pairs around each call, recorded while a sleep
     kernel holds the stream, so that every call is queued before the first
     runs and the events see device time, not the host's (source
@@ -481,10 +555,17 @@ def timings(fn, reps, warmup=3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA)
-        if busy_us > 0:
-            return busy_us / reps / 1e3, wall_ms, "profiler"
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count]
+        if sum(e.self_device_time_total for e in kern) > 0:
+            if all(e.count % reps == 0 for e in kern):
+                busy_us = sum(e.self_device_time_total for e in kern)
+                return busy_us / reps / 1e3, wall_ms, "profiler"
+            print(f"timings: a trace of {reps} calls held " + ", ".join(
+                f"{e.key[:40]} x{e.count}" for e in kern), flush=True)
+            busy_us = sum(e.self_device_time_total / e.count
+                          * round(e.count / reps) for e in kern)
+            return busy_us / 1e3, wall_ms, "profiler, normalised"
     pairs = [(torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     # spin long enough (2e6 cycles a ms at <= 2 GHz) for the host to queue
@@ -566,9 +647,9 @@ def kernel_phases(fs, sim, g):
         n_active=int(active.sum()),
         # per slot: two anchor slots and the active bit in, the energy
         # out; per active spring: two anchors' x and f in, f out, ~40
-        # operations
+        # operations, 4 of them divisions (3 for the minimum image)
         bound=bound(exl.shape[0] * 13 + int(active.sum()) * 2 * 36,
-                    int(active.sum()) * 40),
+                    int(active.sum()) * 36, divs=int(active.sum()) * 4),
         t=timings(lambda: K.extruder_springs(fs.gx, scratch, *sp_args), 50),
         t_plain=timings(
             lambda: R.extruder_springs(fs.gx, scratch, *sp_args), 20))
@@ -846,6 +927,244 @@ def tiled_phase(fs, sim, g):
         t_full=timings(lambda: K.stencil_forces(*args), 20))
 
 
+def zero_group_phase(fs, sim, g):
+    """langevin_kick_monitor with ``zero`` over the group plane of the run
+    that left ``fs`` (path 5), on its planes at the production gammas:
+    against its plain version (forces and velocities within 3e-5 max|f|,
+    flags and trigger equal), two launches bitwise equal; the random
+    force alone (v, f, gamma1 and the kick 0) summed over the group per
+    component within f32 round-off of 0; the forces and velocities of
+    every slot outside the group bitwise those of the zero-off call.
+    Returns its record (no launch count), with the time of the call
+    without zero and group on the same planes."""
+    import torch
+
+    from lammps_le_torch.fast import kernels as K
+    from lammps_le_torch.fast import kernels_ref as R
+    from lammps_le_torch.fixes import Langevin
+
+    system = sim.system
+    n, units = system.n, system.units
+    lf = next(f for f in sim.fixes if isinstance(f, Langevin))
+    mass = float(system.masses[0])
+    kick = 0.5 * sim.dt * units.ftm2v / mass
+    gamma1 = -mass / lf.damp / units.ftm2v
+    gamma2 = float(np.sqrt(mass) * np.sqrt(
+        24.0 * units.boltz / (lf.damp * sim.dt) / units.mvv2e) / units.ftm2v)
+    key, lgm = (123456789, 987654321), fs.lgm
+    cap, P = fs.bid.shape
+    head = (fs.gx, fs.gx_ref, fs.gv, fs.gf, fs.bid, g.interior, key, fs.step,
+            gamma1, gamma2, kick, sim.dt, 0.3, 0.2, n, True)
+    on = head + (lgm, True)
+    k1 = K.langevin_kick_monitor(*on)
+    k2 = K.langevin_kick_monitor(*on)
+    bitwise = all(torch.equal(a, b) for a, b in zip(k1, k2))
+    r = R.langevin_kick_monitor(*on)
+    fmax = float(r[0].abs().max())
+    err = max(float((k1[0] - r[0]).abs().max()),
+              float((k1[1] - r[1]).abs().max()))
+    tol = F_REL * max(fmax, 1.0)
+    zeros = torch.zeros_like(fs.gx)
+    rf = (fs.gx, fs.gx_ref, zeros, zeros, fs.bid, g.interior, key, fs.step,
+          0.0, gamma2, 0.0, sim.dt, 0.3, 0.2, n, True, lgm)
+    s_on = K.langevin_kick_monitor(*rf, True)[0].double().sum((1, 2))
+    s_off = K.langevin_kick_monitor(*rf, False)[0].double().sum((1, 2))
+    cnt = float(lgm.sum())
+    # the sum of cnt terms of |gamma2 * noise| <= |gamma2| / 2 in f32: the
+    # tree sum of the mean's pass (depth <= log2(cap * P) + 3) and one
+    # rounding each of the mean, of noise - mean and of its gamma2 product
+    sum_tol = abs(gamma2) * cnt * 2.0 ** -24 * (
+        0.5 * (np.log2(cap * P) + 3) + 3)
+    off = K.langevin_kick_monitor(*head, lgm, False)
+    out = ~(R.valid_mask(fs.bid, g.interior, n) & (lgm > 0))
+    same = (torch.equal(k1[0][:, out], off[0][:, out])
+            and torch.equal(k1[1][:, out], off[1][:, out]))
+    print(f"langevin_kick_monitor zero+group on the path-5 planes ({int(cnt)}"
+          f" members): max_abs_err {err:.3g} (tol {tol:.3g}), ints "
+          f"{k1[2].tolist()} vs plain {r[2].tolist()}, two launches bitwise "
+          f"{bitwise}; random force summed over the group {s_on.tolist()} "
+          f"(tol {sum_tol:.3g}; with zero off {s_off.tolist()}); outside "
+          f"the group bitwise the zero-off call's {same}", flush=True)
+    if not err <= tol or not torch.equal(k1[2], r[2]):
+        fail(f"langevin_kick_monitor zero+group vs its plain version: "
+             f"{err} (tol {tol}), {k1[2].tolist()} vs {r[2].tolist()}")
+    if not bitwise:
+        fail("two langevin_kick_monitor zero+group launches differ")
+    if not float(s_on.abs().max()) <= sum_tol:
+        fail(f"the group's random force sums to {s_on.tolist()}, past "
+             f"{sum_tol}")
+    if not same:
+        fail("zero changed forces or velocities outside the group")
+    return dict(
+        replaces="lammps_le_tpu/fast/pallas_step.py:932", max_abs_err=err,
+        tol=f"{F_REL}*max|f|={tol:.3g}; bitwise run to run; group sum of "
+        f"the random force <= {sum_tol:.3g}; outside the group bitwise the "
+        f"zero-off call's",
+        # bid, the interior mask and the group plane in for the mean;
+        # x, x_ref, v, f in and f, v out per slot; ~46 f32 operations a
+        # slot, 6 more for the weight and the mean (the threefry integer
+        # work is not counted)
+        bound=bound(cap * P * (48 + 4 + 4 + 24) + P, cap * P * 52),
+        t=timings(lambda: K.langevin_kick_monitor(*on), 50),
+        t_plain=timings(lambda: R.langevin_kick_monitor(*on), 5),
+        t_nozero=timings(lambda: K.langevin_kick_monitor(*head), 50))
+
+
+def group_temperatures(fs, system):
+    """(T of the Langevin group's beads, T of the rest) from the planes,
+    3 degrees of freedom a bead."""
+    import torch
+
+    from lammps_le_torch.fast import kernels_ref as R
+    from lammps_le_torch.fast.maps import fast_maps
+
+    interior = torch.as_tensor(fast_maps(system).interior,
+                               device=fs.gv.device)
+    valid = R.valid_mask(fs.bid, interior, system.n)
+    member = valid & (fs.lgm > 0)
+    mv2 = float(system.masses[0]) * (fs.gv.double() ** 2).sum(0)
+    kb = system.units.boltz
+    return tuple(float(mv2[m].sum()) / (3.0 * int(m.sum()) * kb)
+                 for m in (member, valid & ~member))
+
+
+def probe_phase():
+    """P1 and P2 at the TPU probes' shapes: each run of the probes'
+    ``__main__`` with the launch counts zeroed just before it and read
+    just after; then each kernel against its plain version on the card
+    (P1 exact: bitwise, else within 1e-6 of max|acc|, the difference
+    printed; P1 approximate: within one ulp of acc a step plus the
+    reciprocal's 1 ulp scaled by 1e-7; the approximate reciprocal within
+    2^-22 relative over both domains; P2 f32 bitwise, bf16 within one bf16
+    ulp of max|out|, the count that differ printed), timed.  Prints the
+    rates each run reached beside the bound rates.  Returns [(path, name,
+    record)]."""
+    import torch
+
+    from lammps_le_torch import probes
+    from lammps_le_torch.probes import probe_bf16 as B
+    from lammps_le_torch.probes import probe_rcp as C
+
+    dev = torch.device("cuda", 0)
+    out = []
+    x = torch.as_tensor(np.random.RandomState(0).uniform(
+        0.5, 2.6, (C.ROWS, C.P)).astype(np.float32), device=dev)
+    n, reps = x.numel(), C.REPS
+    plain = C.rcp_chain_ref(x, reps)
+    chain_ms = {}
+    for approx in (False, True):
+        probes.reset_launches()
+        chain_ms[approx] = C.time_chain(approx)
+        launches = probes.LAUNCHES["rcp_chain"]
+        got = C.rcp_chain(x, approx, reps)
+        err = float((got - plain).abs().max())
+        amax = float(plain.abs().max())
+        per_s = reps * n / (chain_ms[approx] * 1e-3)
+        if approx:
+            # a step may round acc one ulp apart, and r * 1e-7 differs by
+            # at most 1 ulp of r times 1e-7
+            tol = reps * 2.0 ** -23 * (1e-7 * float((1.0 / x).max()) + amax)
+            ok, how = err <= tol, f"<= {tol:.3g}, reps ulps of acc and r"
+            b = bound(8 * n, 4 * reps * n, mufu=reps * n)
+            rate = f"MUFU {per_s:.4g}/s of {RATES['mufu']:.4g}"
+        else:
+            same = torch.equal(got, plain)
+            ok = same or err <= 1e-6 * amax
+            how = "bitwise" if same else f"{err:.3g} <= 1e-6 max|acc|"
+            b = bound(8 * n, 3 * reps * n, divs=reps * n)
+            rate = (f"{(3 + RATES['div']) * per_s:.4g} instructions/s of "
+                    f"{RATES['f32']:.4g}")
+        label = "approx" if approx else "exact"
+        print(f"P1 {label} chain ({C.ROWS}x{C.P}, {reps} steps): "
+              f"{chain_ms[approx]:.4f} ms a call ({launches} launches); vs "
+              f"the plain exact chain max|d| {err:.3g} ({how}); {rate}",
+              flush=True)
+        if not ok:
+            fail(f"rcp_chain ({label}) vs its plain version: {err}")
+        out.append((f"probe P1 {label}", "rcp_chain", dict(
+            replaces="benchmarks/probe_rcp.py:23", max_abs_err=err, tol=how,
+            launches=launches, bound=b,
+            t=timings(lambda a=approx: C.rcp_chain(x, a, reps), 20),
+            t_plain=timings(lambda: C.rcp_chain_ref(x, reps), 2, 1))))
+    print(f"P1 speedup of the approximate reciprocal "
+          f"{chain_ms[False] / chain_ms[True]:.2f}x", flush=True)
+
+    probes.reset_launches()
+    errs = [C.precision(lo, hi)[2] for lo, hi, _ in C.DOMAINS]
+    launches = probes.LAUNCHES["rcp"]
+    exact = [C.precision(lo, hi, approx=False)[2] for lo, hi, _ in C.DOMAINS]
+    xd = C.domain(*C.DOMAINS[1][:2])
+    got = C.reciprocal(xd)
+    err = float((got - 1.0 / xd).abs().max())
+    print("P1 approximate reciprocal, max rel err: " + "; ".join(
+        f"[{lo}, {hi}] ({label}) {e:.3e} (IEEE {ee:.3e})" for (
+            lo, hi, label), e, ee in zip(C.DOMAINS, errs, exact)), flush=True)
+    if not max(errs) <= 2.0 ** -22 or not max(exact) <= 2.0 ** -24:
+        fail(f"reciprocal errors {errs} (approximate, want <= 2^-22), "
+             f"{exact} (IEEE, want <= 2^-24)")
+    out.append(("probe P1 precision", "rcp", dict(
+        replaces="benchmarks/probe_rcp.py:63", max_abs_err=err,
+        tol="max rel err <= 2^-22 over both domains", launches=launches,
+        bound=bound(8 * xd.numel(), xd.numel(), mufu=xd.numel()),
+        t=timings(lambda: C.reciprocal(xd), 50),
+        t_plain=timings(lambda: 1.0 / xd, 50))))
+
+    run_ms = {}
+    per_step = B.step_instructions()
+    print("P2 compiled step (SASS of the main loop; arithmetic, all): "
+          + "; ".join(f"{str(d)[6:]} {a:g}, {t:g}"
+                      for d, (a, t) in per_step.items())
+          + f" (the chain as written: {B.CHAIN_OPS})", flush=True)
+    for rows, dtype, label in B.RUNS:
+        probes.reset_launches()
+        run_ms[rows, dtype] = B.run(rows, dtype, label)
+        launches = probes.LAUNCHES["elementwise_chain"]
+        xb = B.inputs(rows).to(dtype)
+        got = B.chain(xb, dtype)
+        want = B.chain_ref(xb, B.REPS)
+        m = xb.numel()
+        differ = int((got != want).sum())
+        err = float((got - want).abs().max())
+        # the compiled step's arithmetic a lane (an element in f32, a
+        # pair in bf16) bounds it; all its instructions give the rate
+        arith, total = per_step[dtype]
+        lanes = m if dtype == torch.float32 else m // 2
+        b = bound(m * (4 + xb.element_size()), arith * B.REPS * lanes)
+        ins = total * B.REPS * lanes
+        if dtype == torch.float32:
+            ok, how = differ == 0, "bitwise"
+        else:
+            ulp = 2.0 ** (np.floor(np.log2(float(want.abs().max()))) - 7)
+            ok = err <= ulp
+            how = f"{differ} of {m} differ, by <= 1 bf16 ulp ({ulp:.3g})"
+        name = str(dtype)[6:]
+        print(f"P2 {name} {rows} rows: {launches} launches; vs the plain "
+              f"chain max|d| {err:.3g} ({how}); "
+              f"{ins / (run_ms[rows, dtype] * 1e-3):.4g} instructions/s of "
+              f"{RATES['f32']:.4g}", flush=True)
+        if not ok:
+            fail(f"elementwise_chain {name} {rows} rows vs its plain "
+                 f"version: {err} ({differ} differ)")
+        out.append((f"probe P2 {name} {rows} rows", "elementwise_chain",
+                    dict(replaces="benchmarks/probe_bf16.py:29",
+                         max_abs_err=err, tol=how, launches=launches,
+                         bound=b,
+                         t=timings(lambda x=xb, d=dtype: B.chain(x, d), 20),
+                         t_plain=timings(
+                             lambda x=xb: B.chain_ref(x, B.REPS), 2, 1))))
+    f32, bf16 = torch.float32, torch.bfloat16
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    print(f"P2 done; SM clock, its maximum and power draw now: {clock}",
+          flush=True)
+    print(f"P2 bf16 speedup at 16 rows: "
+          f"{run_ms[16, f32] / run_ms[16, bf16]:.2f}x; at 8 rows: "
+          f"{run_ms[8, f32] / run_ms[8, bf16]:.2f}x", flush=True)
+    return out
+
+
 def bead_positions(fs, system):
     """The beads' positions, in bead order, from the planes."""
     from lammps_le_torch.fast.engine import extract_beads
@@ -1029,7 +1348,8 @@ def print_kernel(path, name, r):
     print(f"kernel {name} on the {path} path: {r['launches']} launches; "
           f"device {r['t'][0]:.4f} ms ({r['t'][2]}; plain "
           f"{r['t_plain'][0]:.4f} ms, {r['t_plain'][2]}; bound "
-          f"{r['bound'][0]:.4f} ms by {r['bound'][1]}); wall per "
+          f"{r['bound'][0]:.4f} ms by {r['bound'][1]}, before PR 5 "
+          f"{r['bound'][2]:.4f}); wall per "
           f"back-to-back call {r['t'][1]:.4f} ms (plain "
           f"{r['t_plain'][1]:.4f} ms); max_abs_err {r['max_abs_err']:.3g} "
           f"({r['tol']})", flush=True)
@@ -1088,6 +1408,8 @@ def main(argv=None):
     libs = build()
     print(f"built {', '.join(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    set_rates(card)
+    recs = []
 
     # the 100k path: full 27-offset stencil, within the whole-plane gate
     data, system = production_config(BEADS)
@@ -1103,7 +1425,7 @@ def main(argv=None):
               GRID, path_launches(launches, "stencil_forces"))
     x_full = bead_positions(fs, system)
     g = GridConsts.build(system, fast_maps(system), dev)
-    recs = path_records("100k", dict(
+    recs += path_records("100k", dict(
         stencil_forces=stencil_phase(fs, sim, g),
         **kernel_phases(fs, sim, g)), launches)
     sps = {"100k full stencil": MEASURE / wall}
@@ -1146,6 +1468,30 @@ def main(argv=None):
           f"{tiled['bound'][0]:.4f} by {tiled['bound'][1]}), stencil_forces "
           f"{tiled['t_full'][0]:.4f} ({tiled['t_full'][2]}; wall per "
           f"back-to-back call {tiled['t_full'][1]:.4f})", flush=True)
+    del fs, start
+    torch.cuda.empty_cache()
+
+    # path 5, fix langevin zero + group: the production Langevin fix on
+    # the group chain (beads 1-90,000) with zero yes, all phases anew
+    member = np.zeros(system.n, bool)
+    member[:N_CHAIN] = True
+    groups = {"chain": member}
+    sim5, start = drive(system, data, dev, groups)
+    fs, wall, rebuilds, launches = measured_segment(
+        sim5, start, dev, WARM, MEASURE, args.profile, groups=groups)
+    check_run("zero+group", fs, system, wall, rebuilds, launches, MEASURE,
+              GRID, path_launches(launches, "stencil_forces"))
+    sps["100k langevin zero+group"] = MEASURE / wall
+    t_in, t_out = group_temperatures(fs, system)
+    print(f"zero+group: T over the group's {N_CHAIN} beads {t_in:.4f}, over "
+          f"the other {system.n - N_CHAIN} {t_out:.4f}", flush=True)
+    zg = zero_group_phase(fs, sim5, g)
+    recs += path_records("100k langevin zero+group",
+                         dict(langevin_kick_monitor=zg), launches)
+    print(f"langevin_kick_monitor on the path-5 planes, device ms per call "
+          f"({card}): zero+group {zg['t'][0]:.4f}, without zero and group "
+          f"{zg['t_nozero'][0]:.4f}: the zero pass and the group plane cost "
+          f"{zg['t'][0] - zg['t_nozero'][0]:.4f}", flush=True)
     print(f"100k steps/s in this call ({card}): "
           + ", ".join(f"{k} {v:.2f}" for k, v in sps.items()), flush=True)
     del fs, g, start, x_full
@@ -1179,14 +1525,17 @@ def main(argv=None):
         overrun(sim, fs, dev, args.overrun)
     del fs, g
     torch.cuda.empty_cache()
-    for path, name, r in recs:
-        print_kernel(path, name, r)
     full = next(r for _, name, r in recs if name == "newton_half_forces")
     print(f"config 6 stencils, device ms per call ({card}): "
           f"newton_half_forces {full['t'][0]:.4f}, stencil_forces "
           f"{full['t_full'][0]:.4f} ({full['t_full'][2]}; bound "
           f"{full['bound_full'][0]:.4f} by {full['bound_full'][1]}), plain "
           f"newton_half_forces {full['t_plain'][0]:.4f}", flush=True)
+
+    # the microprobes P1 and P2, each run on its own, on a warm card
+    recs += probe_phase()
+    for path, name, r in recs:
+        print_kernel(path, name, r)
 
     small_end_to_end(dev)
     small_end_to_end(dev, stencil="newton_half_forces")
@@ -1198,7 +1547,8 @@ def main(argv=None):
          "max_abs_err": r["max_abs_err"], "ms": r["t"][0],
          "ms_source": r["t"][2], "plain_ms": r["t_plain"][0],
          "plain_ms_source": r["t_plain"][2], "bound_ms": r["bound"][0],
-         "bound_by": r["bound"][1], "library_ms": None}
+         "bound_by": r["bound"][1], "bound_ms_before_pr5": r["bound"][2],
+         "library_ms": None}
         for path, name, r in recs]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

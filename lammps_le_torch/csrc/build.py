@@ -8,8 +8,9 @@ its own library, and the nvcc runs of all sources start together:
 
 ``step.cu`` holds the four kernels of the 100k path, ``blocked.cu`` the
 Newton-half stencil past the whole-plane gate and the sharded stencil's
-window kernel, ``tiled.cu`` the tiled full stencil; each includes
-``common.cuh``.  A library's name carries a hash of its source, the header
+window kernel, ``tiled.cu`` the tiled full stencil (each includes
+``common.cuh``), ``probes.cu`` the reciprocal and elementwise-chain
+microprobes (``lammps_le_torch/probes``).  A library's name carries a hash of its source, the header
 and the flags, so an edited source is rebuilt.  ``-fmad=false`` keeps
 every multiply and add separately rounded, as in the plain PyTorch
 versions; division and sqrt stay IEEE (no ``--use_fast_math``).  Run
@@ -27,7 +28,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent
 SOURCES = {"step": CSRC / "step.cu", "blocked": CSRC / "blocked.cu",
-           "tiled": CSRC / "tiled.cu"}
+           "tiled": CSRC / "tiled.cu", "probes": CSRC / "probes.cu"}
 HEADER = CSRC / "common.cuh"
 BUILD_DIR = CSRC.parent / "build"
 NVCC_FLAGS = [

@@ -33,6 +33,9 @@ struct LangevinArgs {
   unsigned int k0, k1, base;  // run key words, sstep * 4 (mod 2^32)
   float gamma1, gamma2, kick, dt, bad_cut, trig_cut;
   int langevin, cap, P, n;
+  int group;    // a (cap, P) 0/1 group plane weighs the Langevin force
+  int zero;     // the random force's group mean is subtracted first
+  float inv_n;  // 1/n in f32: zero's count without a group
 };
 
 namespace {
@@ -202,13 +205,25 @@ __global__ void springs_kernel(const float* __restrict__ gx,
 
 // ---------------------------------------------------------------------
 // langevin_kick_monitor <- pallas_step.py:932-1000 (K2d + K2e);
-// engine.py:1398-1455
+// engine.py:1398-1455, with fix langevin's group (the weight w = valid *
+// lgm, pallas_step.py:722-723) and zero (pallas_step.py:953-958)
 //
 // Bound: device-memory bytes plus the threefry integer work (3 x 20
 // rounds per slot).  Design: one thread per slot draws its three noise
 // words, applies the Langevin force and the final kick, and computes its
 // squared displacement since the rebuild and its look-ahead; per-block
-// top-2 / max, then a one-block finishing pass.
+// top-2 / max, then a one-block finishing pass.  Without zero and group
+// that is the whole kernel (the group weight is the valid mask).
+//
+// zero needs the grid-wide sum of noise * w before any slot can apply
+// its force, so it adds a pass before: per block the three sums of
+// noise * w and the sum of the group plane (members only draw their
+// words), then a one-block pass that reduces the partials in a fixed
+// order (no atomics: bitwise the same run to run) into the three means.
+// The main pass then recomputes each slot's words rather than reading
+// stored noise planes: ~230 integer operations a slot again (threefry is
+// ~77 a word), against 12 B a slot written and read back; the main pass
+// is bound by its 76 B a slot, under which the integer work runs.
 
 
 __device__ unsigned int rotl(unsigned int x, int r) {
@@ -235,12 +250,65 @@ __device__ unsigned int threefry_x0(unsigned int k0, unsigned int k1,
   return x0;
 }
 
+__device__ __forceinline__ float lan_noise(const LangevinArgs& a, int b,
+                                           int k) {
+  const unsigned int x0 =
+      threefry_x0(a.k0, a.k1, (unsigned int)b, a.base + (unsigned int)k);
+  return (float)(x0 >> 8) * (1.f / 16777216.f) - 0.5f;
+}
+
+// zero, first pass: per block the sums of noise * w (3) and of the group
+// plane; w == 0 slots add exactly 0, so they draw no words
+__global__ void langevin_sum_kernel(const int* __restrict__ bid,
+                                    const uint8_t* __restrict__ interior,
+                                    const float* __restrict__ lgm,
+                                    float* __restrict__ part,
+                                    LangevinArgs a) {
+  __shared__ float sh[32];
+  const long capP = (long)a.cap * a.P;
+  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  float s[3] = {0.f, 0.f, 0.f}, cnt = 0.f;
+  if (t < capP) {
+    const int b = bid[t];
+    const float vf = (interior[t % a.P] && b < a.n) ? 1.f : 0.f;
+    cnt = a.group ? lgm[t] : 0.f;
+    const float w = a.group ? vf * cnt : vf;
+    if (w != 0.f)
+      for (int k = 0; k < 3; ++k) s[k] = lan_noise(a, b, k) * w;
+  }
+  for (int k = 0; k < 3; ++k) {
+    const float r = block_sum(s[k], sh);
+    if (threadIdx.x == 0) part[4 * blockIdx.x + k] = r;
+  }
+  cnt = block_sum(cnt, sh);
+  if (threadIdx.x == 0) part[4 * blockIdx.x + 3] = cnt;
+}
+
+// zero, finishing pass (one block): the partials reduced in a fixed
+// order, then the means sum * inv_cnt, inv_cnt = 1 / max(sum lgm, 1) with
+// a group and 1/n without (engine.py:1428-1434)
+__global__ void langevin_mean_kernel(const float* __restrict__ part,
+                                     int nblocks, float* __restrict__ mean,
+                                     LangevinArgs a) {
+  __shared__ float sh[32];
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int b = threadIdx.x; b < nblocks; b += blockDim.x)
+    for (int k = 0; k < 4; ++k) s[k] += part[4 * b + k];
+  for (int k = 0; k < 4; ++k) s[k] = block_sum(s[k], sh);
+  if (threadIdx.x == 0) {
+    const float inv = a.group ? 1.f / fmaxf(s[3], 1.f) : a.inv_n;
+    for (int k = 0; k < 3; ++k) mean[k] = s[k] * inv;
+  }
+}
+
 __global__ void langevin_kernel(const float* __restrict__ gx,
                                 const float* __restrict__ gxr,
                                 const float* __restrict__ gv,
                                 const float* __restrict__ gf,
                                 const int* __restrict__ bid,
                                 const uint8_t* __restrict__ interior,
+                                const float* __restrict__ lgm,
+                                const float* __restrict__ mean,
                                 float* __restrict__ gf_out,
                                 float* __restrict__ gv_out,
                                 float* __restrict__ part, LangevinArgs a) {
@@ -253,16 +321,16 @@ __global__ void langevin_kernel(const float* __restrict__ gx,
     const int b = bid[t];
     const bool valid = interior[c] && b < a.n;
     const float vf = valid ? 1.f : 0.f;
+    const float wl = a.group ? vf * lgm[t] : vf;
     float vn[3], d[3];
     for (int k = 0; k < 3; ++k) {
       const long i = k * capP + t;
       const float v = gv[i];
       float f = gf[i];
       if (a.langevin) {
-        const unsigned int x0 =
-            threefry_x0(a.k0, a.k1, (unsigned int)b, a.base + (unsigned int)k);
-        const float noise = (float)(x0 >> 8) * (1.f / 16777216.f) - 0.5f;
-        f = f + (a.gamma1 * v + a.gamma2 * noise) * vf;
+        float noise = lan_noise(a, b, k);
+        if (a.zero) noise = noise - mean[k];
+        f = f + (a.gamma1 * v + a.gamma2 * noise) * wl;
       }
       const float v2 = v + (a.kick * f) * vf;
       gf_out[i] = f;
@@ -360,15 +428,26 @@ int lle_extruder_springs(const float* gx, float* gf, const int* exl,
   return (int)cudaGetLastError();
 }
 
+// zpart: with zero, 4 partials a block and the 3 means after them
 int lle_langevin_kick_monitor(const float* gx, const float* gxr,
                               const float* gv, const float* gf,
                               const int* bid, const uint8_t* interior,
-                              float* gf_out, float* gv_out, float* part,
-                              long long* out, LangevinArgs a, void* stream) {
+                              const float* lgm, float* gf_out, float* gv_out,
+                              float* part, float* zpart, long long* out,
+                              LangevinArgs a, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int nb = blocks_for((long)a.cap * a.P);
+  const float* mean = nullptr;
+  if (a.langevin && a.zero) {
+    langevin_sum_kernel<<<nb, kThreads, 0, s>>>(bid, interior, lgm, zpart,
+                                                a);
+    langevin_mean_kernel<<<1, kThreads, 0, s>>>(zpart, nb, zpart + 4 * nb,
+                                                a);
+    mean = zpart + 4 * nb;
+  }
   langevin_kernel<<<nb, kThreads, 0, s>>>(gx, gxr, gv, gf, bid, interior,
-                                          gf_out, gv_out, part, a);
+                                          lgm, mean, gf_out, gv_out, part,
+                                          a);
   langevin_finish_kernel<<<1, kThreads, 0, s>>>(part, nb, a.bad_cut,
                                                 a.trig_cut, out);
   return (int)cudaGetLastError();

@@ -15,8 +15,9 @@ extruder-partner planes.  A step is, in the reference's order:
   whole-plane gate, the Newton-half ``newton_half_forces``
   (``blocked_kernel.py``) past it — and the extruder springs
   (``extruder_springs``), energies on ``energy_every`` steps;
-* Langevin with the t ramp, the final kick, and the skin monitor whose
-  per-bead look-ahead arms the next step's rebuild
+* Langevin with the t ramp (over the fix's group, with ``zero`` its
+  random force summing to zero over the group), the final kick, and the
+  skin monitor whose per-bead look-ahead arms the next step's rebuild
   (``langevin_kick_monitor``).
 
 The kernels are ``fast/kernels.py``; placement, events and thermo are
@@ -78,6 +79,10 @@ class FastState:
     last_event: torch.Tensor  # (3,) counts at the latest events
     skin_pend: torch.Tensor  # () int64: next step rebuilds first
     n_rebuilds: int = 0
+    # (cap, P) 0/1 Langevin-group membership plane in the run's float
+    # type, re-placed at every rebuild; None when the thermostat covers
+    # all beads (fix langevin <group>, engine.py:262-265)
+    lgm: torch.Tensor = None
 
 
 class ThermoSample(NamedTuple):
@@ -133,9 +138,12 @@ def fast_block_reason(sim) -> None:
                 reason = "fix nve with a group (fast path integrates all)"
             n_nve += 1
         elif type(f) is Langevin:
-            if f.tally or f.gjf != "no" or f.zero or f.group is not None:
-                reason = ("fix langevin tally/gjf/zero/group is not "
-                          "ported yet")
+            if f.tally or f.gjf != "no":
+                # tally and gjf are general-engine options in the
+                # reference too (engine.py:273-281); zero and group ride
+                # the fast path
+                opt = "tally" if f.tally else f"gjf {f.gjf}"
+                reason = f"fix langevin {opt} (general-engine option)"
             n_lan += 1
         elif type(f) not in (Extrusion, ExLoad, ExUnload):
             reason = f"fix {type(f).__name__} is not ported"
@@ -234,15 +242,45 @@ def extract_beads(fs: FastState, maps: FastMaps):
 # conversion
 
 
-def to_fast(state: State, sim, kernel_fn=None) -> FastState:
+def _lan_member(sim, groups):
+    """(N,) bool Langevin-group membership, or None for group-all
+    (engine._lan_member, engine.py:955).
+
+    ``groups``: the deck's name -> (N,) bool dict; required when the
+    Simulation's Langevin fix names a group (fix_langevin.cpp groupbit)."""
+    for f in sim.fixes:
+        if isinstance(f, Langevin) and f.group is not None:
+            if not groups or f.group not in groups:
+                raise ValueError(
+                    f"fix langevin group {f.group!r} needs the deck's "
+                    "group masks (pass groups= to run_fast/to_fast)")
+            return np.asarray(groups[f.group], bool)
+    return None
+
+
+def _lgm_plane(member, slot_of, maps: FastMaps, dtype):
+    """Scatter (N,) membership to a (cap, P) 0/1 plane
+    (engine._lgm_plane, engine.py:971; rebuild time only)."""
+    capP = maps.cap * maps.P
+    slot = torch.clamp(slot_of, 0, capP - 1)
+    flat = torch.zeros(capP, dtype=dtype, device=slot_of.device)
+    flat[slot] = torch.as_tensor(member, device=slot_of.device).to(dtype)
+    return flat.reshape(maps.cap, maps.P)
+
+
+def to_fast(state: State, sim, kernel_fn=None, groups=None) -> FastState:
     """Bead-layout State -> grid residency, with initial forces and
     energies (engine.to_fast, the Verlet::setup analog).  ``kernel_fn``:
-    the stencil, as make_fast_segment's."""
+    the stencil, as make_fast_segment's; ``groups``: the deck's name ->
+    (N,) bool masks, needed when the Langevin fix names a group."""
     ctx = _ctx(sim, state.x.device, kernel_fn)
     system = ctx.system
     (gx, gv, _, bid, hn, pid, slot_of, exl, exr, _, img, overflow) = place(
         system, ctx.maps, ctx.g, state.x, state.v, state.f, state.ex_left,
         state.ex_right, state.img)
+    member = _lan_member(sim, groups)
+    lgm = (None if member is None else
+           _lgm_plane(member, slot_of, ctx.maps, gx.dtype))
     gf, en, ints = _forces(ctx, gx, bid, hn, pid, exl, exr,
                            state.ex_left >= 0, True)
     return FastState(
@@ -255,6 +293,7 @@ def to_fast(state: State, sim, kernel_fn=None) -> FastState:
         n_loads=state.n_loads, n_unloads=state.n_unloads, n_clamps=ints[1],
         last_event=state.last_event,
         skin_pend=torch.zeros((), dtype=torch.int64, device=gx.device),
+        lgm=lgm,
     )
 
 
@@ -297,7 +336,9 @@ def make_fast_segment(sim, device, kernel_fn=None):
     advancing ``length`` steps in place (the reactive XLA-chain semantics
     of engine.make_fast_segment, engine.py:1102-1455).  ``kernel_fn``: a
     caller's stencil with select_kernel's contract (engine.py:1130-1132),
-    else select_kernel's."""
+    else select_kernel's.  A Langevin group is the FastState's ``lgm``
+    plane (to_fast's ``groups``); ``zero`` subtracts the random force's
+    mean over the group each step (engine.py:1422-1435)."""
     ctx = _ctx(sim, device, kernel_fn)
     system, maps, g = ctx.system, ctx.maps, ctx.g
     n = system.n
@@ -313,6 +354,7 @@ def make_fast_segment(sim, device, kernel_fn=None):
 
     lan = [f for f in sim.fixes if isinstance(f, Langevin)]
     lf = lan[0] if lan else None
+    lan_zero = lf is not None and lf.zero
     if lf is not None:
         g2base = float(np.sqrt(mass) * np.sqrt(
             24.0 * units.boltz / (lf.damp * dt) / units.mvv2e) / units.ftm2v)
@@ -343,9 +385,16 @@ def make_fast_segment(sim, device, kernel_fn=None):
 
     def rebuild(fs: FastState):
         x, v, f = extract_beads(fs, maps)
+        if fs.lgm is not None:
+            # membership is per bead: gathered through the old slots,
+            # scattered to the new ones (engine.py:1283-1288)
+            member = fs.lgm.reshape(-1)[torch.clamp(fs.slot_of, 0,
+                                                    capP - 1)]
         (fs.gx, fs.gv, fs.gf, fs.bid, fs.hn, fs.pid, fs.slot_of,
          fs.exl_slot, fs.exr_slot, _, fs.img, overflow) = place(
             system, maps, g, x, v, f, fs.ex_left, fs.ex_right, fs.img)
+        if fs.lgm is not None:
+            fs.lgm = _lgm_plane(member, fs.slot_of, maps, fs.gx.dtype)
         fs.gx_ref = fs.gx
         fs.flags = fs.flags | overflow
         fs.skin_pend = torch.zeros_like(fs.skin_pend)
@@ -432,7 +481,7 @@ def make_fast_segment(sim, device, kernel_fn=None):
         fs.gf, fs.gv, mon = K.langevin_kick_monitor(
             fs.gx, fs.gx_ref, fs.gv, gf, fs.bid, g.interior, lan_key, sstep,
             gamma1, gamma2, kick, dt, bad_cut,
-            trig_cut, n, lf is not None)
+            trig_cut, n, lf is not None, fs.lgm, lan_zero)
         fs.flags = fs.flags | mon[0]
         fs.skin_pend = mon[1]
         return fs
@@ -446,12 +495,14 @@ def make_fast_segment(sim, device, kernel_fn=None):
     return segment
 
 
-def run_fast(sim, state: State, nsteps: int, kernel_fn=None) -> State:
+def run_fast(sim, state: State, nsteps: int, kernel_fn=None,
+             groups=None) -> State:
     """Drive ``nsteps`` on the fast engine as one run (engine.run_fast,
     without its thermo rows: ``thermo_row_fast`` reads them from a
-    FastState).  ``kernel_fn`` as make_fast_segment's."""
+    FastState).  ``kernel_fn`` as make_fast_segment's, ``groups`` as
+    to_fast's."""
     segment = make_fast_segment(sim, state.x.device, kernel_fn)
-    fs = to_fast(state, sim, kernel_fn)
+    fs = to_fast(state, sim, kernel_fn, groups)
     begin = fs.step
     segment(fs, begin, nsteps, begin, begin + nsteps)
     return from_fast(fs, sim.system)

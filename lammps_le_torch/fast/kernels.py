@@ -67,7 +67,9 @@ class LangevinArgs(ctypes.Structure):
     _fields_ = ([(k, ctypes.c_uint32) for k in ("k0", "k1", "base")]
                 + [(k, _F) for k in ("gamma1", "gamma2", "kick", "dt",
                                      "bad_cut", "trig_cut")]
-                + [(k, _I) for k in ("langevin", "cap", "P", "n")])
+                + [(k, _I) for k in ("langevin", "cap", "P", "n", "group",
+                                     "zero")]
+                + [("inv_n", _F)])
 
 
 def _lib(name="step"):
@@ -86,7 +88,7 @@ def _lib(name="step"):
         lib.lle_stencil_forces.argtypes = [_P] * 10 + [StencilArgs, _P]
         lib.lle_extruder_springs.argtypes = [_P] * 6 + [SpringArgs, _P]
         lib.lle_langevin_kick_monitor.argtypes = (
-            [_P] * 10 + [LangevinArgs, _P])
+            [_P] * 12 + [LangevinArgs, _P])
         for fn in ("lle_kick_drift_halo", "lle_stencil_forces",
                    "lle_extruder_springs", "lle_langevin_kick_monitor"):
             getattr(lib, fn).restype = _I
@@ -347,31 +349,44 @@ def extruder_springs(gx, gf, exl_slot, exr_slot, active, S):
 def langevin_kick_monitor(gx, gx_ref, gv, gf, bid, interior, key_words,
                           sstep: int, gamma1: float, gamma2: float,
                           kick: float, dt: float, bad_cut: float,
-                          trig_cut: float, n: int, langevin: bool):
-    """Langevin force, final half kick and skin monitor.  Returns (gf, gv,
-    ints (2,) int64 = [skin flag bits, look-ahead trigger])."""
+                          trig_cut: float, n: int, langevin: bool,
+                          lgm=None, zero: bool = False):
+    """Langevin force over the group ``lgm`` ((cap, P) 0/1 plane, or None
+    for all beads), with ``zero`` its random force's group mean
+    subtracted first; the final half kick and skin monitor.  Returns (gf,
+    gv, ints (2,) int64 = [skin flag bits, look-ahead trigger]).  With
+    ``zero`` the kernel takes two passes over the planes; the reduction
+    between them uses no atomics (bitwise the same run to run)."""
     if _on_cpu(gx):
         return ref.langevin_kick_monitor(
             gx, gx_ref, gv, gf, bid, interior, key_words, sstep, gamma1,
-            gamma2, kick, dt, bad_cut, trig_cut, n, langevin)
+            gamma2, kick, dt, bad_cut, trig_cut, n, langevin, lgm, zero)
     cap, P = _planes(gx, bid)
     for name, t in (("gx_ref", gx_ref), ("gv", gv), ("gf", gf)):
         _check(name, t, torch.float32, gx.shape)
     _check("interior", interior, torch.bool, (P,))
+    if lgm is not None:
+        _check("lgm", lgm, torch.float32, (cap, P))
     lib = _lib()
     nblk = lib.lle_blocks(cap * P)
     gf_out = torch.empty_like(gf)
     gv_out = torch.empty_like(gv)
     part = torch.empty(3 * nblk, dtype=torch.float32, device=gx.device)
+    zero = bool(zero and langevin)
+    # the zero pass's block partials (4 a block) and the 3 group means
+    zpart = (torch.empty(4 * nblk + 3, dtype=torch.float32,
+                         device=gx.device) if zero else None)
     ints = torch.empty(2, dtype=torch.int64, device=gx.device)
     k0, k1 = key_words
     a = LangevinArgs(int(k0), int(k1), (int(sstep) * 4) & 0xFFFFFFFF,
                      gamma1, gamma2, kick, dt, bad_cut, trig_cut,
-                     int(langevin), cap, P, n)
+                     int(langevin), cap, P, n, int(lgm is not None),
+                     int(zero), 1.0 / n)
     err = lib.lle_langevin_kick_monitor(
         _ptr(gx), _ptr(gx_ref), _ptr(gv), _ptr(gf), _ptr(bid),
-        _ptr(interior), _ptr(gf_out), _ptr(gv_out), _ptr(part), _ptr(ints),
-        a, _stream())
+        _ptr(interior), None if lgm is None else _ptr(lgm), _ptr(gf_out),
+        _ptr(gv_out), _ptr(part), None if zpart is None else _ptr(zpart),
+        _ptr(ints), a, _stream())
     _raise("langevin_kick_monitor", err)
     LAUNCHES["langevin_kick_monitor"] += 1
     return gf_out, gv_out, ints

@@ -416,10 +416,15 @@ def langevin_noise(key_words, bid, sstep: int, dtype):
 def langevin_kick_monitor(gx, gx_ref, gv, gf, bid, interior, key_words,
                           sstep: int, gamma1: float, gamma2: float,
                           kick: float, dt: float, bad_cut: float,
-                          trig_cut: float, n: int, langevin: bool):
+                          trig_cut: float, n: int, langevin: bool,
+                          lgm=None, zero: bool = False):
     """Langevin force (fix_langevin.cpp:654-674), the final half kick
     (fix_nve.cpp:108-140) and the skin monitor (engine.py:1308-1316,
-    1448-1455).  ``gamma2`` already carries sqrt(T(t)).
+    1448-1455).  ``gamma2`` already carries sqrt(T(t)).  ``lgm``: the
+    (cap, P) 0/1 Langevin-group plane, or None for all beads; ``zero``:
+    the random force's per-component mean over the group is subtracted
+    first, with the group's count from ``lgm`` (``n`` without a group;
+    engine.py:1426-1435).
 
     Returns (gf, gv, ints (2,) int64 = [flag bits, trig]): the skin bit
     is set when the two largest displacements since the rebuild sum past
@@ -430,17 +435,23 @@ def langevin_kick_monitor(gx, gx_ref, gv, gf, bid, interior, key_words,
     vf = valid.to(gx.dtype)[None]
     if langevin:
         noise = langevin_noise(key_words, bid, sstep, gx.dtype)
-        gf = gf + (gamma1 * gv + gamma2 * noise) * vf
+        w_lan = vf if lgm is None else vf * lgm[None]
+        if zero:
+            inv_cnt = (1.0 / n if lgm is None
+                       else 1.0 / torch.clamp(torch.sum(lgm), min=1.0))
+            noise = noise - torch.sum(noise * w_lan, dim=(1, 2),
+                                      keepdim=True) * inv_cnt
+        gf = gf + (gamma1 * gv + gamma2 * noise) * w_lan
     gv = gv + kick * gf * vf
     d = gx - gx_ref
-    zero = torch.zeros((), dtype=gx.dtype, device=gx.device)
-    dsq = torch.where(valid, d[0] * d[0] + d[1] * d[1] + d[2] * d[2], zero)
+    nil = torch.zeros((), dtype=gx.dtype, device=gx.device)
+    dsq = torch.where(valid, d[0] * d[0] + d[1] * d[1] + d[2] * d[2], nil)
     m1 = torch.max(dsq)
-    m2 = torch.max(torch.where(dsq == m1, zero, dsq))
+    m2 = torch.max(torch.where(dsq == m1, nil, dsq))
     bad = torch.sqrt(m1) + torch.sqrt(m2) > bad_cut
     vn = gv + kick * gf
     vsq = torch.where(valid, vn[0] * vn[0] + vn[1] * vn[1] + vn[2] * vn[2],
-                      zero)
+                      nil)
     pred = torch.max(torch.sqrt(dsq) + dt * torch.sqrt(vsq))
     trig = pred > trig_cut
     ints = torch.stack([bad.to(torch.int64) * FLAG_SKIN_VIOLATION,

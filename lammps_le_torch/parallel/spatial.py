@@ -21,7 +21,9 @@ def make_sharded_segment(sim, mesh):
     """The reactive segment (``make_fast_segment``) on the slab stencil of
     ``mesh`` (one ``torch.device`` per slab), with the FastState on
     ``mesh[0]`` (spatial.py:69-121).  The segment's
-    ``kernel_fn`` is its stencil, for ``to_fast``.
+    ``kernel_fn`` is its stencil, for ``to_fast``.  Everything else is
+    ``make_fast_segment``'s, the Langevin ``zero`` and ``group`` options
+    included (the group plane comes from ``to_fast``'s ``groups``).
 
     Where the geometry does not admit the slab stencil the reference falls
     back to the unsharded chain with static cadence (``reactive=False``),

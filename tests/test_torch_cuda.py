@@ -6,6 +6,8 @@ the card has none); run it there with
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -221,3 +223,110 @@ def test_kernel_path_engine_on_card_matches_cpu(dev, stencil):
     """The same on the sharded slab stencil (two slabs on the card) and on
     the tiled full stencil, each passed in as kernel_fn."""
     chip_smoke.small_end_to_end(dev, stencil=stencil)
+
+
+def _group_plane(system, maps, p, frac):
+    """The 0/1 Langevin-group plane of beads 1 to frac * n."""
+    from lammps_le_torch.fast.engine import _lgm_plane
+
+    member = np.zeros(system.n, bool)
+    member[:int(frac * system.n)] = True
+    return _lgm_plane(member, p[6], maps, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero,group", [(True, False), (True, True),
+                                        (False, True)])
+def test_langevin_kick_monitor_zero_group(dev, zero, group):
+    """fix langevin zero and group against the plain version; two
+    launches bitwise equal (the zero pass reduces without atomics)."""
+    system, maps, g, p, _ = _planes(dev)
+    lgm = _group_plane(system, maps, p, 0.9) if group else None
+    args = (p[0], p[0] + 0.01, p[1], p[2], p[3], g.interior, (7, 9), 33,
+            -0.1, 0.7, 0.003, 0.006, 9.0, 9.0, system.n, True, lgm, zero)
+    K.reset_launches()
+    a = K.langevin_kick_monitor(*args)
+    b = K.langevin_kick_monitor(*args)
+    r = R.langevin_kick_monitor(*args)
+    assert K.LAUNCHES["langevin_kick_monitor"] == 2
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(a[2], r[2])
+    assert _close(a[0], r[0]) and _close(a[1], r[1])
+
+
+@pytest.mark.cuda
+def test_zero_group_phase(dev):
+    """chip_smoke's path-5 kernel checks on small planes: the group's
+    random force sums to zero, slots outside it as with zero off."""
+    from lammps_le_torch.fixes import Langevin
+    from lammps_le_torch.integrate import Simulation
+
+    system, maps, g, p, _ = _planes(dev)
+    fs = SimpleNamespace(gx=p[0], gx_ref=p[0] + 0.01, gv=p[1], gf=p[2],
+                         bid=p[3], lgm=_group_plane(system, maps, p, 0.9),
+                         step=33)
+    sim = Simulation(system=system, dt=0.006, ex_btype=2, fixes=(
+        Langevin(1.0, 1.0, 10.0, zero=True, group="chain"),))
+    chip_smoke.set_rates(chip_smoke.card_line())
+    chip_smoke.zero_group_phase(fs, sim, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("approx", [False, True])
+def test_rcp_chain(dev, approx):
+    """P1's chain against the plain exact chain: bitwise when exact;
+    within a step's ulp of acc and 1 ulp of r * 1e-7 when approximate."""
+    from lammps_le_torch import probes
+    from lammps_le_torch.probes import probe_rcp as C
+
+    x = torch.rand(8, 4096, device=dev) * 2.1 + 0.5
+    probes.reset_launches()
+    got = C.rcp_chain(x, approx, 200)
+    assert probes.LAUNCHES["rcp_chain"] == 1
+    want = C.rcp_chain_ref(x, 200)
+    if approx:
+        tol = 200 * 2.0 ** -23 * (2e-7 + float(want.abs().max()))
+        assert float((got - want).abs().max()) <= tol
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_rcp_precision_and_price(dev):
+    """rcp.approx within 2^-22 relative over both domains, the IEEE
+    reciprocal within 2^-24; its SASS fast path priced."""
+    from lammps_le_torch.probes import probe_rcp as C
+
+    for lo, hi, _ in C.DOMAINS:
+        assert C.precision(lo, hi)[2] <= 2.0 ** -22
+        assert C.precision(lo, hi, approx=False)[2] <= 2.0 ** -24
+    price, exact, approx = C.rcp_price()
+    assert price > 1 and "MUFU.RCP" in exact
+
+
+@pytest.mark.cuda
+def test_chain_step_instructions(dev):
+    """The compiled chains' main loops: at least the 15 operations a step
+    that do not hoist, in f32; bf16 folds x * 1 - a."""
+    from lammps_le_torch.probes import probe_bf16 as B
+
+    steps = B.step_instructions()
+    assert steps[torch.float32][0] >= 15
+    assert 10 <= steps[torch.bfloat16][0] <= B.CHAIN_OPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_elementwise_chain(dev, dtype):
+    """P2's chain against its plain version on the card: f32 bitwise,
+    packed bf16 within one bf16 ulp of max|out|."""
+    from lammps_le_torch.probes import probe_bf16 as B
+
+    x = B.inputs(8, dev)[:, :4096].contiguous().to(dtype)
+    got = B.chain(x, dtype, 100)
+    want = B.chain_ref(x, 100)
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+    else:
+        ulp = 2.0 ** (np.floor(np.log2(float(want.abs().max()))) - 7)
+        assert float((got - want).abs().max()) <= ulp

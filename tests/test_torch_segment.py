@@ -9,7 +9,8 @@ full stencil (make_pallas_kernel as kernel_fn), all against the same
 reference run; one step also against the fused Pallas kernel in
 interpret mode.  The port runs where jax is absent without loading the
 reference package, its entry points default to the card, and it refuses
-what it does not cover."""
+what it does not cover, the reference's general-engine Langevin options
+tally and gjf among it."""
 
 import dataclasses
 import functools
@@ -29,8 +30,7 @@ import lammps_le_tpu.fixes as jf
 import lammps_le_torch.fixes as tf
 from lammps_le_torch import rng
 from lammps_le_torch.fast import (fast_block_reason, from_fast,
-                                  make_fast_segment, thermo_row_fast,
-                                  to_fast)
+                                  make_fast_segment, to_fast)
 from lammps_le_torch.fast.blocked_kernel import make_blocked_kernel
 from lammps_le_torch.fast.maps import fast_maps
 from lammps_le_torch.fast.pallas_kernel import make_pallas_kernel
@@ -39,7 +39,8 @@ from lammps_le_torch.parallel.spatial import make_sharded_segment
 from lammps_le_torch.state import init_state, state_from_arrays
 from lammps_le_tpu.fast import engine as ref
 from lammps_le_tpu.integrate import Simulation as RefSimulation
-from torch_parity import arrays_of, jax_state, le_fixes, melt_arrays
+from torch_parity import (arrays_of, check_segment_pair, jax_state,
+                          le_fixes, melt_arrays)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -97,27 +98,7 @@ def _run_both(nsteps, energy_every, pallas=False, kernel_fn=None,
 def _check_segment(kernel_fn=None, mesh=None):
     system, fj, ft = _run_both(20, energy_every=4, kernel_fn=kernel_fn,
                                mesh=mesh)
-    np.testing.assert_array_equal(np.asarray(fj.ex_left), ft.ex_left.numpy())
-    np.testing.assert_array_equal(np.asarray(fj.ex_right),
-                                  ft.ex_right.numpy())
-    np.testing.assert_array_equal(np.asarray(fj.types), ft.types.numpy())
-    for name in ("n_moves", "n_loads", "n_unloads", "flags", "n_rebuilds"):
-        assert int(getattr(fj, name)) == int(getattr(ft, name)), name
-    np.testing.assert_array_equal(np.asarray(fj.last_event),
-                                  ft.last_event.numpy())
-    assert int(fj.step) == ft.step
-    assert int(ft.n_moves) > 0 and int(ft.n_loads) > 0
-    assert int(ft.n_unloads) > 0
-    sj = ref.from_fast(fj, system)
-    st = from_fast(ft, system)
-    assert float(np.abs(np.asarray(sj.x) - st.x.numpy()).max()) < 1e-3
-    np.testing.assert_array_equal(np.asarray(sj.img), st.img.numpy())
-    assert abs(float(fj.epair) - float(ft.epair)) < 0.1
-    assert abs(float(fj.ebond) - float(ft.ebond)) < 0.1
-    rt = ref.thermo_row_fast(fj, system)
-    tt = thermo_row_fast(ft, system)
-    assert abs(float(rt.temp) - float(tt.temp)) < 1e-4
-    assert int(rt.n_extruders) == int(tt.n_extruders)
+    check_segment_pair(system, fj, ft)
 
 
 def test_segment_matches_reference_xla_chain():
@@ -175,8 +156,8 @@ def test_to_fast_round_trip():
 
 
 @pytest.mark.parametrize("change", [
-    dict(fix=tf.Langevin(1.0, 1.0, 1.0, zero=True)),
-    dict(fix=tf.Langevin(1.0, 1.0, 1.0, group="chain")),
+    dict(fix=tf.Langevin(1.0, 1.0, 1.0, tally=True)),
+    dict(fix=tf.Langevin(1.0, 1.0, 1.0, gjf="vhalf")),
     dict(fix=tf.NVE(group="chain")),
     dict(fix=None),
     dict(special_lj=(0.0, 0.5, 1.0)),

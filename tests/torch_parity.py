@@ -111,3 +111,35 @@ def jax_state(d, dtype):
 def arrays_of(js):
     """A reference State as the dict ``state_from_arrays`` takes."""
     return {k: np.asarray(getattr(js, k)) for k in STATE_FIELDS}
+
+
+def check_segment_pair(system, fj, ft):
+    """A reference FastState ``fj`` and the port's ``ft`` after the same
+    segment: extruder tables, types, LE counters, flags, rebuilds, the
+    last event counts and the step equal, with at least one move, load
+    and unload; positions within 1e-3, images equal, energies within
+    0.1, T within 1e-4 (tests/test_pallas_step.py:105-128)."""
+    from lammps_le_torch.fast import from_fast, thermo_row_fast
+    from lammps_le_tpu.fast import engine as ref
+
+    np.testing.assert_array_equal(np.asarray(fj.ex_left), ft.ex_left.numpy())
+    np.testing.assert_array_equal(np.asarray(fj.ex_right),
+                                  ft.ex_right.numpy())
+    np.testing.assert_array_equal(np.asarray(fj.types), ft.types.numpy())
+    for name in ("n_moves", "n_loads", "n_unloads", "flags", "n_rebuilds"):
+        assert int(getattr(fj, name)) == int(getattr(ft, name)), name
+    np.testing.assert_array_equal(np.asarray(fj.last_event),
+                                  ft.last_event.numpy())
+    assert int(fj.step) == ft.step
+    assert int(ft.n_moves) > 0 and int(ft.n_loads) > 0
+    assert int(ft.n_unloads) > 0
+    sj = ref.from_fast(fj, system)
+    st = from_fast(ft, system)
+    assert float(np.abs(np.asarray(sj.x) - st.x.numpy()).max()) < 1e-3
+    np.testing.assert_array_equal(np.asarray(sj.img), st.img.numpy())
+    assert abs(float(fj.epair) - float(ft.epair)) < 0.1
+    assert abs(float(fj.ebond) - float(ft.ebond)) < 0.1
+    rt = ref.thermo_row_fast(fj, system)
+    tt = thermo_row_fast(ft, system)
+    assert abs(float(rt.temp) - float(tt.temp)) < 1e-4
+    assert int(rt.n_extruders) == int(tt.n_extruders)
