@@ -30,8 +30,8 @@ planes; it repeats paths 3 and 4 with every stencil call held against
 another stencil on the planes of that call (``witness``); after config 6
 it runs copies of its state on past the window on both stencils,
 printing flags and the fullest cell.  Then it runs the two microprobes
-(lammps_le_torch/probes), each as its ``__main__`` runs it at the TPU
-probes' shapes: P1, the IEEE reciprocal against ``rcp.approx`` in a
+(lammps_le_torch/probes) through their entry points at the TPU probes'
+shapes: P1, the IEEE reciprocal against ``rcp.approx`` in a
 division-bound chain and the latter's error, and P2, an f32 elementwise
 chain against packed bf16, each kernel held against its plain version.
 Last it runs a small system end to end on the card and on the CPU, on
@@ -86,10 +86,6 @@ HBM_BPS = 3.35e12
 # that the built library issues for one (probes.probe_rcp.rcp_price).
 LANES_SM, MUFU_LANES_SM = 128, 16
 RATES = {}  # f32 and mufu operations/s, the reciprocal's instructions
-# the bound columns before PR 5 charged every f32 operation, a division
-# as one, at the data sheet's 67 TFLOP/s, which counts an FMA as two
-# operations: the port builds with -fmad=false and issues no FMA
-F32_OPS_FMA = 67e12
 # f32 operations of one examined slot pair, the arithmetic every pair
 # does (3 differences, 5 for r^2, 1 division, 2 for r^6, 4 for the force
 # factor, 6 to scale and add the force); the Newton-half stencil adds 3
@@ -389,7 +385,7 @@ def set_rates(card):
                  mufu=MUFU_LANES_SM * sms * mhz * 1e6, div=price)
     print(f"bound rates ({card}): {sms} SMs at {mhz:.0f} MHz: f32 "
           f"{RATES['f32']:.4g} operations/s ({LANES_SM} lanes a clock per "
-          f"SM; the data sheet's FMA-counted {F32_OPS_FMA:.3g}), MUFU "
+          f"SM; no FMA under -fmad=false), MUFU "
           f"{RATES['mufu']:.4g}/s; an IEEE reciprocal issues {price} "
           f"instructions on its fast path (SASS of the one-pass kernels: "
           f"exact {' '.join(exact)} | approximate {' '.join(approx)})",
@@ -397,18 +393,16 @@ def set_rates(card):
 
 
 def bound(nbytes, ops, divs=0, mufu=0):
-    """(ms, what bounds it, the pre-PR 5 ms): the least time an H100 SXM
-    takes to move ``nbytes`` or to issue ``ops`` f32 operations,
-    ``divs`` IEEE reciprocals and ``mufu`` further MUFU operations,
-    whichever is longest.  Each reciprocal issues RATES["div"]
-    instructions, one of them on the MUFU pipe.  The pre-PR 5 figure
-    charged ops + divs at 67 TFLOP/s."""
+    """(ms, what bounds it): the least time an H100 SXM takes to move
+    ``nbytes`` or to issue ``ops`` f32 operations, ``divs`` IEEE
+    reciprocals and ``mufu`` further MUFU operations, whichever is
+    longest.  Each reciprocal issues RATES["div"] instructions, one of
+    them on the MUFU pipe."""
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = max((ops + divs * RATES["div"]) / RATES["f32"],
                 (divs + mufu) / RATES["mufu"]) * 1e3
-    old = max(t_bytes, (ops + divs) / F32_OPS_FMA * 1e3)
-    return ((t_bytes, "bytes", old) if t_bytes >= t_ops
-            else (t_ops, "operations", old))
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations"))
 
 
 def stencil_bound(name, fs, g, maps, n):
@@ -1029,16 +1023,17 @@ def group_temperatures(fs, system):
 
 
 def probe_phase():
-    """P1 and P2 at the TPU probes' shapes: each run of the probes'
-    ``__main__`` with the launch counts zeroed just before it and read
-    just after; then each kernel against its plain version on the card
-    (P1 exact: bitwise, else within 1e-6 of max|acc|, the difference
-    printed; P1 approximate: within one ulp of acc a step plus the
-    reciprocal's 1 ulp scaled by 1e-7; the approximate reciprocal within
-    2^-22 relative over both domains; P2 f32 bitwise, bf16 within one bf16
-    ulp of max|out|, the count that differ printed), timed.  Prints the
-    rates each run reached beside the bound rates.  Returns [(path, name,
-    record)]."""
+    """P1 and P2 at the TPU probes' shapes.  For each run, its entry point
+    (``rcp_chain``, ``precision``, ``chain``) is called once with the
+    launch counts zeroed just before and read just after, and that result
+    is held against its plain version on the card (P1 exact: bitwise, else
+    within 1e-6 of max|acc|, the difference printed; P1 approximate:
+    within one ulp of acc a step plus the reciprocal's 1 ulp scaled by
+    1e-7; the approximate reciprocal within 2^-22 relative over both
+    domains; P2 f32 bitwise, bf16 within one bf16 ulp of max|out|, the
+    count that differ printed).  Then each kernel is timed (``timings``),
+    and the rates and speedups printed come from those times.  Returns
+    [(path, name, record)]."""
     import torch
 
     from lammps_le_torch import probes
@@ -1054,12 +1049,15 @@ def probe_phase():
     chain_ms = {}
     for approx in (False, True):
         probes.reset_launches()
-        chain_ms[approx] = C.time_chain(approx)
-        launches = probes.LAUNCHES["rcp_chain"]
         got = C.rcp_chain(x, approx, reps)
+        launches = probes.LAUNCHES["rcp_chain"]
+        if launches != 1:
+            fail(f"rcp_chain: {launches} launches in one call")
         err = float((got - plain).abs().max())
         amax = float(plain.abs().max())
-        per_s = reps * n / (chain_ms[approx] * 1e-3)
+        t = timings(lambda a=approx: C.rcp_chain(x, a, reps), 20)
+        chain_ms[approx] = t[0]
+        per_s = reps * n / (t[0] * 1e-3)
         if approx:
             # a step may round acc one ulp apart, and r * 1e-7 differs by
             # at most 1 ulp of r times 1e-7
@@ -1076,15 +1074,14 @@ def probe_phase():
                     f"{RATES['f32']:.4g}")
         label = "approx" if approx else "exact"
         print(f"P1 {label} chain ({C.ROWS}x{C.P}, {reps} steps): "
-              f"{chain_ms[approx]:.4f} ms a call ({launches} launches); vs "
-              f"the plain exact chain max|d| {err:.3g} ({how}); {rate}",
+              f"{t[0]:.4f} ms a call ({t[2]}; {launches} launch); vs the "
+              f"plain exact chain max|d| {err:.3g} ({how}); {rate}",
               flush=True)
         if not ok:
             fail(f"rcp_chain ({label}) vs its plain version: {err}")
         out.append((f"probe P1 {label}", "rcp_chain", dict(
             replaces="benchmarks/probe_rcp.py:23", max_abs_err=err, tol=how,
-            launches=launches, bound=b,
-            t=timings(lambda a=approx: C.rcp_chain(x, a, reps), 20),
+            launches=launches, bound=b, t=t,
             t_plain=timings(lambda: C.rcp_chain_ref(x, reps), 2, 1))))
     print(f"P1 speedup of the approximate reciprocal "
           f"{chain_ms[False] / chain_ms[True]:.2f}x", flush=True)
@@ -1092,6 +1089,8 @@ def probe_phase():
     probes.reset_launches()
     errs = [C.precision(lo, hi)[2] for lo, hi, _ in C.DOMAINS]
     launches = probes.LAUNCHES["rcp"]
+    if launches != len(C.DOMAINS):
+        fail(f"rcp: {launches} launches in {len(C.DOMAINS)} calls")
     exact = [C.precision(lo, hi, approx=False)[2] for lo, hi, _ in C.DOMAINS]
     xd = C.domain(*C.DOMAINS[1][:2])
     got = C.reciprocal(xd)
@@ -1107,7 +1106,8 @@ def probe_phase():
         tol="max rel err <= 2^-22 over both domains", launches=launches,
         bound=bound(8 * xd.numel(), xd.numel(), mufu=xd.numel()),
         t=timings(lambda: C.reciprocal(xd), 50),
-        t_plain=timings(lambda: 1.0 / xd, 50))))
+        t_plain=timings(lambda: 1.0 / xd, 50),
+        t_lib=timings(lambda: torch.reciprocal(xd), 50))))
 
     run_ms = {}
     per_step = B.step_instructions()
@@ -1116,15 +1116,18 @@ def probe_phase():
                       for d, (a, t) in per_step.items())
           + f" (the chain as written: {B.CHAIN_OPS})", flush=True)
     for rows, dtype, label in B.RUNS:
-        probes.reset_launches()
-        run_ms[rows, dtype] = B.run(rows, dtype, label)
-        launches = probes.LAUNCHES["elementwise_chain"]
         xb = B.inputs(rows).to(dtype)
+        probes.reset_launches()
         got = B.chain(xb, dtype)
+        launches = probes.LAUNCHES["elementwise_chain"]
+        if launches != 1:
+            fail(f"elementwise_chain: {launches} launches in one call")
         want = B.chain_ref(xb, B.REPS)
         m = xb.numel()
         differ = int((got != want).sum())
         err = float((got - want).abs().max())
+        t = timings(lambda x=xb, d=dtype: B.chain(x, d), 20)
+        run_ms[rows, dtype] = t[0]
         # the compiled step's arithmetic a lane (an element in f32, a
         # pair in bf16) bounds it; all its instructions give the rate
         arith, total = per_step[dtype]
@@ -1138,18 +1141,20 @@ def probe_phase():
             ok = err <= ulp
             how = f"{differ} of {m} differ, by <= 1 bf16 ulp ({ulp:.3g})"
         name = str(dtype)[6:]
-        print(f"P2 {name} {rows} rows: {launches} launches; vs the plain "
-              f"chain max|d| {err:.3g} ({how}); "
-              f"{ins / (run_ms[rows, dtype] * 1e-3):.4g} instructions/s of "
-              f"{RATES['f32']:.4g}", flush=True)
+        print(f"P2 {label} ({rows} rows): {t[0]:.4f} ms a call ({t[2]}; "
+              f"{launches} launch), "
+              f"{B.OPS * m * B.REPS / (t[0] * 1e-3) / 1e12:.3f} T elem-op/s "
+              f"by the TPU probe's count, "
+              f"{ins / (t[0] * 1e-3):.4g} instructions/s of "
+              f"{RATES['f32']:.4g}; vs the plain chain max|d| {err:.3g} "
+              f"({how})", flush=True)
         if not ok:
             fail(f"elementwise_chain {name} {rows} rows vs its plain "
                  f"version: {err} ({differ} differ)")
         out.append((f"probe P2 {name} {rows} rows", "elementwise_chain",
                     dict(replaces="benchmarks/probe_bf16.py:29",
                          max_abs_err=err, tol=how, launches=launches,
-                         bound=b,
-                         t=timings(lambda x=xb, d=dtype: B.chain(x, d), 20),
+                         bound=b, t=t,
                          t_plain=timings(
                              lambda x=xb: B.chain_ref(x, B.REPS), 2, 1))))
     f32, bf16 = torch.float32, torch.bfloat16
@@ -1348,8 +1353,9 @@ def print_kernel(path, name, r):
     print(f"kernel {name} on the {path} path: {r['launches']} launches; "
           f"device {r['t'][0]:.4f} ms ({r['t'][2]}; plain "
           f"{r['t_plain'][0]:.4f} ms, {r['t_plain'][2]}; bound "
-          f"{r['bound'][0]:.4f} ms by {r['bound'][1]}, before PR 5 "
-          f"{r['bound'][2]:.4f}); wall per "
+          f"{r['bound'][0]:.4f} ms by {r['bound'][1]}"
+          + (f"; library {r['t_lib'][0]:.4f} ms, {r['t_lib'][2]}"
+             if "t_lib" in r else "") + "); wall per "
           f"back-to-back call {r['t'][1]:.4f} ms (plain "
           f"{r['t_plain'][1]:.4f} ms); max_abs_err {r['max_abs_err']:.3g} "
           f"({r['tol']})", flush=True)
@@ -1547,8 +1553,8 @@ def main(argv=None):
          "max_abs_err": r["max_abs_err"], "ms": r["t"][0],
          "ms_source": r["t"][2], "plain_ms": r["t_plain"][0],
          "plain_ms_source": r["t_plain"][2], "bound_ms": r["bound"][0],
-         "bound_by": r["bound"][1], "bound_ms_before_pr5": r["bound"][2],
-         "library_ms": None}
+         "bound_by": r["bound"][1],
+         "library_ms": r["t_lib"][0] if "t_lib" in r else None}
         for path, name, r in recs]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -214,7 +214,13 @@ from lammps_le_torch.parallel.spatial import make_sharded_segment
 from lammps_le_torch.csrc import build
 from lammps_le_torch.fixes import NVE, Langevin, Extrusion
 from lammps_le_torch.integrate import Simulation
+from lammps_le_torch.probes import probe_bf16, probe_rcp
 from lammps_le_torch.state import init_state
+xp = torch.linspace(1.0, 2.0, 64).reshape(2, 32)
+assert torch.isfinite(probe_rcp.rcp_chain(xp, True, 3)).all()
+assert probe_rcp.precision(0.1, 1.0, device="cpu")[2] <= 2.0 ** -24
+for dt in (torch.float32, torch.bfloat16):
+    assert torch.isfinite(probe_bf16.chain(xp, dt, 3)).all()
 data = serpentine(200, spacing=0.97, row_gap=1.1, seed=1)
 ones = np.ones((4, 4))
 system, _ = system_from_data(
