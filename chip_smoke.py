@@ -10,7 +10,10 @@ user entry points:
    100,000-bead serpentine chromosome on the grid-resident fast engine,
    thermalized, settled with 500 seeded extruders, then 1,500 measured
    production steps with extrusion, ex_load and ex_unload, on the full
-   27-offset stencil;
+   27-offset stencil in K2's step loop (``make_fast_segment``'s auto mode:
+   launches of up to 16 steps, one CUDA graph replay and one host read
+   each), then the same window from the same settled state on the chain
+   (one host-driven step a launch), which it must repeat;
 2. config 6 (benchmarks/configs.py:269-362): a 1,000,000-bead chromosome
    past the whole-plane gate, where the engine takes the Newton-half
    stencil, with 5,000 seeded extruders and 600 measured steps;
@@ -23,8 +26,9 @@ user entry points:
 
 After each it holds that path's hand-written CUDA kernels against their
 plain PyTorch versions at the shapes the run gave them and times both
-(one record per path and kernel; paths 3, 4 and 5 record their stencil or
-their Langevin kernel, the other kernels having run at path 1's shapes),
+(one record per path and kernel, K2's step loop against its plain loop
+among them; paths 3, 4 and 5 record their stencil or their Langevin
+kernel, the other kernels having run at path 1's shapes),
 and the stencils of paths 3 and 4 against the full stencil on the same
 planes; it repeats paths 3 and 4 with every stencil call held against
 another stencil on the planes of that call (``witness``); after config 6
@@ -38,6 +42,8 @@ Last it runs a small system end to end on the card and on the CPU, on
 the full and Newton-half stencils, to compare the two.
 
     python3 chip_smoke.py [--profile STEPS] [--overrun STEPS]
+
+(``--profile`` also counts the host syncs a step of STEPS more steps).
 
 builds the kernels with nvcc on first use.  It exits nonzero, printing no
 result, without a CUDA device.  Earlier lines report the card, the
@@ -89,8 +95,9 @@ RATES = {}  # f32 and mufu operations/s, the reciprocal's instructions
 # f32 operations of one examined slot pair, the arithmetic every pair
 # does (3 differences, 5 for r^2, 1 division, 2 for r^6, 4 for the force
 # factor, 6 to scale and add the force); the Newton-half stencil adds 3
-# for the reaction.  Comparisons and the terms of the few pairs in bond
-# or energy range are not counted.
+# for the reaction.  Comparisons and the other terms of the few pairs in
+# bond or energy range are not counted; their FENE division and logf are
+# (``bonded_terms``).
 PAIR_OPS = {"stencil_forces": 21, "newton_half_forces": 24,
             "tiled_stencil_forces": 21, "window_forces": 24}
 SP_PATH, SP_PHASES = 2, (2, 4)  # slabs of path 3; of its kernel phase
@@ -208,7 +215,7 @@ def timed_run(label, sim, state, steps, groups=None):
     from lammps_le_torch.fast import run_fast
 
     t0 = time.perf_counter()
-    state = run_fast(sim, state, steps, groups=groups)
+    state, _ = run_fast(sim, state, steps, groups=groups)
     torch.cuda.synchronize()
     print(f"{label} {steps} steps {time.perf_counter() - t0:.2f} s, "
           f"flags={int(state.flags):#x}", flush=True)
@@ -216,24 +223,26 @@ def timed_run(label, sim, state, steps, groups=None):
 
 
 def measured_segment(sim, state, dev, warm, measure, profile_steps,
-                     kernel_fn=None, segment=None, groups=None):
+                     kernel_fn=None, segment=None, groups=None, pallas=None):
     """``warm`` steps, then ``measure`` timed steps with the launch counts
     zeroed just before them and read just after, on ``segment`` (default
-    ``make_fast_segment`` on ``kernel_fn``); ``groups`` as to_fast's.
-    Returns (FastState, measured wall s, rebuilds and kernel launches in
-    the window)."""
+    ``make_fast_segment`` on ``kernel_fn`` with ``pallas``: auto, the
+    step loop within the whole-plane gate); ``groups`` as to_fast's.
+    Returns (FastState, measured wall s, rebuilds, kernel launches and
+    step-loop launches in the window)."""
     import torch
 
     from lammps_le_torch.fast import kernels as K
     from lammps_le_torch.fast import make_fast_segment, to_fast
 
-    segment = segment or make_fast_segment(sim, dev, kernel_fn)
+    segment = segment or make_fast_segment(
+        sim, pallas=pallas, kernel_fn=kernel_fn, device=dev)[0]
     fs = to_fast(state, sim, kernel_fn, groups)
     b0 = fs.step
     bend = b0 + warm + measure
     segment(fs, b0, warm, b0, bend)
     torch.cuda.synchronize()
-    rebuilds0 = fs.n_rebuilds
+    rebuilds0, loops0 = fs.n_rebuilds, fs.n_launches
     K.reset_launches()
     t0 = time.perf_counter()
     segment(fs, b0 + warm, measure, b0, bend)
@@ -241,12 +250,20 @@ def measured_segment(sim, state, dev, warm, measure, profile_steps,
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     rebuilds = fs.n_rebuilds - rebuilds0
+    loops = fs.n_launches - loops0
     if profile_steps:
-        # on a copy: a step reassigns the state's fields, so the profiled
+        # on copies: a step reassigns the state's fields, so the profiled
         # steps leave the measured state as it was for the checks
-        profile_window(segment, dataclasses.replace(fs), sim.system,
-                       profile_steps, b0, bend)
-    return fs, wall, rebuilds, launches
+        dev_ms = profile_window(segment, dataclasses.replace(fs), sim.system,
+                                profile_steps, b0, bend)
+        # the profiler's own host time slows a host-bound run: the busy
+        # share at the unprofiled rate is device time a step x steps/s
+        print(f"device busy at the measured rate: {dev_ms:.4f} ms a step "
+              f"x {measure / wall:.2f} steps/s = "
+              f"{100 * dev_ms * measure / wall / 1e3:.1f}%", flush=True)
+        count_syncs(segment, dataclasses.replace(fs), profile_steps, b0,
+                    bend)
+    return fs, wall, rebuilds, launches, loops
 
 
 def drive(system, data, dev, groups=None):
@@ -405,14 +422,29 @@ def bound(nbytes, ops, divs=0, mufu=0):
             else (t_ops, "operations"))
 
 
-def stencil_bound(name, fs, g, maps, n):
+def bonded_terms(bid, hn, own, n, newton, energy):
+    """(IEEE divisions, MUFU operations) of the bonded pairs a stencil call
+    on these planes computes besides every pair's reciprocal: the FENE
+    force's ``neg_kf / rlog`` (csrc/common.cuh:202, csrc/tiled.cu:64) for
+    each bond within reach, seen from both of its beads by the full
+    stencils and once by the Newton-half ones, and with ``energy`` its
+    ``logf`` (charged as one MUFU operation, its least cost)."""
+    from lammps_le_torch.fast import kernels_ref as R
+
+    links = int((R.valid_mask(bid, own, n) & hn).sum())
+    pairs = links if newton else 2 * links
+    return pairs, pairs if energy else 0
+
+
+def stencil_bound(name, fs, g, maps, n, energy=True):
     """The stencils' bound on this run's planes: planes in (x, bid,
     has-next, partner, interior and, for the Newton-half stencil, the six
     face masks) and forces out once; operations for the pairs the data
     holds: at each offset d, each valid i slot of column c against the
     occupied j rows of column (c + d) mod P (in the self cell, the other
-    occupied rows).  Empty j slots need only the bead-id compare, which is
-    not counted; the Newton-half self cell computes no reaction."""
+    occupied rows), and the bonded pairs' terms (``bonded_terms``).
+    Empty j slots need only the bead-id compare, which is not counted;
+    the Newton-half self cell computes no reaction."""
     import torch
 
     from lammps_le_torch.fast import kernels_ref as R
@@ -434,15 +466,16 @@ def stencil_bound(name, fs, g, maps, n):
             ops += k * (PAIR_OPS[name] - 1)
         pairs += k
     nbytes = cap * P * (12 + 4 + 1 + 4 + 12) + P * (1 + 6 * newton)
-    return bound(nbytes, ops, divs=pairs)
+    bdivs, bmufu = bonded_terms(fs.bid, fs.hn, g.interior, n, newton, energy)
+    return bound(nbytes, ops, divs=pairs + bdivs, mufu=bmufu)
 
 
-def window_bound(wargs, n):
+def window_bound(wargs, n, energy=True):
     """window_forces' bound on these windows (its ``args``): the window
     planes (the margins' copies included) in and the window forces and
     tallies out once; operations for the pairs the windows hold, counted
     as ``stencil_bound`` counts the Newton-half stencil's, each window
-    rolled on itself."""
+    rolled on itself, with the bonded terms of the own slots' links."""
     import torch
 
     from lammps_le_torch.fast import kernels_ref as R
@@ -463,8 +496,9 @@ def window_bound(wargs, n):
             k = int((n_i * torch.roll(occ, -delta, -1)).sum())
             ops += k * (PAIR_OPS["window_forces"] - 1)
         pairs += k
+    bdivs, bmufu = bonded_terms(bidw, hnw, own, n, True, energy)
     return bound(cap * Q * (12 + 4 + 1 + 4 + 12) + Q + 5 * 4, ops,
-                 divs=pairs)
+                 divs=pairs + bdivs, mufu=bmufu)
 
 
 def max_cell_count(fs, system):
@@ -487,7 +521,7 @@ def max_cell_count(fs, system):
 def profile_window(segment, fs, system, steps, b0, bend):
     """``steps`` more production steps under torch.profiler: device busy
     share of the wall time and the device time of the top kernels; then
-    the copy's flags and fullest cell."""
+    the copy's flags and fullest cell.  Returns the device ms a step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -503,8 +537,8 @@ def profile_window(segment, fs, system, steps, b0, bend):
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kern)
-    print(f"profile: {steps} steps in {wall * 1e3:.1f} ms under the "
-          f"profiler, device busy {busy_us / 1e3:.1f} ms "
+    print(f"profile ({card_line()}): {steps} steps in {wall * 1e3:.1f} ms "
+          f"under the profiler, device busy {busy_us / 1e3:.1f} ms "
           f"({100 * busy_us / 1e6 / wall:.1f}%)", flush=True)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:16]:
         print(f"  {e.self_device_time_total / steps:9.2f} us/step  "
@@ -512,6 +546,31 @@ def profile_window(segment, fs, system, steps, b0, bend):
     print(f"profile: the profiled copy ends at step {fs.step} with flags "
           f"{int(fs.flags):#x}, at most {max_cell_count(fs, system)}"
           f" beads in a cell", flush=True)
+    return busy_us / steps / 1e3
+
+
+def count_syncs(segment, fs, steps, b0, bend):
+    """``steps`` more steps with PyTorch's sync debug mode warning at every
+    operation that waits for the card: the host syncs a step, printed with
+    where the first happened."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            segment(fs, fs.step, steps, b0, bend)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    where = sorted({f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"
+                    for w in caught})
+    print(f"host syncs ({card_line()}): {len(caught)} in {steps} steps, "
+          f"{len(caught) / steps:.4f} a step ({fs.n_launches} step-loop "
+          f"launches in the copy's run so far); at {where}", flush=True)
+    return len(caught) / steps
 
 
 def timings(fn, reps, warmup=3):
@@ -521,7 +580,8 @@ def timings(fn, reps, warmup=3):
     records no device activity at all, or an activity too few or too many:
     each kernel's mean time then counts as often a call as the trace
     holds it to the nearest whole number (source "profiler, normalised",
-    the counts printed).  After four traces with no device time it is the
+    the counts printed; a trace that holds fewer than half of every
+    kernel's records counts as empty).  After four empty traces it is the
     mean of CUDA-event pairs around each call, recorded while a sleep
     kernel holds the stream, so that every call is queued before the first
     runs and the events see device time, not the host's (source
@@ -559,7 +619,9 @@ def timings(fn, reps, warmup=3):
                 f"{e.key[:40]} x{e.count}" for e in kern), flush=True)
             busy_us = sum(e.self_device_time_total / e.count
                           * round(e.count / reps) for e in kern)
-            return busy_us / 1e3, wall_ms, "profiler, normalised"
+            if busy_us > 0:
+                return busy_us / 1e3, wall_ms, "profiler, normalised"
+            # fewer than half of each kernel's records: trace again
     pairs = [(torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     # spin long enough (2e6 cycles a ms at <= 2 GHz) for the host to queue
@@ -679,6 +741,122 @@ def kernel_phases(fs, sim, g):
         t=timings(lambda: K.langevin_kick_monitor(*lm_args), 50),
         t_plain=timings(lambda: R.langevin_kick_monitor(*lm_args), 5))
     return recs
+
+
+def loop_line(label, loops, wall, segment=None):
+    """Print a step-loop window's launches a step and steps a launch (the
+    chain's: one host-driven step a launch), and with ``segment`` its
+    graphs (one a limit; their kernels allocate nothing, so the graphs'
+    pool holds no tensor) and static planes."""
+    import torch
+
+    extra = ""
+    if segment is not None:
+        loop = segment.loop
+        extra = (f"; graphs captured for limits {sorted(loop.graphs)}, "
+                 f"static planes and buffers {loop.nbytes()} B; device "
+                 f"memory allocated {torch.cuda.memory_allocated()} B, "
+                 f"reserved {torch.cuda.memory_reserved()} B")
+    print(f"{label}: {loops} step-loop launches in {MEASURE} steps, "
+          f"{loops / MEASURE:.4f} a step, {MEASURE / max(loops, 1):.2f} "
+          f"steps a launch; {MEASURE / wall:.2f} steps/s ({card_line()})"
+          + extra, flush=True)
+
+
+def chain_witness(fs, fs_c, system, rebuilds, rebuilds_c, wall, wall_c,
+                  loops):
+    """Path 1 in K2's step loop (``fs``) against the chain from the same
+    settled state (``fs_c``): equal extruder tables, types, LE counters,
+    last events, flags, clamps, step and rebuild schedule, and bead
+    positions within 1e-6 (bitwise expected: the same kernels on the same
+    planes in the same order).  Prints both runs' rates."""
+    import torch
+
+    same = {
+        "tables": torch.equal(fs.ex_left, fs_c.ex_left)
+        and torch.equal(fs.ex_right, fs_c.ex_right)
+        and torch.equal(fs.types, fs_c.types),
+        "counters": [int(fs.n_moves), int(fs.n_loads), int(fs.n_unloads),
+                     fs.last_event.tolist(), int(fs.n_clamps)]
+        == [int(fs_c.n_moves), int(fs_c.n_loads), int(fs_c.n_unloads),
+            fs_c.last_event.tolist(), int(fs_c.n_clamps)],
+        "flags": int(fs.flags) == int(fs_c.flags),
+        "step": fs.step == fs_c.step,
+        "rebuilds": (fs.n_rebuilds, rebuilds) == (fs_c.n_rebuilds,
+                                                  rebuilds_c)}
+    dx = float((bead_positions(fs, system)
+                - bead_positions(fs_c, system)).abs().max())
+    bitwise = all(torch.equal(getattr(fs, k), getattr(fs_c, k))
+                  for k in ("gx", "gv", "gf"))
+    print(f"path 1 witness ({card_line()}): step loop {MEASURE / wall:.2f} "
+          f"steps/s, {loops} launches ({loops / MEASURE:.4f} a step); "
+          f"chain {MEASURE / wall_c:.2f} steps/s, {MEASURE} launches (1 a "
+          f"step); rebuilds {rebuilds} vs {rebuilds_c}; max|dx| {dx:.3g} "
+          f"(tol 1e-6); planes bitwise {bitwise}; equal {same}", flush=True)
+    if not all(same.values()) or not dx <= 1e-6:
+        fail(f"the step loop and the chain differ on path 1: {same}, "
+             f"max|dx| {dx}")
+
+
+def step_loop_phase(fs, sim, g, phases):
+    """K2's step loop (``make_step_kernel``) on the card against its plain
+    loop on the planes of the run that left ``fs``, as if just rebuilt
+    (gx_ref = gx): one step (x bitwise, f and v within 3e-5 max|f|, the
+    stats rows 2-7 equal) and a whole launch of LAUNCH_MAX steps (stats
+    rows 2-7 equal, x within 1e-3).  Times a launch; its bound is the sum
+    of its steps' kernel bounds (``phases``: path 1's records; the stencil
+    without energies).  Returns its record (no launch count)."""
+    import torch
+
+    from lammps_le_torch.fast.maps import fast_maps
+    from lammps_le_torch.fast.pallas_step import LAUNCH_MAX, make_step_kernel
+    from lammps_le_torch.fixes import Langevin
+
+    system = sim.system
+    maps = fast_maps(system)
+    lf = next(f for f in sim.fixes if isinstance(f, Langevin))
+    real, plain = (make_step_kernel(system, maps, sim.ex_btype, dt=sim.dt,
+                                    langevin=lf, g=g, interpret=i)
+                   for i in (False, True))
+    args = (fs.gx, fs.gv, fs.gf, fs.gx, fs.bid, fs.hn, fs.pid, fs.exl_slot,
+            fs.exr_slot, fs.ex_left >= 0, fs.lgm)
+    key = (123456789, 987654321)
+
+    def call(f, limit):
+        return f(*args, fs.step + 1, True, key, 1.0, 0.0, limit)
+
+    (x1, v1, f1, s1), (xp, vp, fp, sp) = call(real, 1), call(plain, 1)
+    fmax = float(fp.abs().max())
+    err = max(float((f1 - fp).abs().max()), float((v1 - vp).abs().max()))
+    x16, _, _, s16 = call(real, LAUNCH_MAX)
+    xp16, _, _, sp16 = call(plain, LAUNCH_MAX)
+    dx = float((x16 - xp16).abs().max())
+    print(f"step_loop on the 100k planes: one step max|df|, |dv| {err:.3g} "
+          f"(tol {F_REL * max(fmax, 1.0):.3g}), x bitwise "
+          f"{torch.equal(x1, xp)}, stats {s1.tolist()} vs plain "
+          f"{sp.tolist()}; {LAUNCH_MAX}-step launch: {int(s16[7])} steps, "
+          f"max|dx| {dx:.3g} (tol 1e-3), stats {s16.tolist()} vs plain "
+          f"{sp16.tolist()}", flush=True)
+    if (not err <= F_REL * max(fmax, 1.0) or not torch.equal(x1, xp)
+            or not torch.equal(s1[2:], sp[2:])
+            or not torch.equal(s16[2:], sp16[2:]) or not dx <= 1e-3):
+        fail("step_loop differs from its plain loop")
+    steps = int(s16[7])
+    parts = [stencil_bound("stencil_forces", fs, g, maps, system.n, False)]
+    parts += [phases[k]["bound"] for k in ("kick_drift_halo",
+                                           "extruder_springs",
+                                           "langevin_kick_monitor")]
+    by = ("operations" if sum(t for t, b in parts if b == "operations")
+          > sum(t for t, b in parts if b == "bytes") else "bytes")
+    return dict(
+        replaces="lammps_le_tpu/fast/pallas_step.py:554", max_abs_err=err,
+        tol=f"one step {F_REL}*max|f|={F_REL * max(fmax, 1.0):.3g}, x "
+        f"bitwise; {LAUNCH_MAX} steps x 1e-3; stats rows 2-7 equal",
+        steps=steps,
+        # the launch's steps, each its kernels' bounds
+        bound=(steps * sum(t for t, _ in parts), by),
+        t=timings(lambda: call(real, LAUNCH_MAX), 20),
+        t_plain=timings(lambda: call(plain, LAUNCH_MAX), 1, 1))
 
 
 def stencil_phase(fs, sim, g):
@@ -1224,7 +1402,8 @@ def witness(label, sim, start, dev, kernel_fn, fs_ref, x_full,
                               out[2].double(), in_s.double()]))
         return out
 
-    fs = measured_segment(sim, start, dev, WARM, MEASURE, 0, shadowed)[0]
+    fs = measured_segment(sim, start, dev, WARM, MEASURE, 0, shadowed,
+                          pallas=False)[0]
     rows = torch.stack(log).cpu()
     worst, worst_full = float(rows[:, 0].max()), float(rows[:, 1].max())
     over = int((rows[:, 1] > F_REL_STENCILS).sum())
@@ -1272,7 +1451,8 @@ def overrun(sim, fs, dev, steps):
             ("newton_half_forces", None),
             ("stencil_forces", make_kernel(system, fast_maps(system),
                                            sim.ex_btype))):
-        segment = make_fast_segment(sim, dev, kernel_fn)
+        segment, _ = make_fast_segment(sim, pallas=False,
+                                       kernel_fn=kernel_fn, device=dev)
         c = dataclasses.replace(fs)
         b0 = c.step
         flags, at_cap, marks = int(c.flags), 0, []
@@ -1292,14 +1472,14 @@ def overrun(sim, fs, dev, steps):
 def small_end_to_end(dev, steps=40, stencil="stencil_forces"):
     """A 2,000-bead run with every LE fix on the card (kernels) and on the
     CPU (plain versions), on the stencil ``stencil`` (the engine's full
-    one, or as kernel_fn the Newton-half, the tiled or, with two slabs on
-    the run's device, the sharded one): the same events, positions within
-    1e-3; the CPU run launches no kernel, the card run each of its
-    kernels once a step."""
+    one, on the card in K2's step loop, or as kernel_fn on the chain the
+    Newton-half, the tiled or, with two slabs on the run's device, the
+    sharded one): the same events, positions within 1e-3; the CPU run
+    launches no kernel, the card run each of its kernels once a step."""
     import torch
 
-    from lammps_le_torch.fast import kernels as K
-    from lammps_le_torch.fast import run_fast
+    from lammps_le_torch.fast import (from_fast, kernels as K,
+                                      make_fast_segment, run_fast, to_fast)
     from lammps_le_torch.fast.blocked_kernel import make_blocked_kernel
     from lammps_le_torch.fast.maps import fast_maps
     from lammps_le_torch.fast.pallas_kernel import make_pallas_kernel
@@ -1323,12 +1503,17 @@ def small_end_to_end(dev, steps=40, stencil="stencil_forces"):
     out = {}
     for d in ("cpu", dev):
         st = init_state(system, data.x, types=data.types, seed=11, device=d)
-        st = run_fast(warm, st, 30)
+        st, _ = run_fast(warm, st, 30)
         st = seed_extruders(st, 20, 100, system.max_extruders)
+        kernel_fn = kernel_fns[stencil](d)
+        segment, _ = make_fast_segment(
+            sim, pallas=None if kernel_fn is None else False,
+            kernel_fn=kernel_fn, device=d)
         K.reset_launches()
-        st = run_fast(sim, st, steps, kernel_fns[stencil](d))
-        out[str(d)] = st, dict(K.LAUNCHES)
-    (a, la), (b, lb) = out["cpu"], out[str(dev)]
+        fs = to_fast(st, sim, kernel_fn)
+        segment(fs, fs.step, steps, fs.step, fs.step + steps)
+        out[str(d)] = from_fast(fs, system), dict(K.LAUNCHES), fs.n_launches
+    (a, la, _), (b, lb, nl) = out["cpu"], out[str(dev)]
     dx = float((a.x - b.x.cpu()).abs().max())
     same = (torch.equal(a.ex_left, b.ex_left.cpu())
             and torch.equal(a.ex_right, b.ex_right.cpu())
@@ -1342,11 +1527,13 @@ def small_end_to_end(dev, steps=40, stencil="stencil_forces"):
           f"{same}, launches cpu {la} cuda {lb}", flush=True)
     if not same or not dx < 1e-3 or int(b.n_moves) == 0:
         fail("small end-to-end run: card and CPU disagree")
-    # run_fast's setup evaluates the forces once more (to_fast)
-    want = path_launches(lb, stencil, steps)
+    # to_fast evaluates the forces once more
+    want = path_launches(lb, stencil, steps, nl)
     want[stencil] = want["extruder_springs"] = steps + 1
-    if any(la.values()) or lb != want:
-        fail(f"small end-to-end launches: cpu {la}, cuda {lb} (want {want})")
+    if any(la.values()) or lb != want or (stencil == "stencil_forces") != (
+            nl > 0):
+        fail(f"small end-to-end launches: cpu {la}, cuda {lb} (want {want}, "
+             f"{nl} step-loop launches)")
 
 
 def print_kernel(path, name, r):
@@ -1361,14 +1548,17 @@ def print_kernel(path, name, r):
           f"({r['tol']})", flush=True)
 
 
-def path_launches(launches, stencil, steps=MEASURE):
+def path_launches(launches, stencil, steps=MEASURE, loops=0):
     """The launches a path's measured window must hold: ``steps`` of its
     stencil and of each kernel every path runs, none of the other
-    stencils."""
+    stencils, and ``loops`` step-loop launches (the FastState's
+    ``n_launches`` in the window; 0 on the chain).  In the step loop a
+    kernel's count is the steps it executed."""
     stencils = ("stencil_forces", "newton_half_forces", "window_forces",
                 "tiled_stencil_forces")
     want = {k: 0 if k in stencils else steps for k in launches}
     want[stencil] = steps
+    want["step_loop"] = loops
     return want
 
 
@@ -1397,6 +1587,7 @@ def main(argv=None):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from lammps_le_torch.csrc.build import build
+    from lammps_le_torch.fast import make_fast_segment
     from lammps_le_torch.fast.engine import whole_planes_fit
     from lammps_le_torch.fast.maps import fast_maps
     from lammps_le_torch.fast.pallas_kernel import make_pallas_kernel
@@ -1423,18 +1614,34 @@ def main(argv=None):
           f"x{system.neighbor.nz}, cap {system.neighbor.cell_cap}",
           flush=True)
     sim, start = drive(system, data, dev)
-    fs, wall, rebuilds, launches = measured_segment(
-        sim, start, dev, WARM, MEASURE, args.profile)
-    # every kernel of the path launches once a production step; rebuilds
-    # and LE events launch none
+    segment, _ = make_fast_segment(sim, device=dev)
+    if getattr(segment, "loop", None) is None:
+        fail("path 1 did not take K2's step loop in auto mode")
+    fs, wall, rebuilds, launches, loops = measured_segment(
+        sim, start, dev, WARM, MEASURE, args.profile, segment=segment)
+    # every kernel of the path runs once a production step (in the step
+    # loop: its count is the steps it executed); rebuilds and LE events
+    # launch none
     check_run("production", fs, system, wall, rebuilds, launches, MEASURE,
-              GRID, path_launches(launches, "stencil_forces"))
+              GRID, path_launches(launches, "stencil_forces", loops=loops))
+    loop_line("production", loops, wall, segment)
+    # the chain from the same settled state: the witness of the step loop
+    fs_c, wall_c, rebuilds_c, launches_c, _ = measured_segment(
+        sim, start, dev, WARM, MEASURE, args.profile, pallas=False)
+    check_run("production chain", fs_c, system, wall_c, rebuilds_c,
+              launches_c, MEASURE, GRID,
+              path_launches(launches_c, "stencil_forces"))
+    chain_witness(fs, fs_c, system, rebuilds, rebuilds_c, wall, wall_c,
+                  loops)
+    del fs_c
     x_full = bead_positions(fs, system)
     g = GridConsts.build(system, fast_maps(system), dev)
-    recs += path_records("100k", dict(
-        stencil_forces=stencil_phase(fs, sim, g),
-        **kernel_phases(fs, sim, g)), launches)
-    sps = {"100k full stencil": MEASURE / wall}
+    phases = dict(stencil_forces=stencil_phase(fs, sim, g),
+                  **kernel_phases(fs, sim, g))
+    phases["step_loop"] = step_loop_phase(fs, sim, g, phases)
+    recs += path_records("100k", phases, launches)
+    sps = {"100k full stencil, step loop": MEASURE / wall,
+           "100k full stencil, chain": MEASURE / wall_c}
     del fs
     torch.cuda.empty_cache()
 
@@ -1445,7 +1652,7 @@ def main(argv=None):
         print(f"shardable at sp={sp}: "
               f"{shardable(system, maps, [dev] * sp) or 'yes'}", flush=True)
     segment = make_sharded_segment(sim, [dev] * SP_PATH)
-    fs, wall, rebuilds, launches = measured_segment(
+    fs, wall, rebuilds, launches, _ = measured_segment(
         sim, start, dev, WARM, MEASURE, args.profile, segment.kernel_fn,
         segment)
     check_run(f"sharded sp={SP_PATH}", fs, system, wall, rebuilds, launches,
@@ -1460,8 +1667,9 @@ def main(argv=None):
 
     # path 4, the tiled full stencil as kernel_fn
     tiled_fn = make_pallas_kernel(system, maps, sim.ex_btype)
-    fs, wall, rebuilds, launches = measured_segment(
-        sim, start, dev, WARM, MEASURE, args.profile, tiled_fn)
+    fs, wall, rebuilds, launches, _ = measured_segment(
+        sim, start, dev, WARM, MEASURE, args.profile, tiled_fn,
+        pallas=False)
     check_run("tiled", fs, system, wall, rebuilds, launches, MEASURE, GRID,
               path_launches(launches, "tiled_stencil_forces"))
     sps["100k tiled stencil"] = MEASURE / wall
@@ -1483,10 +1691,13 @@ def main(argv=None):
     member[:N_CHAIN] = True
     groups = {"chain": member}
     sim5, start = drive(system, data, dev, groups)
-    fs, wall, rebuilds, launches = measured_segment(
+    fs, wall, rebuilds, launches, loops = measured_segment(
         sim5, start, dev, WARM, MEASURE, args.profile, groups=groups)
     check_run("zero+group", fs, system, wall, rebuilds, launches, MEASURE,
-              GRID, path_launches(launches, "stencil_forces"))
+              GRID, path_launches(launches, "stencil_forces", loops=loops))
+    if loops == 0:
+        fail("path 5 did not run in K2's step loop")
+    loop_line("zero+group", loops, wall)
     sps["100k langevin zero+group"] = MEASURE / wall
     t_in, t_out = group_temperatures(fs, system)
     print(f"zero+group: T over the group's {N_CHAIN} beads {t_in:.4f}, over "
@@ -1515,8 +1726,8 @@ def main(argv=None):
         fail(f"config 6 grid ({maps.cap}, {maps.P}), want {C6['grid']} past "
              f"the whole-plane gate")
     torch.cuda.reset_peak_memory_stats()
-    sim, fs, wall, rebuilds, launches = drive_config6(data, system, dev,
-                                                      args.profile)
+    sim, fs, wall, rebuilds, launches, _ = drive_config6(data, system, dev,
+                                                         args.profile)
     check_run("config 6", fs, system, wall, rebuilds, launches,
               C6["measure"], C6["grid"],
               path_launches(launches, "newton_half_forces", C6["measure"]))

@@ -110,35 +110,53 @@ __device__ void block_tallies(PairTally t, int nlink, float* fpart,
   }
 }
 
-// energies halved (each pair seen from both sides, engine.py:759,766);
-// FLAG_BOND_REACH when fewer than two sightings per interior link,
-// FLAG_FENE_CLAMP when a clamp fired (engine.py:772-783)
+// the block partials of a stencil launch reduced in a fixed order, in a
+// one-block pass; the sums are valid in thread 0.  Each pair is seen from
+// both sides: energies and clamps count twice
+struct StencilSums {
+  float e_lj, e_b;
+  int nb, ncl, nlink;
+};
+
+__device__ StencilSums reduce_tallies(const float* __restrict__ fpart,
+                                      const int* __restrict__ ipart,
+                                      int nblocks, float* shf, int* shi) {
+  StencilSums s = {0.f, 0.f, 0, 0, 0};
+  for (int b = threadIdx.x; b < nblocks; b += blockDim.x) {
+    s.e_lj += fpart[2 * b];
+    s.e_b += fpart[2 * b + 1];
+    s.nb += ipart[3 * b];
+    s.ncl += ipart[3 * b + 1];
+    s.nlink += ipart[3 * b + 2];
+  }
+  s.e_lj = block_sum(s.e_lj, shf);
+  s.e_b = block_sum(s.e_b, shf);
+  s.nb = block_sum_int(s.nb, shi);
+  s.ncl = block_sum_int(s.ncl, shi);
+  s.nlink = block_sum_int(s.nlink, shi);
+  return s;
+}
+
+// FLAG_BOND_REACH: fewer than two sightings per interior link
+// (engine.py:772-783)
+__device__ __forceinline__ bool reach_bad(const StencilSums& s) {
+  return 0.5f * (float)s.nb < (float)s.nlink - 0.5f;
+}
+
+// energies halved (engine.py:759,766); FLAG_BOND_REACH, and
+// FLAG_FENE_CLAMP when a clamp fired
 __global__ void stencil_finish_kernel(const float* __restrict__ fpart,
                                       const int* __restrict__ ipart,
                                       int nblocks, float* __restrict__ en,
                                       long long* __restrict__ out) {
   __shared__ float shf[32];
   __shared__ int shi[32];
-  float e_lj = 0.f, e_b = 0.f;
-  int nb = 0, ncl = 0, nlink = 0;
-  for (int b = threadIdx.x; b < nblocks; b += blockDim.x) {
-    e_lj += fpart[2 * b];
-    e_b += fpart[2 * b + 1];
-    nb += ipart[3 * b];
-    ncl += ipart[3 * b + 1];
-    nlink += ipart[3 * b + 2];
-  }
-  e_lj = block_sum(e_lj, shf);
-  e_b = block_sum(e_b, shf);
-  nb = block_sum_int(nb, shi);
-  ncl = block_sum_int(ncl, shi);
-  nlink = block_sum_int(nlink, shi);
+  const StencilSums s = reduce_tallies(fpart, ipart, nblocks, shf, shi);
   if (threadIdx.x == 0) {
-    en[0] = 0.5f * e_lj;
-    en[1] = 0.5f * e_b;
-    const long long clamps = ncl / 2;
-    const bool reach = 0.5f * (float)nb < (float)nlink - 0.5f;
-    out[0] = (reach ? 64 : 0) | (clamps > 0 ? 8 : 0);
+    en[0] = 0.5f * s.e_lj;
+    en[1] = 0.5f * s.e_b;
+    const long long clamps = s.ncl / 2;
+    out[0] = (reach_bad(s) ? 64 : 0) | (clamps > 0 ? 8 : 0);
     out[1] = clamps;
   }
 }

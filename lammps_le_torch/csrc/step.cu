@@ -15,6 +15,18 @@
 // is bitwise the plain one and only the order of the force and energy
 // sums differs.  Minimum image uses rintf (round half to even, as
 // jnp.round / torch.round).
+//
+// K2's step loop (pallas_step.py:1002-1022) is the kernels' launch-
+// controlled form: each takes a LaunchCtl in device memory and its step
+// index s inside the launch, and returns at once when the launch stopped
+// (the reactive skin trigger fired) or s >= limit.  The host writes a
+// launch's controls with launch_begin_kernel, runs the LAUNCH_MAX steps'
+// kernels (one CUDA graph replay), and reads the control block once.  The
+// finishing passes fold each step's flags, clamps and trigger into the
+// block in a fixed order, with no atomics.  A null LaunchCtl is the
+// one-step chain: the arguments' own key, counter base and gamma2.
+
+#include <cstddef>
 
 #include "common.cuh"
 
@@ -38,7 +50,72 @@ struct LangevinArgs {
   float inv_n;  // 1/n in f32: zero's count without a group
 };
 
+// a multi-step launch's controls and results (K2's scalar SMEM inputs and
+// its stats rows, pallas_step.py:1012-1022).  stats: [e_lj, e_b (energy
+// launches: the last step's unhalved sums), reach_bad, 2 * clamps (each
+// step's clamp events halved as the chain counts them, times 2: the
+// reference's unhalved convention), n_links, skin_bad, trig (last step),
+// steps_done]
+struct LaunchCtl {
+  unsigned int sstep0, k0, k1;  // first step; the run's Langevin key
+  int limit, do_drift, stopped, steps_done;
+  int clamps, reach, skin, trig;
+  float t0, t_slope;  // thermostat target at step 0 and its slope a step
+  int pad[3];
+  float stats[8];
+};
+static_assert(sizeof(LaunchCtl) == 24 * 4, "LaunchCtl is 24 words");
+
+// the planes and work buffers one controlled step runs on (static: the
+// addresses a captured graph holds)
+struct StepPlanes {
+  float *gx, *gv, *gf;
+  const float* gxr;
+  const int* bid;
+  const uint8_t* hn;
+  const int* pid;
+  const uint8_t* interior;
+  const int *halo_cols, *halo_src;
+  const float* halo_shift;
+  const int *exl, *exr;
+  const uint8_t* active;
+  float* eb;
+  const float* lgm;
+  float* fpart;
+  int* ipart;
+  float *lpart, *zpart;
+  LaunchCtl* ctl;
+  int H;
+  float kick, dt;
+};
+
 namespace {
+
+// step s of a controlled launch does not run
+__device__ __forceinline__ bool step_off(const LaunchCtl* ctl, int s) {
+  return ctl != nullptr && (ctl->stopped || s >= ctl->limit);
+}
+
+// nor does its kick + drift + halo on an event launch's first step (the
+// host integrated it before the events, pallas_step.py:686-690)
+__device__ __forceinline__ bool drift_off(const LaunchCtl* ctl, int s) {
+  return step_off(ctl, s) || (ctl != nullptr && s == 0 && !ctl->do_drift);
+}
+
+__global__ void launch_begin_kernel(LaunchCtl* ctl, unsigned int sstep0,
+                                    unsigned int k0, unsigned int k1,
+                                    int limit, int do_drift, float t0,
+                                    float t_slope) {
+  LaunchCtl z = {};
+  z.sstep0 = sstep0;
+  z.k0 = k0;
+  z.k1 = k1;
+  z.limit = limit;
+  z.do_drift = do_drift;
+  z.t0 = t0;
+  z.t_slope = t_slope;
+  *ctl = z;
+}
 
 // ---------------------------------------------------------------------
 // kick_drift_halo <- pallas_step.py:731-751 (K2a)
@@ -50,17 +127,17 @@ namespace {
 // interior source column — the six masked rolls of the TPU kernel exist
 // because a TPU lane gather is slow; here a gather is a plain load.
 
-__global__ void kick_drift_kernel(const float* __restrict__ gx,
-                                  const float* __restrict__ gv,
+// gx_out / gv_out may be gx / gv (each slot reads its own values first)
+__global__ void kick_drift_kernel(const float* gx, const float* gv,
                                   const float* __restrict__ gf,
                                   const int* __restrict__ bid,
                                   const uint8_t* __restrict__ interior,
-                                  float* __restrict__ gx_out,
-                                  float* __restrict__ gv_out, int cap, int P,
-                                  int n, float kick, float dt) {
+                                  float* gx_out, float* gv_out, int cap,
+                                  int P, int n, float kick, float dt,
+                                  const LaunchCtl* ctl, int s) {
   const long capP = (long)cap * P;
   const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= capP) return;
+  if (t >= capP || drift_off(ctl, s)) return;
   const int c = (int)(t % P);
   const float vf = (interior[c] && bid[t] < n) ? 1.f : 0.f;
   for (int k = 0; k < 3; ++k) {
@@ -73,10 +150,11 @@ __global__ void kick_drift_kernel(const float* __restrict__ gx,
 
 __global__ void halo_kernel(float* __restrict__ gx, const int* halo_cols,
                             const int* halo_src, const float* halo_shift,
-                            int H, int cap, int P) {
+                            int H, int cap, int P, const LaunchCtl* ctl,
+                            int s) {
   const long capP = (long)cap * P;
   const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long)H * cap) return;
+  if (t >= (long)H * cap || drift_off(ctl, s)) return;
   const int r = (int)(t / H), h = (int)(t % H);
   const long dst = (long)r * P + halo_cols[h];
   const long src = (long)r * P + halo_src[h];
@@ -106,9 +184,11 @@ __global__ void stencil_kernel(const float* __restrict__ gx,
                                const uint8_t* __restrict__ interior,
                                float* __restrict__ gf,
                                float* __restrict__ fpart,
-                               int* __restrict__ ipart, StencilArgs a) {
+                               int* __restrict__ ipart, StencilArgs a,
+                               const LaunchCtl* ctl, int s) {
   __shared__ float shf[32];
   __shared__ int shi[32];
+  if (step_off(ctl, s)) return;
   const int cap = a.cap, P = a.P, n = a.n;
   const long capP = (long)cap * P;
   const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -146,6 +226,28 @@ __global__ void stencil_kernel(const float* __restrict__ gx,
   block_tallies(tl, nlink, fpart, ipart, shf, shi);
 }
 
+// the controlled launch's stencil finishing pass: the step's clamp events
+// (halved) and reach bit folded into the control block, the unhalved
+// energies and the link count into its stats rows
+__global__ void stencil_fold_kernel(const float* __restrict__ fpart,
+                                    const int* __restrict__ ipart,
+                                    int nblocks, int energy, LaunchCtl* ctl,
+                                    int s) {
+  __shared__ float shf[32];
+  __shared__ int shi[32];
+  if (step_off(ctl, s)) return;
+  const StencilSums t = reduce_tallies(fpart, ipart, nblocks, shf, shi);
+  if (threadIdx.x == 0) {
+    ctl->clamps += t.ncl / 2;
+    ctl->reach |= reach_bad(t) ? 1 : 0;
+    if (energy) {
+      ctl->stats[0] = t.e_lj;
+      ctl->stats[1] = t.e_b;
+    }
+    ctl->stats[4] = (float)t.nlink;
+  }
+}
+
 // ---------------------------------------------------------------------
 // extruder_springs <- pallas_step.py:776-930 (K2c), the math of
 // engine.make_extruder_pass (engine.py:857-897)
@@ -163,9 +265,10 @@ __global__ void springs_kernel(const float* __restrict__ gx,
                                const int* __restrict__ exl,
                                const int* __restrict__ exr,
                                const uint8_t* __restrict__ active,
-                               float* __restrict__ eb_out, SpringArgs a) {
+                               float* __restrict__ eb_out, SpringArgs a,
+                               const LaunchCtl* ctl, int s) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= a.E) return;
+  if (e >= a.E || step_off(ctl, s)) return;
   const long capP = (long)a.cap * a.P;
   const long sl = exl[e], sr = exr[e];
   if (!active[e] || sl < 0 || sl >= capP || sr < 0 || sr >= capP) {
@@ -250,6 +353,22 @@ __device__ unsigned int threefry_x0(unsigned int k0, unsigned int k1,
   return x0;
 }
 
+// a controlled step's key, threefry counter base (sstep0 + s) * 4 and
+// gamma2 = g2base * sqrt(t0 + t_slope * s) (pallas_step.py:933-937; the
+// argument block then carries g2base in gamma2)
+__device__ __forceinline__ LangevinArgs step_args(LangevinArgs a,
+                                                  const LaunchCtl* ctl,
+                                                  int s) {
+  if (ctl != nullptr) {
+    a.k0 = ctl->k0;
+    a.k1 = ctl->k1;
+    a.base = (ctl->sstep0 + (unsigned int)s) * 4u;
+    a.gamma2 =
+        a.gamma2 * sqrtf(fmaxf(ctl->t0 + ctl->t_slope * (float)s, 0.f));
+  }
+  return a;
+}
+
 __device__ __forceinline__ float lan_noise(const LangevinArgs& a, int b,
                                            int k) {
   const unsigned int x0 =
@@ -263,8 +382,11 @@ __global__ void langevin_sum_kernel(const int* __restrict__ bid,
                                     const uint8_t* __restrict__ interior,
                                     const float* __restrict__ lgm,
                                     float* __restrict__ part,
-                                    LangevinArgs a) {
+                                    LangevinArgs a0, const LaunchCtl* ctl,
+                                    int step) {
   __shared__ float sh[32];
+  if (step_off(ctl, step)) return;
+  const LangevinArgs a = step_args(a0, ctl, step);
   const long capP = (long)a.cap * a.P;
   const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
   float s[3] = {0.f, 0.f, 0.f}, cnt = 0.f;
@@ -289,8 +411,10 @@ __global__ void langevin_sum_kernel(const int* __restrict__ bid,
 // a group and 1/n without (engine.py:1428-1434)
 __global__ void langevin_mean_kernel(const float* __restrict__ part,
                                      int nblocks, float* __restrict__ mean,
-                                     LangevinArgs a) {
+                                     LangevinArgs a, const LaunchCtl* ctl,
+                                     int step) {
   __shared__ float sh[32];
+  if (step_off(ctl, step)) return;
   float s[4] = {0.f, 0.f, 0.f, 0.f};
   for (int b = threadIdx.x; b < nblocks; b += blockDim.x)
     for (int k = 0; k < 4; ++k) s[k] += part[4 * b + k];
@@ -301,18 +425,20 @@ __global__ void langevin_mean_kernel(const float* __restrict__ part,
   }
 }
 
+// gf_out / gv_out may be gf / gv (each slot reads its own values first)
 __global__ void langevin_kernel(const float* __restrict__ gx,
                                 const float* __restrict__ gxr,
-                                const float* __restrict__ gv,
-                                const float* __restrict__ gf,
+                                const float* gv, const float* gf,
                                 const int* __restrict__ bid,
                                 const uint8_t* __restrict__ interior,
                                 const float* __restrict__ lgm,
                                 const float* __restrict__ mean,
-                                float* __restrict__ gf_out,
-                                float* __restrict__ gv_out,
-                                float* __restrict__ part, LangevinArgs a) {
+                                float* gf_out, float* gv_out,
+                                float* __restrict__ part, LangevinArgs a0,
+                                const LaunchCtl* ctl, int s) {
   __shared__ float sh[32];
+  if (step_off(ctl, s)) return;
+  const LangevinArgs a = step_args(a0, ctl, s);
   const long capP = (long)a.cap * a.P;
   const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
   float dsq = 0.f, pred = 0.f;
@@ -356,12 +482,17 @@ __global__ void langevin_kernel(const float* __restrict__ gx,
 }
 
 // global top-2 from the block pairs: M = max m1_b, and the largest value
-// != M is m1_b where m1_b != M, else m2_b (engine.py:1311-1312)
+// != M is m1_b where m1_b != M, else m2_b (engine.py:1311-1312).  A
+// controlled step folds its skin bit and trigger into the control block
+// (the trigger stops the launch: pallas_step.py:993-1004) and writes the
+// stats rows after it; the chain's step writes [flag bits, trigger]
 __global__ void langevin_finish_kernel(const float* __restrict__ part,
                                        int nblocks, float bad_cut,
                                        float trig_cut,
-                                       long long* __restrict__ out) {
+                                       long long* __restrict__ out,
+                                       LaunchCtl* ctl, int s) {
   __shared__ float sh[32];
+  if (step_off(ctl, s)) return;
   float m = 0.f, p = 0.f;
   for (int b = threadIdx.x; b < nblocks; b += blockDim.x) {
     m = fmaxf(m, part[3 * b]);
@@ -374,9 +505,60 @@ __global__ void langevin_finish_kernel(const float* __restrict__ part,
     m2 = fmaxf(m2, part[3 * b] != M ? part[3 * b] : part[3 * b + 1]);
   m2 = block_max(m2, sh);
   if (threadIdx.x == 0) {
-    out[0] = (sqrtf(M) + sqrtf(m2) > bad_cut) ? 4 : 0;
-    out[1] = p > trig_cut ? 1 : 0;
+    const bool bad = sqrtf(M) + sqrtf(m2) > bad_cut;
+    const int trig = p > trig_cut ? 1 : 0;
+    if (ctl == nullptr) {
+      out[0] = bad ? 4 : 0;
+      out[1] = trig;
+    } else {
+      ctl->skin |= bad ? 1 : 0;
+      ctl->trig = trig;
+      ctl->steps_done = s + 1;
+      ctl->stopped |= trig;
+      ctl->stats[2] = (float)ctl->reach;
+      ctl->stats[3] = 2.f * (float)ctl->clamps;
+      ctl->stats[5] = (float)ctl->skin;
+      ctl->stats[6] = (float)trig;
+      ctl->stats[7] = (float)(s + 1);
+    }
   }
+}
+
+// the launches of each kernel pair; ctl null: the chain's one step
+void kick_drift_launch(const float* gx, const float* gv, const float* gf,
+                       const int* bid, const uint8_t* interior,
+                       const int* halo_cols, const int* halo_src,
+                       const float* halo_shift, float* gx_out, float* gv_out,
+                       int cap, int P, int H, int n, float kick, float dt,
+                       const LaunchCtl* ctl, int step, cudaStream_t s) {
+  kick_drift_kernel<<<blocks_for((long)cap * P), kThreads, 0, s>>>(
+      gx, gv, gf, bid, interior, gx_out, gv_out, cap, P, n, kick, dt, ctl,
+      step);
+  if (H > 0)
+    halo_kernel<<<blocks_for((long)H * cap), kThreads, 0, s>>>(
+        gx_out, halo_cols, halo_src, halo_shift, H, cap, P, ctl, step);
+}
+
+void langevin_launch(const float* gx, const float* gxr, const float* gv,
+                     const float* gf, const int* bid,
+                     const uint8_t* interior, const float* lgm,
+                     float* gf_out, float* gv_out, float* part, float* zpart,
+                     long long* out, LangevinArgs a, LaunchCtl* ctl, int step,
+                     cudaStream_t s) {
+  const int nb = blocks_for((long)a.cap * a.P);
+  const float* mean = nullptr;
+  if (a.langevin && a.zero) {
+    langevin_sum_kernel<<<nb, kThreads, 0, s>>>(bid, interior, lgm, zpart,
+                                                a, ctl, step);
+    langevin_mean_kernel<<<1, kThreads, 0, s>>>(zpart, nb, zpart + 4 * nb,
+                                                a, ctl, step);
+    mean = zpart + 4 * nb;
+  }
+  langevin_kernel<<<nb, kThreads, 0, s>>>(gx, gxr, gv, gf, bid, interior,
+                                          lgm, mean, gf_out, gv_out, part,
+                                          a, ctl, step);
+  langevin_finish_kernel<<<1, kThreads, 0, s>>>(part, nb, a.bad_cut,
+                                                a.trig_cut, out, ctl, step);
 }
 
 }  // namespace
@@ -392,13 +574,9 @@ int lle_kick_drift_halo(const float* gx, const float* gv, const float* gf,
                         const float* halo_shift, float* gx_out,
                         float* gv_out, int cap, int P, int H, int n,
                         float kick, float dt, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const long capP = (long)cap * P;
-  kick_drift_kernel<<<blocks_for(capP), kThreads, 0, s>>>(
-      gx, gv, gf, bid, interior, gx_out, gv_out, cap, P, n, kick, dt);
-  if (H > 0)
-    halo_kernel<<<blocks_for((long)H * cap), kThreads, 0, s>>>(
-        gx_out, halo_cols, halo_src, halo_shift, H, cap, P);
+  kick_drift_launch(gx, gv, gf, bid, interior, halo_cols, halo_src,
+                    halo_shift, gx_out, gv_out, cap, P, H, n, kick, dt,
+                    nullptr, 0, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
@@ -413,7 +591,7 @@ int lle_stencil_forces(const float* gx, const int* bid, const uint8_t* hn,
   cudaStream_t s = (cudaStream_t)stream;
   const int nb = blocks_for((long)a.cap * a.P);
   stencil_kernel<<<nb, kThreads, 0, s>>>(gx, bid, hn, pid, interior, gf,
-                                         fpart, ipart, a);
+                                         fpart, ipart, a, nullptr, 0);
   stencil_finish_kernel<<<1, kThreads, 0, s>>>(fpart, ipart, nb, en, out);
   return (int)cudaGetLastError();
 }
@@ -423,8 +601,8 @@ int lle_extruder_springs(const float* gx, float* gf, const int* exl,
                          SpringArgs a, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (a.E > 0)
-    springs_kernel<<<blocks_for(a.E), kThreads, 0, s>>>(gx, gf, exl, exr,
-                                                        active, eb, a);
+    springs_kernel<<<blocks_for(a.E), kThreads, 0, s>>>(
+        gx, gf, exl, exr, active, eb, a, nullptr, 0);
   return (int)cudaGetLastError();
 }
 
@@ -435,21 +613,47 @@ int lle_langevin_kick_monitor(const float* gx, const float* gxr,
                               const float* lgm, float* gf_out, float* gv_out,
                               float* part, float* zpart, long long* out,
                               LangevinArgs a, void* stream) {
+  langevin_launch(gx, gxr, gv, gf, bid, interior, lgm, gf_out, gv_out, part,
+                  zpart, out, a, nullptr, 0, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+// the control block's size and the offset of its stats rows, in 4-byte
+// words (kernels.py reads them back)
+int lle_ctl_words() { return (int)(sizeof(LaunchCtl) / 4); }
+int lle_ctl_stats() { return (int)(offsetof(LaunchCtl, stats) / 4); }
+
+// the control kernel: a launch's first step, key, limit, drift flag and
+// thermostat ramp, every tally and stats row zeroed
+int lle_launch_begin(LaunchCtl* ctl, unsigned int sstep0, unsigned int k0,
+                     unsigned int k1, int limit, int do_drift, float t0,
+                     float t_slope, void* stream) {
+  launch_begin_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+      ctl, sstep0, k0, k1, limit, do_drift, t0, t_slope);
+  return (int)cudaGetLastError();
+}
+
+// step s of a controlled launch, in place on the static planes, in the
+// chain's order: kick + drift + halo, stencil (energies when sa.energy),
+// springs (pa.E > 0), Langevin + final kick + monitor.  la.gamma2 is the
+// run's g2base; the key, counter base and ramp come from the block
+int lle_step_ctl(StepPlanes p, StencilArgs sa, SpringArgs pa,
+                 LangevinArgs la, int step, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int nb = blocks_for((long)a.cap * a.P);
-  const float* mean = nullptr;
-  if (a.langevin && a.zero) {
-    langevin_sum_kernel<<<nb, kThreads, 0, s>>>(bid, interior, lgm, zpart,
-                                                a);
-    langevin_mean_kernel<<<1, kThreads, 0, s>>>(zpart, nb, zpart + 4 * nb,
-                                                a);
-    mean = zpart + 4 * nb;
-  }
-  langevin_kernel<<<nb, kThreads, 0, s>>>(gx, gxr, gv, gf, bid, interior,
-                                          lgm, mean, gf_out, gv_out, part,
-                                          a);
-  langevin_finish_kernel<<<1, kThreads, 0, s>>>(part, nb, a.bad_cut,
-                                                a.trig_cut, out);
+  const int cap = sa.cap, P = sa.P, nb = blocks_for((long)cap * P);
+  kick_drift_launch(p.gx, p.gv, p.gf, p.bid, p.interior, p.halo_cols,
+                    p.halo_src, p.halo_shift, p.gx, p.gv, cap, P, p.H, sa.n,
+                    p.kick, p.dt, p.ctl, step, s);
+  stencil_kernel<<<nb, kThreads, 0, s>>>(p.gx, p.bid, p.hn, p.pid,
+                                         p.interior, p.gf, p.fpart, p.ipart,
+                                         sa, p.ctl, step);
+  stencil_fold_kernel<<<1, kThreads, 0, s>>>(p.fpart, p.ipart, nb,
+                                             sa.energy, p.ctl, step);
+  if (pa.E > 0)
+    springs_kernel<<<blocks_for(pa.E), kThreads, 0, s>>>(
+        p.gx, p.gf, p.exl, p.exr, p.active, p.eb, pa, p.ctl, step);
+  langevin_launch(p.gx, p.gxr, p.gv, p.gf, p.bid, p.interior, p.lgm, p.gf,
+                  p.gv, p.lpart, p.zpart, nullptr, la, p.ctl, step, s);
   return (int)cudaGetLastError();
 }
 

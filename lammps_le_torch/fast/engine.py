@@ -21,8 +21,13 @@ extruder-partner planes.  A step is, in the reference's order:
   (``langevin_kick_monitor``).
 
 The kernels are ``fast/kernels.py``; placement, events and thermo are
-plain PyTorch.  The host drives the step loop: it reads the armed skin
-trigger once per step (one device sync), everything else stays queued.
+plain PyTorch.  Two modes run these steps (``make_fast_segment``'s
+``pallas``): the chain, which issues each step's kernels from the host and
+reads the armed skin trigger once a step (one device sync), and K2's step
+loop (``pallas_step.py``), which runs up to LAUNCH_MAX steps a launch on
+the card, stopped by the in-launch trigger, with one read a launch; the
+boundary work of a launch's first step (rebuild, LE events) stays on the
+host.  Within the whole-plane gate the card takes the step loop.
 """
 
 from __future__ import annotations
@@ -39,19 +44,23 @@ from ..fixes.config import NVE, ExLoad, ExUnload, Extrusion, Langevin
 from ..fixes.ex_load import make_ex_load_update
 from ..fixes.ex_unload import make_ex_unload_update
 from ..fixes.extrusion import make_extrusion_update
-from ..state import FLAG_NON_FINITE, State, extruder_partner
+from ..state import (FLAG_BOND_REACH, FLAG_FENE_CLAMP, FLAG_NON_FINITE,
+                     FLAG_SKIN_VIOLATION, State, extruder_partner)
 from ..system import BOND_FENE, BOND_HARMONIC, System
 from . import kernels as K
+from . import kernels_ref as R
 from .blocked_kernel import make_blocked_kernel
 from .consts import SpringConsts, StencilConsts
 from .maps import FastMaps, fast_maps
+from .pallas_step import LAUNCH_MAX, make_step_kernel, skin_cuts
 from .place import GridConsts, ex_slots, halo_refresh_int, place
 
 
 @dataclasses.dataclass
 class FastState:
-    """Grid-resident state of one run (engine.py:152).  ``step`` and
-    ``n_rebuilds`` are host ints: the host drives the step loop."""
+    """Grid-resident state of one run (engine.py:152).  ``step``,
+    ``skin_pend``, ``n_rebuilds`` and ``n_launches`` are host ints: the
+    host drives the step loop."""
 
     gx: torch.Tensor         # (3, cap, P) positions (halo = shifted copies)
     gv: torch.Tensor         # (3, cap, P) velocities (interior valid)
@@ -77,8 +86,9 @@ class FastState:
     n_unloads: torch.Tensor
     n_clamps: torch.Tensor   # FENE clamp events (warning class)
     last_event: torch.Tensor  # (3,) counts at the latest events
-    skin_pend: torch.Tensor  # () int64: next step rebuilds first
+    skin_pend: int           # 1: the next step rebuilds first
     n_rebuilds: int = 0
+    n_launches: int = 0      # step-loop launches (engine.py:200-207)
     # (cap, P) 0/1 Langevin-group membership plane in the run's float
     # type, re-placed at every rebuild; None when the thermostat covers
     # all beads (fix langevin <group>, engine.py:262-265)
@@ -292,8 +302,7 @@ def to_fast(state: State, sim, kernel_fn=None, groups=None) -> FastState:
         | ints[0], epair=en[0], ebond=en[1], n_moves=state.n_moves,
         n_loads=state.n_loads, n_unloads=state.n_unloads, n_clamps=ints[1],
         last_event=state.last_event,
-        skin_pend=torch.zeros((), dtype=torch.int64, device=gx.device),
-        lgm=lgm,
+        skin_pend=0, lgm=lgm,
     )
 
 
@@ -331,15 +340,66 @@ def thermo_row_fast(fs: FastState, system: System) -> ThermoSample:
 # the step
 
 
-def make_fast_segment(sim, device, kernel_fn=None):
-    """Build ``segment(fs, step0, length, run_begin, run_end) -> fs``
-    advancing ``length`` steps in place (the reactive XLA-chain semantics
-    of engine.make_fast_segment, engine.py:1102-1455).  ``kernel_fn``: a
-    caller's stencil with select_kernel's contract (engine.py:1130-1132),
-    else select_kernel's.  A Langevin group is the FastState's ``lgm``
+def _pallas_step_mode(system: System, pallas, device):
+    """The step backend (engine._pallas_step_mode, engine.py:1079):
+    ``"real"`` (K2's step loop on the card, kernels.StepLoop), ``"interpret"``
+    (the same loop's plain version, on any device) or None (the chain).
+    ``pallas`` None is auto: "real" for f32 planes on a CUDA device within
+    the whole-plane gate, the chain past it (its stencil then the
+    Newton-half one) and elsewhere; False is the chain.  The reference's
+    LLE_PALLAS_STEP switch is not ported."""
+    if pallas is None:
+        pallas = ("real" if system.dtype == "float32"
+                  and torch.device(device).type == "cuda"
+                  and whole_planes_fit(fast_maps(system)) else None)
+    mode = pallas or None
+    if mode not in (None, "real", "interpret"):
+        raise ValueError(f"pallas={pallas!r}: want None, False, 'real' or "
+                         f"'interpret'")
+    if mode == "real" and (torch.device(device).type != "cuda"
+                           or system.dtype != "float32"):
+        raise ValueError(f"pallas='real' runs f32 kernels on the card, not "
+                         f"{system.dtype} on {device} ('interpret' runs the "
+                         f"plain loop)")
+    return mode
+
+
+def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
+                      reactive: bool = True, hot_window: int = None,
+                      kernel_fn=None, *, device="cuda"):
+    """Build ``(segment, step_core)`` (engine.make_fast_segment,
+    engine.py:1102-1746): ``segment(fs, step0, length, run_begin, run_end)
+    -> fs`` advances ``length`` steps in place, ``step_core(fs, sstep,
+    run_begin, run_end) -> fs`` one step.
+
+    ``pallas`` (``_pallas_step_mode``): None = auto, False = the chain,
+    "real" / "interpret" = K2's step loop on the card / in plain PyTorch.
+    The chain runs the reactive step of the reference's XLA chain
+    (engine.py:1348-1455), one host-driven step at a time, reading the
+    armed skin trigger once a step.  The step loop's ``segment`` batches
+    up to LAUNCH_MAX steps a launch (engine.py:1692-1739), stopping at the
+    next cadence step (LE event phases, the rebuild backstop, energy
+    steps) or where the in-launch trigger fires; the host reads one stats
+    block a launch and counts ``fs.n_launches``.  ``kernel_fn``: a
+    caller's stencil with select_kernel's contract for the chain
+    (engine.py:1130-1132), else select_kernel's; the step loop carries its
+    own stencil and ignores it (engine.py:1458).  ``thermo_every`` raises
+    the energy cadence to its gcd with the thermo cadence
+    (engine.py:1127-1129).  A Langevin group is the FastState's ``lgm``
     plane (to_fast's ``groups``); ``zero`` subtracts the random force's
-    mean over the group each step (engine.py:1422-1435)."""
-    ctx = _ctx(sim, device, kernel_fn)
+    mean over the group each step (engine.py:1422-1435).  ``device``: the
+    run's, the card by default (it raises without one).  ``reactive=False``
+    and hot windows are not ported (ROADMAP Queue 1 item 2)."""
+    if isinstance(thermo_every, bool) or not isinstance(
+            thermo_every, (int, np.integer)):
+        raise TypeError(f"thermo_every={thermo_every!r} is a step count "
+                        f"(the device is keyword-only)")
+    if not reactive or hot_window is not None:
+        raise NotImplementedError(
+            "lammps_le_torch fast engine: reactive=False and hot windows "
+            "are not ported (ROADMAP Queue 1 item 2)")
+    mode = _pallas_step_mode(sim.system, pallas, device)
+    ctx = _ctx(sim, device, None if mode else kernel_fn)
     system, maps, g = ctx.system, ctx.maps, ctx.g
     n = system.n
     cap, P = maps.cap, maps.P
@@ -350,6 +410,8 @@ def make_fast_segment(sim, device, kernel_fn=None):
     kick = 0.5 * dt * units.ftm2v / mass
     K_every = max(int(system.neighbor.rebuild_every), 1)
     energy_every = max(int(sim.energy_every), 1)
+    if thermo_every and thermo_every % energy_every:
+        energy_every = int(np.gcd(thermo_every, energy_every))
     np_dtype = np.float32 if system.dtype == "float32" else np.float64
 
     lan = [f for f in sim.fixes if isinstance(f, Langevin)]
@@ -365,6 +427,17 @@ def make_fast_segment(sim, device, kernel_fn=None):
             # threefry counter, not the key (engine.py:1393-1403)
             return rng.fold_in(rng.fold_in(key_words, 4 << 20), lf.seed)
 
+    def ramp(sstep, run_begin, run_end):
+        """t_start -> t_stop target at ``sstep`` and its slope a step
+        (fix_langevin.cpp:97-145), in the run's float type as the
+        reference computes them (engine.py:1619-1629)."""
+        span = max(np_dtype(run_end - run_begin), np_dtype(1.0))
+        frac = np.clip(np_dtype(sstep - run_begin) / span, np_dtype(0.0),
+                       np_dtype(1.0))
+        t0 = np_dtype(lf.t_start)
+        dT = np_dtype(lf.t_stop) - t0
+        return t0 + frac * dT, dT / span
+
     event_fixes = [f for f in sim.fixes
                    if isinstance(f, (Extrusion, ExLoad, ExUnload))]
     makers = {Extrusion: make_extrusion_update, ExLoad: make_ex_load_update,
@@ -373,32 +446,41 @@ def make_fast_segment(sim, device, kernel_fn=None):
     event_updates = [(f, fid, makers[type(f)](system, f, device))
                      for fid, f in enumerate(event_fixes)]
     event_phases = [(f.nevery, f.phase) for f in event_fixes]
+    bad_cut, trig_cut = skin_cuts(system)
 
-    # half-skin from the real cell margin (engine.py:1154-1162)
-    min_edge = min(b / d for b, d in zip(
-        system.box_size,
-        (system.neighbor.nx, system.neighbor.ny, system.neighbor.nz)))
-    max_cut = float(np.max(np.asarray(system.pair.cutoff)))
-    halfskin = 0.5 * max(min_edge - max_cut, 1e-6)
-    bad_cut = 2.0 * halfskin     # pairwise coverage bound (skin_check)
-    trig_cut = 0.85 * halfskin   # per-bead look-ahead trigger
-
-    def rebuild(fs: FastState):
-        x, v, f = extract_beads(fs, maps)
+    def placement(fs: FastState, gx, gv, gf):
+        """A rebuild's new grid from planes (gx, gv, gf) of ``fs``, not
+        yet the state's: place()'s outputs but the wrapped positions, and
+        the group plane."""
+        slot = torch.clamp(fs.slot_of, 0, capP - 1)
+        x, v, f = (p.reshape(3, capP)[:, slot].T for p in (gx, gv, gf))
+        out = place(system, maps, g, x, v, f, fs.ex_left, fs.ex_right,
+                    fs.img)
+        lgm = None
         if fs.lgm is not None:
             # membership is per bead: gathered through the old slots,
             # scattered to the new ones (engine.py:1283-1288)
-            member = fs.lgm.reshape(-1)[torch.clamp(fs.slot_of, 0,
-                                                    capP - 1)]
+            lgm = _lgm_plane(fs.lgm.reshape(-1)[slot], out[6], maps,
+                             gx.dtype)
+        return out[:9] + out[10:] + (lgm,)
+
+    def commit(fs: FastState, placed):
         (fs.gx, fs.gv, fs.gf, fs.bid, fs.hn, fs.pid, fs.slot_of,
-         fs.exl_slot, fs.exr_slot, _, fs.img, overflow) = place(
-            system, maps, g, x, v, f, fs.ex_left, fs.ex_right, fs.img)
-        if fs.lgm is not None:
-            fs.lgm = _lgm_plane(member, fs.slot_of, maps, fs.gx.dtype)
+         fs.exl_slot, fs.exr_slot, fs.img, overflow, lgm) = placed
+        if lgm is not None:
+            fs.lgm = lgm
         fs.gx_ref = fs.gx
         fs.flags = fs.flags | overflow
-        fs.skin_pend = torch.zeros_like(fs.skin_pend)
+        fs.skin_pend = 0
         fs.n_rebuilds += 1
+
+    def rebuild(fs: FastState):
+        commit(fs, placement(fs, fs.gx, fs.gv, fs.gf))
+
+    def rebuild_due(fs: FastState, sstep: int, event: bool):
+        # rebuilds due by cadence, LE-event phase or the armed skin
+        # trigger are served BEFORE the drift (engine.py:1349-1360)
+        return sstep % K_every == 0 or event or bool(fs.skin_pend)
 
     def retable(fs: FastState, left, right):
         """Partner plane + anchor slots after an extruder-table edit."""
@@ -440,11 +522,12 @@ def make_fast_segment(sim, device, kernel_fn=None):
             fs.last_event = last
             retable(fs, l, r)
 
+    def is_event(sstep: int):
+        return any(sstep % nev == ph for nev, ph in event_phases)
+
     def step(fs: FastState, sstep: int, run_begin: int, run_end: int):
-        # rebuilds due by cadence, LE-event phase or the armed skin
-        # trigger are served BEFORE the drift (engine.py:1349-1360)
-        event = any(sstep % nev == ph for nev, ph in event_phases)
-        if sstep % K_every == 0 or event or bool(fs.skin_pend):
+        event = is_event(sstep)
+        if rebuild_due(fs, sstep, event):
             rebuild(fs)
         fs.gx, fs.gv = K.kick_drift_halo(
             fs.gx, fs.gv, fs.gf, fs.bid, g.interior, g.halo_cols,
@@ -470,39 +553,182 @@ def make_fast_segment(sim, device, kernel_fn=None):
         if lf is not None:
             gamma1 = -mass / lf.damp / units.ftm2v
             lan_key = lan_words(fs.key_words)
-            # t_start -> t_stop ramp (fix_langevin.cpp:97-145), in the
-            # run's float type as the reference computes it
-            span = max(np_dtype(run_end - run_begin), np_dtype(1.0))
-            frac = np.clip(np_dtype(sstep - run_begin) / span,
-                           np_dtype(0.0), np_dtype(1.0))
-            t0 = np_dtype(lf.t_start)
-            t_target = t0 + frac * (np_dtype(lf.t_stop) - t0)
+            t_target, _ = ramp(sstep, run_begin, run_end)
             gamma2 = float(np_dtype(g2base) * np.sqrt(t_target))
         fs.gf, fs.gv, mon = K.langevin_kick_monitor(
             fs.gx, fs.gx_ref, fs.gv, gf, fs.bid, g.interior, lan_key, sstep,
             gamma1, gamma2, kick, dt, bad_cut,
             trig_cut, n, lf is not None, fs.lgm, lan_zero)
         fs.flags = fs.flags | mon[0]
-        fs.skin_pend = mon[1]
+        # the one host read of the step: the armed trigger
+        fs.skin_pend = int(mon[1])
         return fs
+
+    if not mode:
+        def segment(fs: FastState, step0: int, length: int, run_begin: int,
+                    run_end: int):
+            for i in range(length):
+                step(fs, step0 + i + 1, run_begin, run_end)
+            return fs
+
+        return segment, step
+
+    core = make_step_kernel(system, maps, sim.ex_btype, dt=dt, langevin=lf,
+                            g=g, interpret=mode == "interpret")
+    # the boundary's kick + drift: the plain version in interpret mode
+    drift = R.kick_drift_halo if mode == "interpret" else K.kick_drift_halo
+
+    def launch_pallas(fs: FastState, sstep: int, limit: int, run_begin: int,
+                      run_end: int, placed=None, ahead=False):
+        """One launch of steps sstep..sstep+d-1, d <= limit
+        (engine.py:1548-1690).  Its first step's boundary work runs on the
+        host: the rebuild when due and, on an LE event step, kick + drift,
+        the events and their rebuild, the launch then starting with its
+        drift off; the caller keeps every later step of the launch off the
+        cadences.  Energy steps are single-step launches (stats hold the
+        last step's energies).
+
+        With ``ahead`` the next launch's rebuild is issued on this launch's
+        output planes before its stats are read, so that on the card the
+        host's issue of the placement overlaps the launch; the next launch
+        commits it (``placed``) only where its rebuild is due, so the run
+        is the chain's.  Returns (d, that placement or None)."""
+        event = is_event(sstep)
+        if rebuild_due(fs, sstep, event):
+            if placed is None:
+                rebuild(fs)
+            else:
+                commit(fs, placed)
+        fs.step = sstep
+        if event:
+            fs.gx, fs.gv = drift(fs.gx, fs.gv, fs.gf, fs.bid, g.interior,
+                                 g.halo_cols, g.halo_src, g.halo_shift, n,
+                                 kick, dt)
+            apply_events(fs, sstep)
+            rebuild(fs)
+        energy = sstep % energy_every == 0
+        key_words, t_target, t_slope = (0, 0), 1.0, 0.0
+        if lf is not None:
+            key_words = lan_words(fs.key_words)
+            t_target, t_slope = ramp(sstep, run_begin, run_end)
+        nxt = []
+        fs.gx, fs.gv, fs.gf, stats = core(
+            fs.gx, fs.gv, fs.gf, fs.gx_ref, fs.bid, fs.hn, fs.pid,
+            fs.exl_slot, fs.exr_slot, fs.ex_left >= 0, fs.lgm, sstep,
+            not event, key_words, float(t_target), float(t_slope),
+            1 if energy else limit, energy,
+            (lambda *planes: nxt.append(placement(fs, *planes)))
+            if ahead else None)
+        st = stats.tolist()
+        d = int(st[7])
+        clamps = int(0.5 * st[3])
+        fl = ((FLAG_BOND_REACH if st[2] > 0 else 0)
+              | (FLAG_FENE_CLAMP if clamps > 0 else 0)
+              | (FLAG_SKIN_VIOLATION if st[5] > 0 else 0))
+        fs.n_clamps = fs.n_clamps + clamps
+        fs.step = sstep + d - 1
+        # the in-launch monitor re-arms the trigger (stats row 6); the
+        # next launch serves it
+        fs.skin_pend = int(st[6] > 0)
+        if energy:
+            el, eb = 0.5 * st[0], 0.5 * st[1]
+            en = torch.tensor([el, eb], dtype=fs.gx.dtype).to(
+                fs.gx.device, non_blocking=True)
+            fs.epair, fs.ebond = en[0], en[1]
+            if not (np.isfinite(el) and np.isfinite(eb)):
+                fl |= FLAG_NON_FINITE
+        if fl:
+            fs.flags = fs.flags | fl
+        return d, (nxt[0] if nxt else None)
+
+    # the next step of each cadence bounds a launch (engine.py:1706-1711)
+    cadences = event_phases + [(K_every, 0), (energy_every, 0)]
 
     def segment(fs: FastState, step0: int, length: int, run_begin: int,
                 run_end: int):
-        for i in range(length):
-            step(fs, step0 + i + 1, run_begin, run_end)
+        done, placed = 0, None
+        while done < length:
+            sstep = step0 + done + 1
+            lim = min(LAUNCH_MAX, length - done)
+            for nev, ph in cadences:
+                # the distance to the next step of the cadence; sstep
+                # itself is the launch's own first step
+                lim = min(lim, (ph - sstep) % nev or nev)
+            # place ahead unless this launch may end the segment
+            d, placed = launch_pallas(fs, sstep, lim, run_begin, run_end,
+                                      placed, done + lim < length)
+            done += d
+            fs.n_launches += 1
         return fs
 
-    return segment
+    def step_pallas(fs: FastState, sstep: int, run_begin: int, run_end: int):
+        launch_pallas(fs, sstep, 1, run_begin, run_end)
+        return fs
+
+    segment.loop = getattr(core, "loop", None)
+    return segment, step_pallas
 
 
-def run_fast(sim, state: State, nsteps: int, kernel_fn=None,
-             groups=None) -> State:
+def _host_row(row: ThermoSample) -> ThermoSample:
+    """A thermo row's values on the host (jax.device_get's place)."""
+    return ThermoSample(*(v.item() if isinstance(v, torch.Tensor) else v
+                          for v in row))
+
+
+def run_fast(sim, state: State, nsteps: int, thermo_every: int = 0,
+             thermo_callback=None, max_segment: int = 2000,
+             boundary_every: int = 0, boundary_callback=None, groups=None,
+             kernel_fn=None):
     """Drive ``nsteps`` on the fast engine as one run (engine.run_fast,
-    without its thermo rows: ``thermo_row_fast`` reads them from a
-    FastState).  ``kernel_fn`` as make_fast_segment's, ``groups`` as
-    to_fast's."""
-    segment = make_fast_segment(sim, state.x.device, kernel_fn)
+    engine.py:1749-1808), on the state's device.  Returns (State, thermo
+    rows): a row (``thermo_row_fast``, its values on the host) at the run's
+    start and at every absolute multiple of ``thermo_every``, and one at
+    the end, each also passed with the State to ``thermo_callback``;
+    ``boundary_callback(State)`` fires at absolute multiples of
+    ``boundary_every`` (the dump cadence, output.cpp:284).  Segments stop
+    there and are at most ``max_segment`` steps.  ``groups`` as to_fast's,
+    ``kernel_fn`` as make_fast_segment's."""
+    system = sim.system
+    segment, _ = make_fast_segment(sim, thermo_every, kernel_fn=kernel_fn,
+                                   device=state.x.device)
     fs = to_fast(state, sim, kernel_fn, groups)
+    rows = []
+
+    def emit(fs):
+        row = _host_row(thermo_row_fast(fs, system))
+        rows.append(row)
+        if thermo_callback:
+            thermo_callback(row, from_fast(fs, system))
+
     begin = fs.step
-    segment(fs, begin, nsteps, begin, begin + nsteps)
-    return from_fast(fs, sim.system)
+    if thermo_every > 0:
+        emit(fs)
+    if boundary_callback and boundary_every > 0 \
+            and begin % boundary_every == 0:
+        boundary_callback(from_fast(fs, system))
+    seg = thermo_every if thermo_every > 0 else 0
+    if boundary_every > 0:
+        seg = int(np.gcd(seg, boundary_every)) if seg else boundary_every
+    if seg == 0:
+        seg = min(nsteps, max_segment)
+    done = 0
+    while done < nsteps:
+        # stop at the next ABSOLUTE multiple of seg (phase on step 0, not
+        # the run begin: staged decks enter runs at unaligned steps)
+        cur = begin + done
+        this = min(int(seg - cur % seg), nsteps - done)
+        left = this
+        while left > 0:
+            chunk = min(left, max_segment)
+            segment(fs, begin + done + (this - left), chunk, begin,
+                    begin + nsteps)
+            left -= chunk
+        done += this
+        step_abs = begin + done
+        if thermo_every > 0 and (step_abs % thermo_every == 0
+                                 or done == nsteps):
+            emit(fs)
+        if boundary_callback and boundary_every > 0 \
+                and step_abs % boundary_every == 0:
+            boundary_callback(from_fast(fs, system))
+    return from_fast(fs, system), rows

@@ -14,10 +14,15 @@ kick_drift_halo        pallas_step.py:731-751 (K2a)
 stencil_forces         pallas_step.py:249-510, 753-774 (K1 / K2b)
 extruder_springs       pallas_step.py:776-930 (K2c)
 langevin_kick_monitor  pallas_step.py:932-1000 (K2d + K2e)
+StepLoop               pallas_step.py:554, 725-1022 (K2's step loop)
 newton_half_forces     blocked_kernel.py:90 (K3), body K1
 window_forces          parallel/shard_step.py:55 (K4), body K1
 tiled_stencil_forces   pallas_kernel.py:59 (K5)
 =====================  ==================================================
+
+``StepLoop`` launches the step kernels' launch-controlled forms over up to
+LAUNCH_MAX steps as one CUDA graph replay; its count ``step_loop`` counts
+launches, and each step kernel's count grows by the steps it executed.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from . import kernels_ref as ref
 
 LAUNCHES = {"kick_drift_halo": 0, "stencil_forces": 0,
             "extruder_springs": 0, "langevin_kick_monitor": 0,
-            "newton_half_forces": 0, "window_forces": 0,
+            "step_loop": 0, "newton_half_forces": 0, "window_forces": 0,
             "tiled_stencil_forces": 0}
 
 _LIBS = None
@@ -72,6 +77,14 @@ class LangevinArgs(ctypes.Structure):
                 + [("inv_n", _F)])
 
 
+class StepPlanes(ctypes.Structure):
+    _fields_ = ([(k, _P) for k in (
+        "gx", "gv", "gf", "gxr", "bid", "hn", "pid", "interior", "halo_cols",
+        "halo_src", "halo_shift", "exl", "exr", "active", "eb", "lgm",
+        "fpart", "ipart", "lpart", "zpart", "ctl")]
+        + [("H", _I), ("kick", _F), ("dt", _F)])
+
+
 def _lib(name="step"):
     """The built library ``name`` (``csrc/<name>.cu``), every entry
     point's argtypes set; the first call builds all of them."""
@@ -89,8 +102,14 @@ def _lib(name="step"):
         lib.lle_extruder_springs.argtypes = [_P] * 6 + [SpringArgs, _P]
         lib.lle_langevin_kick_monitor.argtypes = (
             [_P] * 12 + [LangevinArgs, _P])
+        _U = ctypes.c_uint32
+        lib.lle_launch_begin.argtypes = [_P, _U, _U, _U, _I, _I, _F, _F, _P]
+        lib.lle_step_ctl.argtypes = [StepPlanes, StencilArgs, SpringArgs,
+                                     LangevinArgs, _I, _P]
         for fn in ("lle_kick_drift_halo", "lle_stencil_forces",
-                   "lle_extruder_springs", "lle_langevin_kick_monitor"):
+                   "lle_extruder_springs", "lle_langevin_kick_monitor",
+                   "lle_launch_begin", "lle_step_ctl", "lle_ctl_words",
+                   "lle_ctl_stats"):
             getattr(lib, fn).restype = _I
         blk = ctypes.CDLL(str(paths["blocked"]))
         blk.lle_newton_max_cap.restype = _I
@@ -321,6 +340,13 @@ def tiled_stencil_forces(gx, bid, hn, pid, interior, C, n: int, strides,
     return gf, en, ints
 
 
+def _spring_args(S, E, cap, P):
+    return SpringArgs(
+        (_F * 3)(*S.box), S.r0, S.neg_2k, S.k, S.r0sq, S.neg_k, S.sig_sq,
+        S.wca_floorsq, S.wca_cutsq, S.f_wca, S.e_wca, S.eps, S.e_fene,
+        int(S.harmonic), E, cap, P)
+
+
 def extruder_springs(gx, gf, exl_slot, exr_slot, active, S):
     """Extruder spring forces added to ``gf`` in place.  Returns the
     per-spring energies (E,)."""
@@ -334,10 +360,7 @@ def extruder_springs(gx, gf, exl_slot, exr_slot, active, S):
     _check("exr_slot", exr_slot, torch.int32, (E,))
     _check("active", active, torch.bool, (E,))
     eb = torch.empty(E, dtype=torch.float32, device=gx.device)
-    a = SpringArgs(
-        (_F * 3)(*S.box), S.r0, S.neg_2k, S.k, S.r0sq, S.neg_k, S.sig_sq,
-        S.wca_floorsq, S.wca_cutsq, S.f_wca, S.e_wca, S.eps, S.e_fene,
-        int(S.harmonic), E, cap, P)
+    a = _spring_args(S, E, cap, P)
     err = _lib().lle_extruder_springs(
         _ptr(gx), _ptr(gf), _ptr(exl_slot), _ptr(exr_slot), _ptr(active),
         _ptr(eb), a, _stream())
@@ -390,6 +413,194 @@ def langevin_kick_monitor(gx, gx_ref, gv, gf, bid, interior, key_words,
     _raise("langevin_kick_monitor", err)
     LAUNCHES["langevin_kick_monitor"] += 1
     return gf_out, gv_out, ints
+
+
+class StepLoop:
+    """K2's step loop on the card (make_step_kernel, pallas_step.py:554):
+    ``loop(gx, gv, gf, gx_ref, bid, hn, pid, exl_slot, exr_slot, active,
+    lgm, sstep, do_drift, key_words, t0, t_slope, limit, energy)`` runs up
+    to ``limit`` <= LAUNCH_MAX steps and returns what ``kernels_ref.
+    step_loop`` returns, which it runs on CPU tensors.  ``L``: the launch
+    constants (pallas_step.StepConsts), the run's GridConsts among them.
+
+    The kernels run in place on static planes that the loop owns, so that
+    a CUDA graph can hold their addresses: a call copies each input plane
+    in unless the static plane already holds it (the same tensor, not
+    modified in place since), writes the control block (one small
+    kernel), replays the graph of ``limit`` controlled steps (the graphs
+    of every limit are captured at the first launch; an energy launch,
+    ``limit`` 1, runs its kernels eagerly and adds the springs' energy sum
+    with PyTorch, as the chain does), copies the planes out and reads the
+    control block: one host
+    sync.  A step after the one whose trigger fired returns at once in
+    each of its kernels.  ``before_read(gx, gv, gf)``, if given, is called
+    on the output planes between the replay and the read, so that the
+    host work it issues overlaps the launch."""
+
+    MAX_STEPS = 16
+
+    def __init__(self, L):
+        self.L = L
+        self.buf = None
+        self.held = {}      # static plane name -> (source, its version)
+        self.graphs = {}    # limit -> CUDAGraph
+
+    def _alloc(self, gx, exl_slot, lgm):
+        L, lib = self.L, _lib()
+        cap, P = gx.shape[1:]
+        E = exl_slot.shape[0] if L.S is not None else 0
+        nblk = lib.lle_blocks(cap * P)
+        dev = gx.device
+        f32, i32 = dict(dtype=torch.float32, device=dev), dict(
+            dtype=torch.int32, device=dev)
+        b = dict(
+            gx=torch.empty((3, cap, P), **f32),
+            gv=torch.empty((3, cap, P), **f32),
+            gf=torch.empty((3, cap, P), **f32),
+            gx_ref=torch.empty((3, cap, P), **f32),
+            bid=torch.empty((cap, P), **i32),
+            hn=torch.empty((cap, P), dtype=torch.bool, device=dev),
+            pid=torch.empty((cap, P), **i32),
+            exl_slot=torch.zeros(max(E, 1), **i32),
+            exr_slot=torch.zeros(max(E, 1), **i32),
+            active=torch.zeros(max(E, 1), dtype=torch.bool, device=dev),
+            eb=torch.zeros(max(E, 1), **f32),
+            lgm=None if lgm is None else torch.empty((cap, P), **f32),
+            fpart=torch.empty(2 * nblk, **f32),
+            ipart=torch.empty(3 * nblk, **i32),
+            lpart=torch.empty(3 * nblk, **f32),
+            zpart=torch.empty(4 * nblk + 3, **f32) if L.zero else None,
+            ctl=torch.zeros(lib.lle_ctl_words(), **i32))
+        self.buf = b
+        self.stats_at = lib.lle_ctl_stats()
+        g = L.g
+        ptr = {k: (None if v is None else _ptr(v)) for k, v in b.items()}
+        self.planes = StepPlanes(
+            ptr["gx"], ptr["gv"], ptr["gf"], ptr["gx_ref"], ptr["bid"],
+            ptr["hn"], ptr["pid"], _ptr(g.interior), _ptr(g.halo_cols),
+            _ptr(g.halo_src), _ptr(g.halo_shift), ptr["exl_slot"],
+            ptr["exr_slot"], ptr["active"], ptr["eb"], ptr["lgm"],
+            ptr["fpart"], ptr["ipart"], ptr["lpart"], ptr["zpart"],
+            ptr["ctl"], int(g.halo_cols.shape[0]), L.kick, L.dt)
+        self.args = {e: _stencil_args(L.C, L.n, L.strides, _OFFSETS, e, cap,
+                                      P) for e in (False, True)}
+        # E = 0: no springs step (the chain's ctx.S is None)
+        self.spring = (_spring_args(L.S, E, cap, P) if E
+                       else SpringArgs(E=0))
+        # gamma2 carries g2base: each step scales it by sqrt(T(s))
+        self.lan = LangevinArgs(
+            0, 0, 0, L.gamma1, L.g2base, L.kick, L.dt, L.bad_cut,
+            L.trig_cut, int(L.langevin), cap, P, L.n, int(lgm is not None),
+            int(L.zero and L.langevin), 1.0 / L.n)
+
+    def nbytes(self):
+        """Bytes of the static planes and buffers (0 before the first
+        launch): the graphs' kernels allocate nothing."""
+        return sum(v.numel() * v.element_size()
+                   for v in (self.buf or {}).values() if v is not None)
+
+    def _steps(self, nsteps, energy):
+        lib = _lib()
+        for s in range(nsteps):
+            _raise("step_loop", lib.lle_step_ctl(
+                self.planes, self.args[energy], self.spring, self.lan, s,
+                _stream()))
+
+    def _capture(self):
+        """The graphs of every limit, at the first launch: a capture syncs
+        the card and collects garbage (~30 ms), so none is left for a
+        later launch to pay."""
+        # every kernel launched once outside the capture (each returns at
+        # once at limit 0), so that none loads there
+        self._begin(0, (0, 0), 0, True, 0.0, 0.0)
+        self._steps(1, False)
+        torch.cuda.synchronize()
+        for limit in range(1, self.MAX_STEPS + 1):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._steps(limit, False)
+            self.graphs[limit] = graph
+
+    def _begin(self, sstep, key_words, limit, do_drift, t0, t_slope):
+        k0, k1 = key_words
+        _raise("step_loop", _lib().lle_launch_begin(
+            _ptr(self.buf["ctl"]), int(sstep) & 0xFFFFFFFF, int(k0),
+            int(k1), int(limit), int(bool(do_drift)), t0, t_slope,
+            _stream()))
+
+    def _stage(self, name, src, dtype, shape):
+        held = self.held.get(name)
+        if held is not None and held[0] is src and held[1] == src._version:
+            return
+        _check(name, src, dtype, shape)
+        self.buf[name].copy_(src)
+        self.held[name] = (src, src._version)
+
+    def __call__(self, gx, gv, gf, gx_ref, bid, hn, pid, exl_slot, exr_slot,
+                 active, lgm, sstep: int, do_drift: bool, key_words,
+                 t0: float, t_slope: float, limit: int,
+                 energy: bool = False, before_read=None):
+        if _on_cpu(gx):
+            return ref.step_loop(self.L, gx, gv, gf, gx_ref, bid, hn, pid,
+                                 exl_slot, exr_slot, active, lgm, sstep,
+                                 do_drift, key_words, t0, t_slope, limit,
+                                 energy, before_read)
+        if not 1 <= limit <= self.MAX_STEPS or (energy and limit != 1):
+            raise ValueError(f"step_loop: limit {limit} (energy {energy})")
+        if self.buf is None:
+            self._alloc(gx, exl_slot, lgm)
+            # before staging: the capture's warm-up writes the control block
+            self._capture()
+        if (lgm is None) != (self.buf["lgm"] is None):
+            raise ValueError("step_loop: a Langevin group plane in one "
+                             "launch and none in another")
+        b = self.buf
+        cap, P = bid.shape
+        plane = (3, cap, P)
+        for name, t, dtype, shape in (
+                ("gx", gx, torch.float32, plane),
+                ("gv", gv, torch.float32, plane),
+                ("gf", gf, torch.float32, plane),
+                ("gx_ref", gx_ref, torch.float32, plane),
+                ("bid", bid, torch.int32, (cap, P)),
+                ("hn", hn, torch.bool, (cap, P)),
+                ("pid", pid, torch.int32, (cap, P)),
+                ("lgm", lgm, torch.float32, (cap, P))):
+            if t is not None:
+                self._stage(name, t, dtype, shape)
+        if self.L.S is not None:
+            E = exl_slot.shape[0]
+            self._stage("exl_slot", exl_slot, torch.int32, (E,))
+            self._stage("exr_slot", exr_slot, torch.int32, (E,))
+            self._stage("active", active, torch.bool, (E,))
+        self._begin(sstep, key_words, limit, do_drift, t0, t_slope)
+        if energy:
+            self._steps(1, True)
+            if self.L.S is not None:
+                st = b["ctl"].view(torch.float32)[self.stats_at:]
+                st[1:2] += 2.0 * b["eb"].sum()
+        else:
+            self.graphs[limit].replay()
+        out = tuple(b[k].clone() for k in ("gx", "gv", "gf"))
+        for name, t in zip(("gx", "gv", "gf"), out):
+            self.held[name] = (t, t._version)
+        if before_read is not None:
+            # host work issued here overlaps the launch on the card
+            before_read(*out)
+        host = b["ctl"].cpu()
+        stats = host.view(torch.float32)[self.stats_at:
+                                         self.stats_at + 8].double()
+        done = int(stats[7])
+        if done < 1:
+            raise RuntimeError(f"step_loop: a launch of limit {limit} ran "
+                               f"no step")
+        LAUNCHES["step_loop"] += 1
+        LAUNCHES["kick_drift_halo"] += done - (0 if do_drift else 1)
+        LAUNCHES["stencil_forces"] += done
+        LAUNCHES["langevin_kick_monitor"] += done
+        if self.L.S is not None:
+            LAUNCHES["extruder_springs"] += done
+        return out + (stats,)
 
 
 def reset_launches():

@@ -2,7 +2,9 @@
 
 They follow the reference's XLA chain op for op (engine.make_kernel
 engine.py:618-786, make_extruder_pass 838-899 and the reactive ``step``
-1348-1455), the blocked Newton-half stencil (blocked_kernel.py:90), the
+1348-1455), K2's multi-step loop (``step_loop``, pallas_step.py:725-1022,
+over the chain's step functions), the blocked Newton-half stencil
+(blocked_kernel.py:90), the
 sharded slab stencil's window call (parallel/shard_step.py:55) and the
 tiled full stencil (pallas_kernel.py:59), with exact division, in any
 float type.  On CPU tensors the wrappers in ``kernels.py`` run these; on
@@ -15,6 +17,8 @@ import torch
 
 from ..ops.grid import _OFFSETS
 from ..rng import uniform3
+import numpy as np
+
 from ..state import (FLAG_BOND_REACH, FLAG_FENE_CLAMP,
                      FLAG_SKIN_VIOLATION)
 
@@ -457,3 +461,64 @@ def langevin_kick_monitor(gx, gx_ref, gv, gf, bid, interior, key_words,
     ints = torch.stack([bad.to(torch.int64) * FLAG_SKIN_VIOLATION,
                         trig.to(torch.int64)])
     return gf, gv, ints
+
+
+def step_loop(L, gx, gv, gf, gx_ref, bid, hn, pid, exl_slot, exr_slot,
+              active, lgm, sstep: int, do_drift: bool, key_words,
+              t0: float, t_slope: float, limit: int, energy: bool = False,
+              before_read=None):
+    """K2's step loop (make_step_kernel's while loop, pallas_step.py:725-
+    1022): up to ``limit`` whole steps from ``sstep``, each the chain's
+    step functions in the chain's order on the same arguments (kick +
+    drift + halo, stencil, springs, Langevin + final kick + monitor), so
+    that a run of either is the same run bit for bit.  Step ``s`` draws
+    its noise at counter (sstep + s) * 4 and thermostats at T = max(t0 +
+    t_slope * s, 0) in the run's float type (pallas_step.py:935); step 0
+    skips its kick + drift + halo unless ``do_drift``; the loop stops after
+    the step whose look-ahead trigger fires (pallas_step.py:993-1004).
+    ``L``: the launch constants (pallas_step.StepConsts).
+
+    Returns (gx, gv, gf, stats): stats a (8,) float64 CPU tensor of the
+    reference's rows [e_lj, e_b, reach_bad, 2 * clamps, n_links,
+    skin_bad, trig, steps_done]; e_lj and e_b are the unhalved energies of
+    the last step (energy launches; e_b with twice the springs' sum), the
+    clamps each step's halved count, summed.  ``before_read(gx, gv, gf)``
+    is called on the output planes before the stats are taken (where the
+    card's loop has its work queued and not yet read)."""
+    g, n, fdt = L.g, L.n, L.np_dtype
+    reach = skin = trig = clamps = 0
+    en = None
+    for s in range(limit):
+        if s or do_drift:
+            gx, gv = kick_drift_halo(gx, gv, gf, bid, g.interior,
+                                     g.halo_cols, g.halo_src, g.halo_shift,
+                                     n, L.kick, L.dt)
+        gf, en, ints = stencil_forces(gx, bid, hn, pid, g.interior, L.C, n,
+                                      L.strides, energy)
+        if L.S is not None:
+            eb = extruder_springs(gx, gf, exl_slot, exr_slot, active, L.S)
+            if energy:
+                en = en + torch.stack([torch.zeros_like(en[0]), eb.sum()])
+        gamma2 = 0.0
+        if L.langevin:
+            t_s = max(fdt(t0) + fdt(t_slope) * fdt(s), fdt(0.0))
+            gamma2 = float(fdt(L.g2base) * np.sqrt(t_s))
+        gf, gv, mon = langevin_kick_monitor(
+            gx, gx_ref, gv, gf, bid, g.interior, key_words, sstep + s,
+            L.gamma1, gamma2, L.kick, L.dt, L.bad_cut, L.trig_cut, n,
+            L.langevin, lgm, L.zero)
+        flag_bits, n_cl = ints.tolist()
+        reach |= int(flag_bits & FLAG_BOND_REACH != 0)
+        clamps += n_cl
+        mon = mon.tolist()
+        skin |= int(mon[0] != 0)
+        trig = mon[1]
+        if trig:
+            break
+    if before_read is not None:
+        before_read(gx, gv, gf)
+    e = [2.0 * float(v) for v in en] if energy else [0.0, 0.0]
+    n_links = float(torch.sum(valid_mask(bid, g.interior, n) & hn))
+    stats = torch.tensor(e + [reach, 2 * clamps, n_links, skin, trig, s + 1],
+                         dtype=torch.float64)
+    return gx, gv, gf, stats

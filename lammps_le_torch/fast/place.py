@@ -14,7 +14,7 @@ import dataclasses
 
 import torch
 
-from ..ops.cells import cell_coords, wrap_positions
+from ..ops.cells import cell_coords, const, wrap_positions
 from ..state import FLAG_CELL_OVERFLOW, extruder_partner
 from ..system import System
 from .kernels_ref import _FAR
@@ -100,8 +100,7 @@ def place(system: System, maps: FastMaps, g: GridConsts, x, v, f,
     bas = bas[:capP]
 
     arr9 = torch.cat([x.T, v.T, f.T])
-    sentinel = torch.tensor([_FAR] * 3 + [0.0] * 6, dtype=x.dtype,
-                            device=dev)[:, None]
+    sentinel = const((_FAR,) * 3 + (0.0,) * 6, x.dtype, dev)[:, None]
     planes9 = torch.cat([arr9, sentinel], dim=1)[:, bas]
     gx = planes9[0:3].reshape(3, cap, P)
     gv = planes9[3:6].reshape(3, cap, P).contiguous()

@@ -2,13 +2,24 @@
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ..system import System
 
 
+@functools.lru_cache(maxsize=64)
+def const(values: tuple, dtype, device) -> torch.Tensor:
+    """A small constant tensor, made once per values, type and device: a
+    tensor made from host values is a copy that waits for the card, and
+    placement takes these at every rebuild.  Never written."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def _vec(values, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(values, dtype=like.dtype, device=like.device)
+    return const(tuple(np.asarray(values).tolist()), like.dtype, like.device)
 
 
 def minimum_image(d: torch.Tensor, box_size) -> torch.Tensor:
@@ -47,8 +58,7 @@ def cell_coords(x: torch.Tensor, system: System) -> torch.Tensor:
     cfg = system.neighbor
     lo = _vec(system.box_lo, x)
     box = _vec(system.box_size, x)
-    dims = torch.tensor([cfg.nx, cfg.ny, cfg.nz], dtype=torch.int64,
-                        device=x.device)
+    dims = const((cfg.nx, cfg.ny, cfg.nz), torch.int64, x.device)
     s = (x - lo) / box
     c = torch.floor(s * dims.to(x.dtype)).to(torch.int64)
     return torch.minimum(torch.clamp(c, min=0), dims - 1)

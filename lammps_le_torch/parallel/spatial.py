@@ -18,7 +18,8 @@ from .shard_step import make_sharded_kernel, shardable
 
 
 def make_sharded_segment(sim, mesh):
-    """The reactive segment (``make_fast_segment``) on the slab stencil of
+    """The reactive chain segment (``make_fast_segment(pallas=False)``,
+    spatial.py:103-104) on the slab stencil of
     ``mesh`` (one ``torch.device`` per slab), with the FastState on
     ``mesh[0]`` (spatial.py:69-121).  The segment's
     ``kernel_fn`` is its stencil, for ``to_fast``.  Everything else is
@@ -38,6 +39,7 @@ def make_sharded_segment(sim, mesh):
                          f"reference's reactive=False fallback is not "
                          f"ported)")
     kernel_fn = make_sharded_kernel(system, maps, sim.ex_btype, mesh)
-    segment = make_fast_segment(sim, mesh[0], kernel_fn)
+    segment, _ = make_fast_segment(sim, pallas=False, kernel_fn=kernel_fn,
+                                   device=mesh[0])
     segment.kernel_fn = kernel_fn
     return segment

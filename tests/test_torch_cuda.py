@@ -330,3 +330,135 @@ def test_elementwise_chain(dev, dtype):
     else:
         ulp = 2.0 ** (np.floor(np.log2(float(want.abs().max()))) - 7)
         assert float((got - want).abs().max()) <= ulp
+
+
+def _warm_run(dev, fixes, energy_every):
+    """chip_smoke's small system warmed 30 steps on the card, 20 seeded
+    extruders: (Simulation with ``fixes``, State)."""
+    from lammps_le_torch.fast import run_fast
+    from lammps_le_torch.fixes import NVE, Langevin
+    from lammps_le_torch.integrate import Simulation
+    from lammps_le_torch.state import init_state
+
+    data, system = chip_smoke.production_config(2000, seed=5)
+    warm = Simulation(system=system, dt=0.006, ex_btype=2, fixes=(
+        NVE(), Langevin(t_start=1.0, t_stop=1.0, damp=1.0, seed=7)))
+    st = init_state(system, data.x, types=data.types, seed=11, device=dev)
+    st, _ = run_fast(warm, st, 30)
+    st = chip_smoke.seed_extruders(st, 20, 100, system.max_extruders)
+    sim = Simulation(system=system, dt=0.005, energy_every=energy_every,
+                     ex_btype=2, fixes=fixes)
+    return sim, st
+
+
+def _same_run(a, b):
+    for name in ("gx", "gv", "gf", "ex_left", "ex_right", "types", "flags",
+                 "epair", "ebond", "n_moves", "n_loads", "n_unloads",
+                 "n_clamps", "last_event"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    for name in ("step", "n_rebuilds", "skin_pend"):
+        assert getattr(a, name) == getattr(b, name), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", ["le", "quiet"])
+def test_step_loop_is_the_chain_bitwise(dev, run):
+    """60 steps in K2's step loop on the card (graph replays) and on the
+    eager chain from the same state: the same run bit for bit, in fewer
+    launches than steps; with every LE fix and energies every 4 steps,
+    and a quiet NVE + Langevin window with energies every 25."""
+    from lammps_le_torch.fast import make_fast_segment, to_fast
+    from lammps_le_torch.fixes import NVE, Langevin
+
+    fixes, energy_every = ((chip_smoke.le_fixes(5, 7, 0.3), 4)
+                           if run == "le" else
+                           ((NVE(), Langevin(1.0, 1.0, 10.0, seed=3)), 25))
+    sim, st = _warm_run(dev, fixes, energy_every)
+    runs = {}
+    for pallas in (False, "real"):
+        segment, _ = make_fast_segment(sim, pallas=pallas, device=dev)
+        fs = to_fast(st, sim)
+        b = fs.step
+        segment(fs, b, 60, b, b + 60)
+        runs[pallas] = fs
+    _same_run(runs[False], runs["real"])
+    assert runs[False].n_launches == 0 < runs["real"].n_launches < 60
+
+
+def _loop(dev, lan_seed=3):
+    """A warmed quiet state and both forms of its step loop: (FastState,
+    the kernels' call, the plain loop's call, the call's plane
+    arguments)."""
+    from lammps_le_torch.fast import to_fast
+    from lammps_le_torch.fast.pallas_step import make_step_kernel
+    from lammps_le_torch.fixes import NVE, Langevin
+
+    lf = Langevin(1.0, 1.0, 10.0, seed=lan_seed)
+    sim, st = _warm_run(dev, (NVE(), lf), 25)
+    system = sim.system
+    maps = fast_maps(system)
+    g = GridConsts.build(system, maps, dev)
+    fs = to_fast(st, sim)
+    real, plain = (make_step_kernel(system, maps, 2, dt=sim.dt, langevin=lf,
+                                    g=g, interpret=i) for i in (False, True))
+    tail = (fs.gx_ref, fs.bid, fs.hn, fs.pid, fs.exl_slot, fs.exr_slot,
+            fs.ex_left >= 0, None)
+    return fs, real, plain, tail
+
+
+def _one_step_chain(call, fs, tail, n):
+    """``n`` one-step launches: [(x, v, f, stats)] after each."""
+    out, x, v, f = [], fs.gx, fs.gv, fs.gf
+    for s in range(n):
+        x, v, f, st = call(x, v, f, *tail, fs.step + 1 + s, True, (5, 6),
+                           1.0, 0.0, 1)
+        out.append((x, v, f, st))
+    return out
+
+
+@pytest.mark.cuda
+def test_step_loop_every_limit(dev):
+    """Each limit 1-16: a launch runs min(limit, trigger) steps, bit for
+    bit the one-step launches' run (one graph per limit), and reports the
+    plain loop's stats rows; at 16 its planes are the plain loop's within
+    the stencil's summation order (x 1e-4)."""
+    fs, real, plain, tail = _loop(dev)
+    ones = _one_step_chain(real, fs, tail, 16)
+    fired = next((s + 1 for s, o in enumerate(ones) if o[3][6]), 17)
+    K.reset_launches()
+    for limit in range(1, 17):
+        x, v, f, st = real(fs.gx, fs.gv, fs.gf, *tail, fs.step + 1, True,
+                           (5, 6), 1.0, 0.0, limit)
+        d = min(limit, fired)
+        assert int(st[7]) == d
+        assert torch.equal(x, ones[d - 1][0]) and torch.equal(v, ones[d - 1][1])
+        assert torch.equal(f, ones[d - 1][2])
+    assert K.LAUNCHES["step_loop"] == 16
+    assert K.LAUNCHES["stencil_forces"] == sum(min(k, fired)
+                                               for k in range(1, 17))
+    xp, vp, fp, sp = plain(fs.gx, fs.gv, fs.gf, *tail, fs.step + 1, True,
+                           (5, 6), 1.0, 0.0, 16)
+    assert torch.equal(sp[2:], st[2:])
+    assert float((xp - x).abs().max()) < 1e-4
+    assert _close(fp, f)
+
+
+@pytest.mark.cuda
+def test_step_loop_stops_at_the_trigger(dev):
+    """A bead fast enough to fire the look-ahead trigger within a few
+    steps: a 16-step launch stops after that step, as the plain loop
+    does, bit for bit the one-step launches' run."""
+    fs, real, plain, tail = _loop(dev)
+    slot = int(fs.slot_of[1000])
+    P = fs.bid.shape[1]
+    fs.gv[:, slot // P, slot % P] = torch.tensor([6.0, 0.0, 0.0])
+    x, v, f, st = real(fs.gx, fs.gv, fs.gf, *tail, fs.step + 1, True, (5, 6),
+                       1.0, 0.0, 16)
+    d = int(st[7])
+    assert 1 < d < 16 and st[6] == 1.0
+    ones = _one_step_chain(real, fs, tail, d)
+    assert [int(o[3][6]) for o in ones] == [0] * (d - 1) + [1]
+    assert torch.equal(x, ones[-1][0]) and torch.equal(v, ones[-1][1])
+    _, _, _, sp = plain(fs.gx, fs.gv, fs.gf, *tail, fs.step + 1, True,
+                        (5, 6), 1.0, 0.0, 16)
+    assert torch.equal(sp[5:], st[5:])

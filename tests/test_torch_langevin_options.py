@@ -81,7 +81,8 @@ def _port_run(nsteps, fixes, energy_every=4):
     b = int(start["step"])
     ft = to_fast(state_from_arrays(start, "cpu"), sim,
                  groups=_groups(system.n))
-    return make_fast_segment(sim, "cpu")(ft, b, nsteps, b, b + nsteps)
+    segment, _ = make_fast_segment(sim, device="cpu")
+    return segment(ft, b, nsteps, b, b + nsteps)
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,9 +3,9 @@ plain version of csrc/tiled.cu; K5's function) against the reference's
 engine.make_kernel, which tests/test_pallas_kernel.py:53-68 pins K5 to,
 at that file's tolerances (forces 2e-4 * max|f|, energies 5e-2 + 1e-4 *
 |e|, flags and clamps equal), in both energy modes, on melt32 with one
-FENE bond past the clamp and one past the stencil's reach.  (K5 itself in
-interpret mode costs ~7 s on one core: left out to keep the port's tests
-inside their time.)  The engine run on it is pinned in
+FENE bond past the clamp and one past the stencil's reach; and at the same
+tolerances against K5 itself, make_pallas_kernel in interpret mode (one
+call with energies, ~7 s on one core).  The engine run on it is pinned in
 tests/test_torch_segment.py, the CUDA kernel in tests/test_torch_cuda.py.
 """
 
@@ -20,6 +20,8 @@ from lammps_le_torch.fast import kernels_ref as R
 from lammps_le_torch.fast.consts import StencilConsts
 from lammps_le_torch.fast.pallas_kernel import make_pallas_kernel
 from lammps_le_tpu.fast import engine as ref
+from lammps_le_tpu.fast.pallas_kernel import (
+    make_pallas_kernel as ref_pallas_kernel)
 from test_torch_blocked import _grid
 
 
@@ -49,6 +51,16 @@ def test_tiled_stencil_vs_make_kernel(energy):
     _check(got, want)
     if not energy:
         assert float(got[1].abs().max()) == 0.0
+
+
+def test_tiled_stencil_vs_pallas_kernel_interpret():
+    """K5 itself: the reference's make_pallas_kernel in interpret mode."""
+    system, maps, g, planes = _planes()
+    want = ref_pallas_kernel(system, ref.fast_maps(system), 2,
+                             interpret=True)(
+        *(jnp.asarray(t.numpy()) for t in planes), True)
+    got = make_pallas_kernel(system, maps, 2)(g, *planes, True)
+    _check(got, want)
 
 
 def test_tiled_wrapper_takes_plain_path_on_cpu():

@@ -30,7 +30,7 @@ import lammps_le_tpu.fixes as jf
 import lammps_le_torch.fixes as tf
 from lammps_le_torch import rng
 from lammps_le_torch.fast import (fast_block_reason, from_fast,
-                                  make_fast_segment, to_fast)
+                                  make_fast_segment, run_fast, to_fast)
 from lammps_le_torch.fast.blocked_kernel import make_blocked_kernel
 from lammps_le_torch.fast.maps import fast_maps
 from lammps_le_torch.fast.pallas_kernel import make_pallas_kernel
@@ -39,8 +39,9 @@ from lammps_le_torch.parallel.spatial import make_sharded_segment
 from lammps_le_torch.state import init_state, state_from_arrays
 from lammps_le_tpu.fast import engine as ref
 from lammps_le_tpu.integrate import Simulation as RefSimulation
-from torch_parity import (arrays_of, check_segment_pair, jax_state,
-                          le_fixes, melt_arrays)
+from torch_parity import (arrays_of, assert_same_run, chain_run,
+                          check_segment_pair, jax_state, launch_schedule,
+                          le_fixes, melt_arrays, port_run)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -86,7 +87,7 @@ def _run_both(nsteps, energy_every, pallas=False, kernel_fn=None,
     start, fj = _ref_run(nsteps, energy_every, pallas)
     b = int(start["step"])
     if mesh is None:
-        tseg = make_fast_segment(sim, "cpu", kernel_fn)
+        tseg, _ = make_fast_segment(sim, kernel_fn=kernel_fn, device="cpu")
     else:
         tseg = make_sharded_segment(sim, mesh)
         kernel_fn = tseg.kernel_fn
@@ -140,6 +141,48 @@ def test_one_step_matches_fused_pallas_interpret():
     assert int(fp.flags) == int(ft.flags) == 0
 
 
+def test_multistep_matches_reference_xla_chain():
+    """K2's step loop (make_fast_segment(pallas="interpret")) against the
+    same reference run: the checks above, its run the port's chain bit
+    for bit, its launches those of the reference's multi-step segment.
+    (The reference's fused kernel in interpret mode compiles for ~58 s on
+    one core; the shared chain run costs nothing more here.)"""
+    system, _ = melt_arrays()
+    sim = _sims(system, 4)[1]
+    _, fj = _ref_run(20, 4, False)  # the key _run_both uses
+    ft = port_run(sim, 20, "interpret")
+    check_segment_pair(system, fj, ft)
+    chain, fired = chain_run(sim, 20)
+    assert_same_run(chain, ft)
+    assert ft.n_launches == launch_schedule(sim, ft.step - 20, 20, fired)
+    assert 0 < ft.n_launches < 20
+
+
+def test_run_fast_rows_match_reference():
+    """run_fast returns (State, rows): rows at the start, at every fourth
+    step and at the end (each also passed to thermo_callback), the last
+    one the reference's thermo_row_fast of the same 20 steps (T within
+    1e-4, energies within 0.1), the State within 1e-3 of its beads."""
+    system, d = melt_arrays()
+    sim = _sims(system, 4)[1]
+    _, fj = _ref_run(20, 4, False)  # the key _run_both uses
+    start = state_from_arrays(arrays_of(jax_state(d, jnp.float32)), "cpu")
+    seen = []
+    st, rows = run_fast(sim, start, 20, thermo_every=4,
+                        thermo_callback=lambda row, s: seen.append(row.step))
+    b = int(start.step)
+    assert [r.step for r in rows] == seen == list(range(b, b + 21, 4))
+    rt = ref.thermo_row_fast(fj, system)
+    last = rows[-1]
+    assert last.step == int(fj.step) == int(st.step)
+    assert abs(float(rt.temp) - last.temp) < 1e-4
+    assert abs(float(rt.epair) - last.epair) < 0.1
+    assert abs(float(rt.ebond) - last.ebond) < 0.1
+    assert int(rt.n_extruders) == last.n_extruders
+    sj = ref.from_fast(fj, system)
+    assert float(np.abs(np.asarray(sj.x) - st.x.numpy()).max()) < 1e-3
+
+
 def test_to_fast_round_trip():
     """to_fast -> from_fast returns the (wrapped) beads and the initial
     forces of the reference's to_fast."""
@@ -178,7 +221,7 @@ def test_block_reason_raises(change):
     with pytest.raises(NotImplementedError):
         fast_block_reason(sim)
     with pytest.raises(NotImplementedError):
-        make_fast_segment(sim, "cpu")
+        make_fast_segment(sim, device="cpu")
 
 
 @pytest.mark.parametrize("entry", ["init_state", "state_from_arrays",
@@ -237,10 +280,10 @@ st = st.replace(ex_left=torch.tensor([20, -1, -1, -1]),
                 ex_right=torch.tensor([22, -1, -1, -1]))
 assert select_kernel(system, fast_maps(system), 2).__qualname__.startswith(
     "make_kernel")
-st = run_fast(sim, st, 2,
-              kernel_fn=make_blocked_kernel(system, fast_maps(system), 2))
-st = run_fast(sim, st, 2,
-              kernel_fn=make_pallas_kernel(system, fast_maps(system), 2))
+st, _ = run_fast(sim, st, 2,
+                 kernel_fn=make_blocked_kernel(system, fast_maps(system), 2))
+st, _ = run_fast(sim, st, 2,
+                 kernel_fn=make_pallas_kernel(system, fast_maps(system), 2))
 assert shardable(system, fast_maps(system), ["cpu"] * 2) is None
 seg = make_sharded_segment(sim, ["cpu"] * 2)
 fs = to_fast(st, sim, seg.kernel_fn)

@@ -7,7 +7,8 @@ of tests/test_shard_step.py:91-100.  The reference runs once, at sp=4
 with energies, on a cap-6 grid (its interpret-mode compile, which unrolls
 a pass per cell row, is most of this file's time), and both sp and both
 energy modes of the port are held to it: the function depends on neither
-sp nor the energy mode (which only adds the energy sums).  ``shardable``
+sp nor the energy mode (which only adds the energy sums); the port's
+energy=False call also to the reference's energy=False build.  ``shardable``
 gives the reference's verdicts.  The engine run on it is pinned in
 tests/test_torch_segment.py, the CUDA kernel in tests/test_torch_cuda.py.
 """
@@ -39,17 +40,18 @@ def _mesh(sp):
 
 
 @functools.lru_cache(maxsize=None)
-def _ref():
+def _ref(energy=True):
     """The reference's sharded kernel in interpret mode at sp=4, with
     energies: one call, shared by every case; jitted, since run eagerly
-    the interpreter's op-by-op dispatch costs more than the compile."""
+    the interpreter's op-by-op dispatch costs more than the compile.
+    ``energy`` False: its build without energies (~8 s more)."""
     system, _, _, (bid, hn, pid), gx = _grid(cap=6)
     mesh = _mesh(4)
     with mesh:
         kern = jss.make_sharded_kernel(system, ref.fast_maps(system), 2, mesh,
                                        interpret=True)
         out = jax.jit(kern, static_argnums=4)(
-            *(jnp.asarray(t.numpy()) for t in (gx, bid, hn, pid)), True)
+            *(jnp.asarray(t.numpy()) for t in (gx, bid, hn, pid)), energy)
     return tuple(np.asarray(o) for o in out)
 
 
@@ -75,6 +77,21 @@ def test_sharded_kernel_vs_reference_interpret(sp, energy):
     assert int(ints[0]) == 64 | 8 and int(ints[1]) >= 1
     ghost = ~maps.interior[:maps.p_raw]
     assert np.all(gf.numpy()[:, :, :maps.p_raw][:, :, ghost] == 0.0)
+
+
+def test_sharded_kernel_energy_off_vs_reference_interpret():
+    """The energy=False build of the reference's sharded kernel (K4
+    without its energy sums) against the port's energy=False call at
+    sp=4: the same forces, flags and clamps, no energies on either."""
+    gf_w, el_w, eb_w, fl_w, cl_w = _ref(False)
+    system, maps, g, (bid, hn, pid), gx = _grid(cap=6)
+    kern = ss.make_sharded_kernel(system, maps, 2, ["cpu"] * 4)
+    gf, en, ints = kern(g, gx, bid, hn, pid, False)
+    scale = max(float(np.abs(gf_w).max()), 1.0)
+    assert float(np.abs(gf.numpy() - gf_w).max()) < 2e-4 * scale
+    assert float(el_w) == float(eb_w) == float(en.abs().max()) == 0.0
+    assert [int(ints[0]), int(ints[1])] == [int(fl_w), int(cl_w)]
+    assert int(ints[0]) == 64 | 8 and int(ints[1]) >= 1
 
 
 def test_sharded_kernel_matches_newton_half_and_devices():

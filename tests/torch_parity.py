@@ -75,7 +75,7 @@ def melt_arrays(n=500, dtype="float32", warm_steps=40):
                       fixes=(NVE(), Langevin(1.0, 1.0, 1.0, seed=5)))
     st = init_state(system, data.x, types=data.types, seed=11,
                     device="cpu")
-    st = run_fast(warm, st, warm_steps)
+    st, _ = run_fast(warm, st, warm_steps)
     d = {k: getattr(st, k).numpy().copy() for k in STATE_FIELDS}
     e = system.max_extruders
     d["ex_left"] = np.full(e, -1, np.int64)
@@ -143,3 +143,86 @@ def check_segment_pair(system, fj, ft):
     tt = thermo_row_fast(ft, system)
     assert abs(float(rt.temp) - float(tt.temp)) < 1e-4
     assert int(rt.n_extruders) == int(tt.n_extruders)
+
+
+MULTISTEP_STATE = ("gx", "gv", "gf", "ex_left", "ex_right", "types", "flags",
+                   "epair", "ebond", "n_moves", "n_loads", "n_unloads",
+                   "n_clamps", "last_event")
+
+
+def start_state():
+    """The port's State at the melt32 start, on the CPU."""
+    from lammps_le_torch.state import state_from_arrays
+
+    _, d = melt_arrays()
+    return state_from_arrays(arrays_of(jax_state(d, jnp.float32)), "cpu")
+
+
+def fast_start(sim, groups=None):
+    """The port's FastState at the melt32 start, on the CPU."""
+    from lammps_le_torch.fast import to_fast
+
+    return to_fast(start_state(), sim, groups=groups)
+
+
+def port_run(sim, nsteps, pallas):
+    """The port's segment of ``nsteps`` from the melt32 start, on the CPU,
+    with ``make_fast_segment``'s ``pallas``."""
+    from lammps_le_torch.fast import make_fast_segment
+
+    segment, _ = make_fast_segment(sim, pallas=pallas, device="cpu")
+    fs = fast_start(sim)
+    b = fs.step
+    return segment(fs, b, nsteps, b, b + nsteps)
+
+
+def chain_run(sim, nsteps):
+    """The port's chain from the melt32 start, one step a call:
+    (FastState, the steps whose look-ahead trigger fired)."""
+    from lammps_le_torch.fast import make_fast_segment
+
+    segment, _ = make_fast_segment(sim, pallas=False, device="cpu")
+    fs = fast_start(sim)
+    b = fs.step
+    fired = set()
+    for i in range(nsteps):
+        segment(fs, b + i, 1, b, b + nsteps)
+        if fs.skin_pend:
+            fired.add(b + i + 1)
+    return fs, fired
+
+
+def launch_schedule(sim, step0, length, fired):
+    """The launches of the reference's multi-step segment (its
+    loop, engine.py:1713-1735): up to LAUNCH_MAX steps, stopped short of
+    the next step of each cadence (LE event phases, the rebuild backstop,
+    energy steps), energy steps alone, each launch ending after a step in
+    ``fired``."""
+    from lammps_le_torch.fast.pallas_step import LAUNCH_MAX
+    from lammps_le_torch.fixes import ExLoad, Extrusion, ExUnload
+
+    cadences = [(f.nevery, f.phase) for f in sim.fixes
+                if isinstance(f, (Extrusion, ExLoad, ExUnload))]
+    cadences += [(sim.system.neighbor.rebuild_every, 0),
+                 (sim.energy_every, 0)]
+    done = launches = 0
+    while done < length:
+        sstep = step0 + done + 1
+        lim = min(LAUNCH_MAX, length - done)
+        for nev, ph in cadences:
+            dist = (ph - sstep) % nev
+            lim = min(lim, nev if dist == 0 else dist)
+        if sstep % sim.energy_every == 0:
+            lim = 1
+        d = next((k + 1 for k in range(lim) if sstep + k in fired), lim)
+        done += d
+        launches += 1
+    return launches
+
+
+def assert_same_run(a, b):
+    """Two port FastStates of the same run, bit for bit."""
+    for name in MULTISTEP_STATE:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    for name in ("step", "n_rebuilds", "skin_pend"):
+        assert getattr(a, name) == getattr(b, name), name
