@@ -92,14 +92,21 @@ HBM_BPS = 3.35e12
 # that the built library issues for one (probes.probe_rcp.rcp_price).
 LANES_SM, MUFU_LANES_SM = 128, 16
 RATES = {}  # f32 and mufu operations/s, the reciprocal's instructions
-# f32 operations of one examined slot pair, the arithmetic every pair
-# does (3 differences, 5 for r^2, 1 division, 2 for r^6, 4 for the force
-# factor, 6 to scale and add the force); the Newton-half stencil adds 3
-# for the reaction.  Comparisons and the other terms of the few pairs in
-# bond or energy range are not counted; their FENE division and logf are
+# f32 operations of one slot pair within the LJ cut or bonded (an acting
+# pair, ``pair_counts``): 3 differences, 5 for r^2, 1 division, 2 for
+# r^6, 4 for the force factor, 6 to scale and add the force; the
+# Newton-half stencil adds 3 for the reaction.  Any other occupied pair
+# needs only its distance: DIST_OPS, the 3 differences and 5 for r^2.
+# Comparisons and the other terms of the few pairs in bond or energy
+# range are not counted; their FENE division and logf are
 # (``bonded_terms``).
 PAIR_OPS = {"stencil_forces": 21, "newton_half_forces": 24,
             "tiled_stencil_forces": 21, "window_forces": 24}
+DIST_OPS = 8
+# instructions of the stencils' approximate reciprocal (stencil_rcp in
+# csrc/common.cuh): one MUFU.RCP and its Newton step's FMUL, FADD, FMUL
+# (-fmad=false)
+APPROX_RCP_OPS = 4
 SP_PATH, SP_PHASES = 2, (2, 4)  # slabs of path 3; of its kernel phase
 # the source of each kernel not in step.cu
 SOURCES = {"newton_half_forces": "blocked.cu", "window_forces": "blocked.cu",
@@ -300,14 +307,22 @@ def drive(system, data, dev, groups=None):
 
 
 def drive_config6(data, system, dev, profile_steps=0):
-    """configs.py:300-331 on the port: thermalize 400 steps (NVE +
-    Langevin damp 1, dt 0.006, init seed 19), zero the flags, seed 5,000
-    extruders 200 beads apart, settle 200 steps at dt 0.002 with the
-    production fixes (extrusion with release_r 3), zero the flags, then
-    20 warm-up and 600 measured steps with energy_every 100.  The
+    """configs.py:300-331 on the port (``settle_config6``), then 20
+    warm-up and 600 measured steps with energy_every 100.  The
     reference's 100-step launches only worked around a TPU worker crash
     (configs.py:333-336): the port runs the 600 steps as one segment.
-    Returns what ``drive`` returns."""
+    Returns (Simulation,) + what ``measured_segment`` returns."""
+    sim, state = settle_config6(data, system, dev)
+    return (sim,) + measured_segment(sim, state, dev, C6["warm"],
+                                     C6["measure"], profile_steps)
+
+
+def settle_config6(data, system, dev):
+    """configs.py:300-331 up to its measured phase: thermalize 400 steps
+    (NVE + Langevin damp 1, dt 0.006, init seed 19), zero the flags, seed
+    5,000 extruders 200 beads apart, settle 200 steps at dt 0.002 with
+    the production fixes (extrusion with release_r 3), zero the flags.
+    Returns (the production Simulation, the settled State)."""
     import torch
 
     from lammps_le_torch.fixes import NVE, Langevin
@@ -327,9 +342,7 @@ def drive_config6(data, system, dev, profile_steps=0):
     settle = Simulation(system=system, dt=0.002, fixes=sim.fixes,
                         ex_btype=2)
     state = timed_run("config 6 settle", settle, state, C6["settle"])
-    state = state.replace(flags=torch.zeros_like(state.flags))
-    return (sim,) + measured_segment(sim, state, dev, C6["warm"],
-                                     C6["measure"], profile_steps)
+    return sim, state.replace(flags=torch.zeros_like(state.flags))
 
 
 def check_run(label, fs, system, wall, rebuilds, launches, measure, grid,
@@ -409,14 +422,16 @@ def set_rates(card):
           flush=True)
 
 
-def bound(nbytes, ops, divs=0, mufu=0):
+def bound(nbytes, ops, divs=0, mufu=0, approx=False):
     """(ms, what bounds it): the least time an H100 SXM takes to move
-    ``nbytes`` or to issue ``ops`` f32 operations, ``divs`` IEEE
-    reciprocals and ``mufu`` further MUFU operations, whichever is
-    longest.  Each reciprocal issues RATES["div"] instructions, one of
-    them on the MUFU pipe."""
+    ``nbytes`` or to issue ``ops`` f32 operations, ``divs`` reciprocals
+    and ``mufu`` further MUFU operations, whichever is longest.  Each
+    reciprocal issues RATES["div"] instructions (IEEE) or APPROX_RCP_OPS
+    (``approx``: the stencils' approximate one), one of them on the MUFU
+    pipe."""
+    price = APPROX_RCP_OPS if approx else RATES["div"]
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = max((ops + divs * RATES["div"]) / RATES["f32"],
+    t_ops = max((ops + divs * price) / RATES["f32"],
                 (divs + mufu) / RATES["mufu"]) * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops
             else (t_ops, "operations"))
@@ -436,38 +451,83 @@ def bonded_terms(bid, hn, own, n, newton, energy):
     return pairs, pairs if energy else 0
 
 
-def stencil_bound(name, fs, g, maps, n, energy=True):
+def pair_counts(x, bid, hn, own, n, cutsq, offsets, deltas):
+    """{offset: (pairs, acting)} on these planes: at each offset, each
+    valid i slot (a bead in an ``own`` column c) against the occupied j
+    rows of column c + delta (``deltas``: {offset: a function rolling a
+    plane's columns by delta}; in the self cell the other occupied rows),
+    and of those pairs the acting ones: within the cut (r^2 in f32, as
+    the kernels compute it) or bonded (either is the other's chain
+    neighbour)."""
+    import torch
+
+    from lammps_le_torch.fast import kernels_ref as R
+
+    valid = R.valid_mask(bid, own, n)
+    u1 = torch.where(hn, bid + 1, n + 2)
+    eye = torch.eye(bid.shape[0], dtype=torch.bool, device=bid.device)
+    out = {}
+    for o in offsets:
+        roll = deltas[o]
+        bj, u1j = roll(bid), roll(u1)
+        mask = valid[:, None, :] & (bj < n)[None, :, :]
+        if o == (0, 0, 0):
+            mask &= ~eye[:, :, None]
+        rsq = 0
+        for k in range(3):
+            d = x[k][:, None, :] - roll(x[k])[None, :, :]
+            rsq = rsq + d * d
+        bonded = (bj[None] == u1[:, None]) | (bid[:, None] == u1j[None])
+        out[o] = (int(mask.sum()),
+                  int((mask & ((rsq < cutsq) | bonded)).sum()))
+    return out
+
+
+def pair_ops(name, counts):
+    """(f32 operations, reciprocals) of the pairs ``counts``
+    (``pair_counts``) in stencil ``name``'s function: each acting pair
+    PAIR_OPS - 1 (the self cell at the full stencil's price: it computes
+    no reaction) and its reciprocal, every other pair DIST_OPS."""
+    ops = divs = 0
+    for o, (k, act) in counts.items():
+        price = PAIR_OPS["stencil_forces" if o == (0, 0, 0) else name]
+        ops += act * (price - 1) + (k - act) * DIST_OPS
+        divs += act
+    pairs = sum(k for k, _ in counts.values())
+    print(f"{name} bound: {pairs} occupied slot pairs, {divs} of them "
+          f"within the cut or bonded", flush=True)
+    return ops, divs
+
+
+def stencil_bound(name, fs, g, maps, C, n, energy=True):
     """The stencils' bound on this run's planes: planes in (x, bid,
     has-next, partner, interior and, for the Newton-half stencil, the six
     face masks) and forces out once; operations for the pairs the data
-    holds: at each offset d, each valid i slot of column c against the
-    occupied j rows of column (c + d) mod P (in the self cell, the other
-    occupied rows), and the bonded pairs' terms (``bonded_terms``).
-    Empty j slots need only the bead-id compare, which is not counted;
-    the Newton-half self cell computes no reaction."""
+    holds (``pair_counts`` over the 27 offsets or the self cell and the
+    13 forward ones, priced by ``pair_ops``) and the bonded pairs' terms
+    (``bonded_terms``).  Empty j slots need only the bead-id compare,
+    which is not counted.  The reciprocals are priced in the form the
+    kernel takes (kernels.APPROX_RCP; the tiled stencil always divides
+    exactly)."""
     import torch
 
+    from lammps_le_torch.fast import kernels as K
     from lammps_le_torch.fast import kernels_ref as R
     from lammps_le_torch.ops.grid import _OFFSETS
 
     cap, P = maps.cap, maps.P
     sx, sy, sz = maps.strides
-    occ = (fs.bid < n).sum(0, dtype=torch.int64)
-    n_i = R.valid_mask(fs.bid, g.interior, n).sum(0, dtype=torch.int64)
     newton = name == "newton_half_forces"
-    ops = pairs = 0
-    for (a, b, c) in (R.HALF_OFFSETS if newton else _OFFSETS):
-        delta = a * sx + b * sy + c * sz
-        if delta == 0:
-            k = int((n_i * (occ - 1)).sum())
-            ops += k * (PAIR_OPS["stencil_forces"] - 1)
-        else:
-            k = int((n_i * torch.roll(occ, -delta)).sum())
-            ops += k * (PAIR_OPS[name] - 1)
-        pairs += k
+    offsets = R.HALF_OFFSETS if newton else _OFFSETS
+    deltas = {(a, b, c): (lambda t, d=a * sx + b * sy + c * sz:
+                          torch.roll(t, -d, -1)) for (a, b, c) in offsets}
+    ops, divs = pair_ops(name, pair_counts(fs.gx, fs.bid, fs.hn,
+                                           g.interior, n, C.cutsq, offsets,
+                                           deltas))
     nbytes = cap * P * (12 + 4 + 1 + 4 + 12) + P * (1 + 6 * newton)
     bdivs, bmufu = bonded_terms(fs.bid, fs.hn, g.interior, n, newton, energy)
-    return bound(nbytes, ops, divs=pairs + bdivs, mufu=bmufu)
+    return bound(nbytes, ops, divs=divs + bdivs, mufu=bmufu,
+                 approx=K.APPROX_RCP and name != "tiled_stencil_forces")
 
 
 def window_bound(wargs, n, energy=True):
@@ -476,29 +536,24 @@ def window_bound(wargs, n, energy=True):
     tallies out once; operations for the pairs the windows hold, counted
     as ``stencil_bound`` counts the Newton-half stencil's, each window
     rolled on itself, with the bonded terms of the own slots' links."""
-    import torch
-
+    from lammps_le_torch.fast import kernels as K
     from lammps_le_torch.fast import kernels_ref as R
 
-    xw, bidw, hnw, pidw, own = wargs[:5]
+    xw, bidw, hnw, pidw, own, C = wargs[:6]
     period, (sx, sy, sz) = wargs[7], wargs[8]
     cap, Q = bidw.shape
-    occ = (bidw < n).sum(0, dtype=torch.int64).view(-1, period)
-    n_i = R.valid_mask(bidw, own, n).sum(0, dtype=torch.int64).view(
-        -1, period)
-    ops = pairs = 0
-    for (a, b, c) in R.HALF_OFFSETS:
-        delta = a * sx + b * sy + c * sz
-        if delta == 0:
-            k = int((n_i * (occ - 1)).sum())
-            ops += k * (PAIR_OPS["stencil_forces"] - 1)
-        else:
-            k = int((n_i * torch.roll(occ, -delta, -1)).sum())
-            ops += k * (PAIR_OPS["window_forces"] - 1)
-        pairs += k
+
+    def roll(t, d):
+        return t.reshape(*t.shape[:-1], -1, period).roll(-d, -1).reshape(
+            t.shape)
+
+    deltas = {(a, b, c): (lambda t, d=a * sx + b * sy + c * sz: roll(t, d))
+              for (a, b, c) in R.HALF_OFFSETS}
+    ops, divs = pair_ops("window_forces", pair_counts(
+        xw, bidw, hnw, own, n, C.cutsq, R.HALF_OFFSETS, deltas))
     bdivs, bmufu = bonded_terms(bidw, hnw, own, n, True, energy)
     return bound(cap * Q * (12 + 4 + 1 + 4 + 12) + Q + 5 * 4, ops,
-                 divs=pairs + bdivs, mufu=bmufu)
+                 divs=divs + bdivs, mufu=bmufu, approx=K.APPROX_RCP)
 
 
 def max_cell_count(fs, system):
@@ -808,6 +863,7 @@ def step_loop_phase(fs, sim, g, phases):
     without energies).  Returns its record (no launch count)."""
     import torch
 
+    from lammps_le_torch.fast.consts import StencilConsts
     from lammps_le_torch.fast.maps import fast_maps
     from lammps_le_torch.fast.pallas_step import LAUNCH_MAX, make_step_kernel
     from lammps_le_torch.fixes import Langevin
@@ -842,7 +898,8 @@ def step_loop_phase(fs, sim, g, phases):
             or not torch.equal(s16[2:], sp16[2:]) or not dx <= 1e-3):
         fail("step_loop differs from its plain loop")
     steps = int(s16[7])
-    parts = [stencil_bound("stencil_forces", fs, g, maps, system.n, False)]
+    parts = [stencil_bound("stencil_forces", fs, g, maps,
+                           StencilConsts(system), system.n, False)]
     parts += [phases[k]["bound"] for k in ("kick_drift_halo",
                                            "extruder_springs",
                                            "langevin_kick_monitor")]
@@ -859,10 +916,55 @@ def step_loop_phase(fs, sim, g, phases):
         t_plain=timings(lambda: call(plain, LAUNCH_MAX), 1, 1))
 
 
+def exact_form(fn):
+    """fn() with the pair stencils' IEEE reciprocal (kernels.APPROX_RCP
+    off for the call)."""
+    from lammps_le_torch.fast import kernels as K
+
+    keep = K.APPROX_RCP
+    K.APPROX_RCP = False
+    try:
+        return fn()
+    finally:
+        K.APPROX_RCP = keep
+
+
+def rcp_forms(name, call, out, plain, tol):
+    """The stencil ``call`` (its wrapper on fixed planes) once more in the
+    IEEE form, beside ``out``, its result in the default form, and
+    ``plain``, its plain version's: the IEEE form held to the plain one as
+    the default is (forces within ``tol``, energies, flags and clamps), and
+    both forms' flags and clamps equal.  Prints the largest force
+    difference between the two forms.  Returns the IEEE form's timings."""
+    import torch
+
+    from lammps_le_torch.fast import kernels as K
+
+    gf_x, en_x, in_x = exact_form(call)
+    err_x = float((gf_x - plain[0]).abs().max())
+    d_forms = float((out[0] - gf_x).abs().max())
+    de = (en_x.double() - plain[1].double()).abs()
+    print(f"{name}: default reciprocal "
+          f"{'approximate' if K.APPROX_RCP else 'IEEE'}; the IEEE form's "
+          f"max_abs_err {err_x:.3g} (tol {tol:.3g}), energies "
+          f"{en_x.tolist()}; max|f_default - f_IEEE| {d_forms:.3g}; "
+          f"flags/clamps default {out[2].tolist()}, IEEE {in_x.tolist()}",
+          flush=True)
+    if not err_x <= tol or not bool(
+            torch.all(de <= E_ABS + E_REL * plain[1].double().abs())):
+        fail(f"{name} in the IEEE form vs its plain version: {err_x} (tol "
+             f"{tol}), energies {en_x.tolist()} vs {plain[1].tolist()}")
+    if not torch.equal(in_x, out[2]) or not torch.equal(in_x, plain[2]):
+        fail(f"{name}: flags/clamps {out[2].tolist()} (default) vs "
+             f"{in_x.tolist()} (IEEE) vs {plain[2].tolist()} (plain)")
+    return timings(lambda: exact_form(call), 20)
+
+
 def stencil_phase(fs, sim, g):
     """stencil_forces vs its plain version on the 100k planes: forces
-    within 3e-5 max|f|, energies, flags and clamps.  Returns its record
-    (no launch count)."""
+    within 3e-5 max|f|, energies, flags and clamps, in the default and in
+    the IEEE reciprocal form (``rcp_forms``).  Returns its record (no
+    launch count)."""
     import torch
 
     from lammps_le_torch.fast import kernels as K
@@ -887,11 +989,16 @@ def stencil_phase(fs, sim, g):
     if not torch.equal(in_k, in_r):
         fail(f"stencil_forces flags/clamps {in_k.tolist()} vs "
              f"{in_r.tolist()}")
+    t_exact = rcp_forms("stencil_forces at the 100k planes",
+                        lambda: K.stencil_forces(*st_args),
+                        (gf_k, en_k, in_k), (gf_r, en_r, in_r),
+                        F_REL * max(fmax, 1.0))
     return dict(
         replaces="lammps_le_tpu/fast/pallas_step.py:249", max_abs_err=err,
         tol=f"{F_REL}*max|f|={F_REL * max(fmax, 1.0):.3g}",
         energies=en_k.tolist(), energies_plain=en_r.tolist(),
-        bound=stencil_bound("stencil_forces", fs, g, maps, n),
+        bound=stencil_bound("stencil_forces", fs, g, maps, st_args[5], n),
+        t_exact=t_exact,
         t=timings(lambda: K.stencil_forces(*st_args), 20),
         t_plain=timings(lambda: R.stencil_forces(*st_args), 3, 1))
 
@@ -899,7 +1006,8 @@ def stencil_phase(fs, sim, g):
 def newton_phase(fs, sim, g):
     """newton_half_forces vs its plain version on the config-6 planes at
     the end of that run: forces within 3e-5 max|f|, energies, flags and
-    clamps, ghost columns exactly 0, two launches bitwise equal; and vs
+    clamps, ghost columns exactly 0, two launches bitwise equal, in the
+    default reciprocal form, and in the IEEE one (``rcp_forms``); and vs
     the full 27-offset stencil on the same planes (forces within 2e-4
     max|f|, flags and clamps equal).  Device time per call
     of the kernel, its plain version and stencil_forces.  Returns the
@@ -954,11 +1062,14 @@ def newton_phase(fs, sim, g):
             in_s, in_k):
         fail(f"newton_half_forces vs stencil_forces: {err_full}, "
              f"{in_k.tolist()} vs {in_s.tolist()}")
+    t_exact = rcp_forms("newton_half_forces at the config-6 planes",
+                        lambda: K.newton_half_forces(*args), k1,
+                        (gf_r, en_r, in_r), tol)
     return dict(
         replaces="lammps_le_tpu/fast/blocked_kernel.py:90", max_abs_err=err,
-        tol=f"{F_REL}*max|f|={tol:.3g}; bitwise run to run",
-        bound=stencil_bound("newton_half_forces", fs, g, maps, n),
-        bound_full=stencil_bound("stencil_forces", fs, g, maps, n),
+        tol=f"{F_REL}*max|f|={tol:.3g}; bitwise run to run", t_exact=t_exact,
+        bound=stencil_bound("newton_half_forces", fs, g, maps, C, n),
+        bound_full=stencil_bound("stencil_forces", fs, g, maps, C, n),
         t=timings(lambda: K.newton_half_forces(*args), 20),
         t_plain=timings(lambda: R.newton_half_forces(*args), 3, 1),
         t_full=timings(lambda: K.stencil_forces(*st_args), 20))
@@ -1093,7 +1204,8 @@ def tiled_phase(fs, sim, g):
         replaces="lammps_le_tpu/fast/pallas_kernel.py:59", max_abs_err=err,
         tol=f"{F_REL}*max|f|={tol:.3g}; vs stencil_forces "
         f"{F_REL_STENCILS}*max|f|",
-        bound=stencil_bound("tiled_stencil_forces", fs, g, maps, n),
+        bound=stencil_bound("tiled_stencil_forces", fs, g, maps, args[5],
+                           n),
         t=timings(lambda: K.tiled_stencil_forces(*args), 20),
         t_plain=timings(lambda: R.tiled_stencil_forces(*args), 3, 1),
         t_full=timings(lambda: K.stencil_forces(*args), 20))
@@ -1542,7 +1654,9 @@ def print_kernel(path, name, r):
           f"{r['t_plain'][0]:.4f} ms, {r['t_plain'][2]}; bound "
           f"{r['bound'][0]:.4f} ms by {r['bound'][1]}"
           + (f"; library {r['t_lib'][0]:.4f} ms, {r['t_lib'][2]}"
-             if "t_lib" in r else "") + "); wall per "
+             if "t_lib" in r else "")
+          + (f"; IEEE reciprocal form {r['t_exact'][0]:.4f} ms, "
+             f"{r['t_exact'][2]}" if "t_exact" in r else "") + "); wall per "
           f"back-to-back call {r['t'][1]:.4f} ms (plain "
           f"{r['t_plain'][1]:.4f} ms); max_abs_err {r['max_abs_err']:.3g} "
           f"({r['tol']})", flush=True)

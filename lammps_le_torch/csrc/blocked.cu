@@ -1,12 +1,14 @@
-// Hopper (sm_90a) kernel of the Newton-half force stencil, the force
-// evaluation of grids past the whole-plane gate (engine.whole_planes_fit).
+// Hopper (sm_90a) kernels of the Newton-half force stencil, the force
+// evaluation of grids past the whole-plane gate (engine.whole_planes_fit),
+// and of the sharded stencil's windows.
 //
 // newton_half_forces <- lammps_le_tpu/fast/blocked_kernel.py:90
 // make_blocked_kernel (K3), whose body is the Newton-half offset loop
 // pallas_step.py:249-510 make_offset_loop (K1).  The TPU kernel cuts the
 // flat cell axis into lane chunks with [M | CL | M] windows only to fit
 // its VMEM, folds the margin reactions in XLA, then folds the ghost faces
-// z -> y -> x.  Here the same function is computed over the whole grid:
+// z -> y -> x.  Here the same function is computed over the whole grid
+// (kernels_ref.newton_half_forces):
 //
 //   * the i side is a valid slot (a bead in an interior column) only;
 //   * the self cell is seen with both pair orders at energy weight 1 and
@@ -16,51 +18,34 @@
 //   * the reactions that land on ghost columns fold onto the interior
 //     cells they image, z -> y -> x (FastMaps.faces / fold_shifts).
 //
-// Every per-pair value is the plain version's bit for bit (-fmad=false,
-// IEEE division: pair_force in common.cuh is kernels_ref._pair_terms op
-// for op); only the order of the sums differs.
-//
-// Bound: f32 arithmetic.  At config 6 (1M beads, cap 9, P 358,144) the
-// stencil examines 1M valid i slots x 9 j rows x 14 offsets = 126 M pairs
-// of ~24 operations (3 GFLOP, ~45 us at 67 TFLOP/s), against ~110 MB of planes
-// in and out (~33 us at 3.35 TB/s); the reaction buffers below add
-// ~1 GB of traffic (~0.3 ms).
-//
-// Design: deterministic, with no atomics.  A Newton-half reaction is a
-// scatter; with float atomics its sum order, and so the trajectory,
-// would change from run to run.  Instead:
-//
-//   1. newton_pair_kernel: one thread per cell column p holds p's cap
-//      i rows in registers (the row count is a template bound, MAXCAP >=
-//      cap).  For the self cell and each forward offset it reads the cap
-//      j rows of column (p + d) mod P once, accumulates its own rows'
-//      forces, and sums the reaction on each j row over its i rows in
-//      row order; that sum is written once to a per-offset buffer
-//      R[o][:, j, p].  Tallies reduce per block (no atomics).
-//   2. newton_gather_kernel: each slot (r, c) takes its own force minus
-//      R[o][:, r, (c - d_o) mod P] over o in offset order.
-//   3. fold_kernel, three launches (z, y, x): each a gather along the
-//      axis' roll shifts, as the reference's masked rolls.
-//   4. stencil_finish_kernel (common.cuh): energies, flags and clamps.
-//
-// The wrapper allocates the 14 (3, cap, P) work planes (own forces and
-// the 13 reaction buffers; 0.54 GB at config 6), reused for the folds.
+// Design: one launch of the occupancy-following block (stencil.cuh), each
+// occupied slot summing its own forward pairs (a valid slot) and the
+// reactions of the pairs that see it from the 13 backward offsets (the
+// same pairs, computed again in the same argument order), into gf, ghost
+// columns included, those of ghost columns set aside in a scratch plane
+// (gf gets zeros there).  Then the ghost fold: fold_code_kernel marks
+// each interior column's ghost images, and fold_kernel has each interior
+// slot add the reactions set aside on its images (every halo column is
+// the image of one interior column, once: a fixed order, no atomics; no
+// ghost slot is written twice), and stencil_finish_kernel
+// (common.cuh): energies, flags and clamps.  It allocates nothing: no
+// reaction planes, no gather.
 //
 // window_forces <- lammps_le_tpu/parallel/shard_step.py:55 _window_call
 // (K4), whose body is the same offset loop over each slab's window
-// [M | C | M] of the sharded stencil.  Steps 1, 2 and 4 above run over S
-// windows of W = 2M + C columns laid side by side in the planes: a window
-// is the period of its column rolls, (w + d) mod W, and its own interior
-// columns are the i side.  A second grid dimension runs over the windows,
-// so one launch covers every slab of a device.  There is no ghost fold
-// (the caller folds the assembled planes), and the tallies come out as
-// raw sums, which the caller adds over devices before it halves them.
+// [M | C | M] of the sharded stencil.  The same block runs over S windows
+// of W = 2M + C columns laid side by side in the planes: a window is the
+// period of its column rolls, (w + d) mod W, its own interior columns are
+// the i side, and every occupied slot of it keeps the reactions it takes
+// (no ghost fold: the caller folds the assembled planes).  A second grid
+// dimension runs over the windows, so one launch covers every slab of a
+// device; the tallies come out as raw sums, which the caller adds over
+// devices before it halves them.
 //
-// Bound: as the whole-grid form, with the margins' copies in the window
-// planes and their reaction buffers (chip_smoke.py computes it from a
-// run's windows).
+// Bound: f32 issue, as stencil_forces in step.cu; chip_smoke.py computes
+// it from a run's planes.
 
-#include "common.cuh"
+#include "stencil.cuh"
 
 // per-axis ghost-fold roll shifts (lo, hi) of FastMaps.fold_shifts;
 // mirrored by kernels.FoldArgs
@@ -70,122 +55,78 @@ struct FoldArgs {
 
 namespace {
 
-constexpr int kHalf = 14;  // the self cell + 13 forward offsets
-
-// columns [blockIdx.y * period, (blockIdx.y + 1) * period) are one period
-// of the rolls: the whole grid (period P, one window) or a slab's window
-template <int MAXCAP>
-__global__ void __launch_bounds__(kThreads)
-    newton_pair_kernel(const float* __restrict__ gx,
+// the Newton-half stencil over nwin periods of `period` columns: the whole
+// grid (K3: the ghost columns' reactions set aside in ghost), or K4's
+// windows (ghost null)
+template <bool APPROX>
+__global__ void __launch_bounds__(kTileThreads)
+    newton_half_kernel(const float* __restrict__ gx,
                        const int* __restrict__ bid,
                        const uint8_t* __restrict__ hn,
                        const int* __restrict__ pid,
-                       const uint8_t* __restrict__ interior,
-                       float* __restrict__ work, float* __restrict__ fpart,
-                       int* __restrict__ ipart, StencilArgs a, int period) {
-  __shared__ float shf[32];
-  __shared__ int shi[32];
-  const int cap = a.cap, P = a.P, n = a.n;
-  const long capP = (long)cap * P;
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  const int base = blockIdx.y * period;
-  const int p = base + w;
-  PairTally tl = {0.f, 0.f, 0, 0};
-  int nlink = 0;
-  if (w < period) {
-    float xi[MAXCAP], yi[MAXCAP], zi[MAXCAP];
-    int bi[MAXCAP], u1i[MAXCAP], pi[MAXCAP];
-    float fx[MAXCAP], fy[MAXCAP], fz[MAXCAP];
-    unsigned int vmask = 0;  // bit i: row i is a valid i slot
-    const bool col_in = interior[p] != 0;
-#pragma unroll
-    for (int i = 0; i < MAXCAP; ++i) {
-      fx[i] = fy[i] = fz[i] = 0.f;
-      if (i < cap) {
-        const long t = (long)i * P + p;
-        xi[i] = gx[t];
-        yi[i] = gx[capP + t];
-        zi[i] = gx[2 * capP + t];
-        bi[i] = bid[t];
-        u1i[i] = hn[t] ? bi[i] + 1 : n + 2;
-        pi[i] = pid[t];
-        if (col_in && bi[i] < n) {
-          vmask |= 1u << i;
-          nlink += hn[t] ? 1 : 0;
-        }
-      }
-    }
-    for (int o = 0; o < kHalf; ++o) {
-      int cj = w + a.delta[o];  // delta in [0, period)
-      if (cj >= period) cj -= period;
-      cj += base;
-      const int wgt = o ? 2 : 1;
-      float* R = work + (long)o * 3 * capP;
-      for (int rj = 0; rj < cap; ++rj) {
-        float rx = 0.f, ry = 0.f, rz = 0.f;
-        if (vmask) {
-          const long j = (long)rj * P + cj;
-          const float xj = gx[j], yj = gx[capP + j], zj = gx[2 * capP + j];
-          const int bj = bid[j];
-          const int u1j = hn[j] ? bj + 1 : n + 2;
-#pragma unroll
-          for (int i = 0; i < MAXCAP; ++i) {
-            if (!((vmask >> i) & 1u)) continue;
-            const float dx = xi[i] - xj;
-            const float dy = yi[i] - yj;
-            const float dz = zi[i] - zj;
-            const float ffac = pair_force(a, dx, dy, dz, bi[i], u1i[i],
-                                          pi[i], bj, u1j, wgt, tl);
-            const float cx = dx * ffac, cy = dy * ffac, cz = dz * ffac;
-            fx[i] += cx;
-            fy[i] += cy;
-            fz[i] += cz;
-            rx += cx;
-            ry += cy;
-            rz += cz;
-          }
-        }
-        if (o) {  // the reaction on j row rj, seen from column p
-          const long t = (long)rj * P + p;
-          R[t] = rx;
-          R[capP + t] = ry;
-          R[2 * capP + t] = rz;
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < MAXCAP; ++i) {
-      if (i < cap) {
-        const long t = (long)i * P + p;
-        work[t] = fx[i];
-        work[capP + t] = fy[i];
-        work[2 * capP + t] = fz[i];
-      }
-    }
-  }
-  block_tallies(tl, nlink, fpart, ipart, shf, shi);
+                       const uint8_t* __restrict__ colok,
+                       float* __restrict__ gf, float* __restrict__ ghost,
+                       float* __restrict__ fpart, int* __restrict__ ipart,
+                       StencilArgs a, int period) {
+  stencil_tile<true, APPROX>(gx, bid, hn, pid, colok, gf, ghost, fpart,
+                             ipart, a, period);
 }
 
-// own force minus the reactions left on the slot, in offset order; one
-// thread per slot of the period blockIdx.y (as newton_pair_kernel)
-__global__ void newton_gather_kernel(const float* __restrict__ work,
-                                     float* __restrict__ gf, StencilArgs a,
-                                     int period) {
-  const long capP = (long)a.cap * a.P;
-  const long u = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (u >= (long)a.cap * period) return;
-  const int w = (int)(u % period);
-  const long row = (u / period) * a.P + (long)blockIdx.y * period;
-  const long t = row + w;
-  for (int k = 0; k < 3; ++k) {
-    float v = work[k * capP + t];
-    for (int o = 1; o < kHalf; ++o) {
-      int ws = w - a.delta[o];
-      if (ws < 0) ws += period;
-      v = v - work[(3L * o + k) * capP + row + ws];
+// K3's ghost fold (kernels_ref.ghost_fold), inverted: the ghost images of
+// each interior column, coded per axis a in bits 2a (c + shift[a][0] lies
+// on a's low face: the image there) and 2a + 1 (c + shift[a][1] on its
+// high face); 0 for every other column.  A halo column is an image of
+// exactly one interior column, once (its halo source), through the
+// nonempty combinations of that column's axis images
+__global__ void fold_code_kernel(const uint8_t* __restrict__ interior,
+                                 const uint8_t* __restrict__ faces,
+                                 FoldArgs f, int P,
+                                 uint8_t* __restrict__ code) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= P) return;
+  int v = 0;
+  if (interior[c])
+    for (int a = 0; a < 3; ++a)
+      for (int s = 0; s < 2; ++s) {
+        int g = c + f.shift[a][s];
+        if (g >= P) g -= P;
+        if (faces[(long)(2 * a + s) * P + g]) v |= 1 << (2 * a + s);
+      }
+  code[c] = (uint8_t)v;
+}
+
+// one thread a slot (blockIdx.y its row): an interior slot with images
+// adds the reactions set aside on its images (x outermost, then y, then
+// z; low before high)
+__global__ void fold_kernel(float* __restrict__ gf,
+                            const float* __restrict__ ghost,
+                            const uint8_t* __restrict__ code, FoldArgs f,
+                            int cap, int P) {
+  const long capP = (long)cap * P;
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= P) return;
+  const int v = code[c];
+  if (v == 0) return;
+  const long row = (long)blockIdx.y * P, t = row + c;
+  float sum[3] = {gf[t], gf[capP + t], gf[2 * capP + t]};
+  for (int ix = 0; ix < 3; ++ix) {
+    if (ix && !((v >> (ix - 1)) & 1)) continue;
+    int cx = ix ? c + f.shift[0][ix - 1] : c;
+    if (cx >= P) cx -= P;
+    for (int iy = 0; iy < 3; ++iy) {
+      if (iy && !((v >> (1 + iy)) & 1)) continue;
+      int cy = iy ? cx + f.shift[1][iy - 1] : cx;
+      if (cy >= P) cy -= P;
+      for (int iz = 0; iz < 3; ++iz) {
+        if (iz && !((v >> (3 + iz)) & 1)) continue;
+        if ((ix | iy | iz) == 0) continue;
+        int cz = iz ? cy + f.shift[2][iz - 1] : cy;
+        if (cz >= P) cz -= P;
+        for (int k = 0; k < 3; ++k) sum[k] += ghost[k * capP + row + cz];
+      }
     }
-    gf[k * capP + t] = v;
   }
+  for (int k = 0; k < 3; ++k) gf[k * capP + t] = sum[k];
 }
 
 // the raw tally sums of every block: [e_lj, e_b, bond sightings, clamp
@@ -195,141 +136,67 @@ __global__ void window_finish_kernel(const float* __restrict__ fpart,
                                      int nblocks, float* __restrict__ out) {
   __shared__ float shf[32];
   __shared__ int shi[32];
-  float e_lj = 0.f, e_b = 0.f;
-  int nb = 0, ncl = 0, nlink = 0;
-  for (int b = threadIdx.x; b < nblocks; b += blockDim.x) {
-    e_lj += fpart[2 * b];
-    e_b += fpart[2 * b + 1];
-    nb += ipart[3 * b];
-    ncl += ipart[3 * b + 1];
-    nlink += ipart[3 * b + 2];
-  }
-  e_lj = block_sum(e_lj, shf);
-  e_b = block_sum(e_b, shf);
-  nb = block_sum_int(nb, shi);
-  ncl = block_sum_int(ncl, shi);
-  nlink = block_sum_int(nlink, shi);
+  const StencilSums s = reduce_tallies(fpart, ipart, nblocks, shf, shi);
   if (threadIdx.x == 0) {
-    out[0] = e_lj;
-    out[1] = e_b;
-    out[2] = (float)nb;
-    out[3] = (float)ncl;
-    out[4] = (float)nlink;
+    out[0] = s.e_lj;
+    out[1] = s.e_b;
+    out[2] = (float)s.nb;
+    out[3] = (float)s.ncl;
+    out[4] = (float)s.nlink;
   }
-}
-
-// one ghost-fold axis (blocked_kernel.py:262-269):
-// out[c] = in[c] * keep[c] + (in * m_lo)[c + s_lo] + (in * m_hi)[c + s_hi]
-// (columns mod P), keep = 1 - m_lo - m_hi, over all 3 * cap rows
-__global__ void fold_kernel(const float* __restrict__ in,
-                            float* __restrict__ out,
-                            const uint8_t* __restrict__ m_lo,
-                            const uint8_t* __restrict__ m_hi, int s_lo,
-                            int s_hi, long rows, int P) {
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= rows * P) return;
-  const int c = (int)(t % P);
-  const long row = t - c;
-  int cl = c + s_lo, ch = c + s_hi;  // shifts in [0, P)
-  if (cl >= P) cl -= P;
-  if (ch >= P) ch -= P;
-  const float lo_c = m_lo[c] ? 1.f : 0.f, hi_c = m_hi[c] ? 1.f : 0.f;
-  const float keep = 1.f - lo_c - hi_c;
-  const float lo = m_lo[cl] ? 1.f : 0.f, hi = m_hi[ch] ? 1.f : 0.f;
-  out[t] = in[t] * keep + in[row + cl] * lo + in[row + ch] * hi;
-}
-
-template <int MAXCAP>
-void launch_pair(const float* gx, const int* bid, const uint8_t* hn,
-                 const int* pid, const uint8_t* interior, float* work,
-                 float* fpart, int* ipart, const StencilArgs& a, int period,
-                 int nwin, cudaStream_t s) {
-  newton_pair_kernel<MAXCAP>
-      <<<dim3(blocks_for(period), nwin), kThreads, 0, s>>>(
-          gx, bid, hn, pid, interior, work, fpart, ipart, a, period);
-}
-
-// the pair pass at the smallest row bound >= cap; false past 32 rows
-bool pair_pass(const float* gx, const int* bid, const uint8_t* hn,
-               const int* pid, const uint8_t* colmask, float* work,
-               float* fpart, int* ipart, const StencilArgs& a, int period,
-               int nwin, cudaStream_t s) {
-  if (a.cap <= 8)
-    launch_pair<8>(gx, bid, hn, pid, colmask, work, fpart, ipart, a, period,
-                   nwin, s);
-  else if (a.cap <= 9)
-    launch_pair<9>(gx, bid, hn, pid, colmask, work, fpart, ipart, a, period,
-                   nwin, s);
-  else if (a.cap <= 10)
-    launch_pair<10>(gx, bid, hn, pid, colmask, work, fpart, ipart, a, period,
-                    nwin, s);
-  else if (a.cap <= 12)
-    launch_pair<12>(gx, bid, hn, pid, colmask, work, fpart, ipart, a, period,
-                    nwin, s);
-  else if (a.cap <= 16)
-    launch_pair<16>(gx, bid, hn, pid, colmask, work, fpart, ipart, a, period,
-                    nwin, s);
-  else if (a.cap <= 32)
-    launch_pair<32>(gx, bid, hn, pid, colmask, work, fpart, ipart, a, period,
-                    nwin, s);
-  else
-    return false;
-  return true;
 }
 
 }  // namespace
 
 extern "C" {
 
-// the largest cap the pair kernel is built for
-int lle_newton_max_cap() { return 32; }
+// the most rows a column may hold
+int lle_stencil_max_cap() { return kMaxCap; }
 
-int lle_newton_half_forces(const float* gx, const int* bid, const uint8_t* hn,
-                           const int* pid, const uint8_t* interior,
-                           const uint8_t* faces, float* work, float* gf,
-                           float* fpart, int* ipart, float* en,
-                           long long* out, StencilArgs a, FoldArgs f,
-                           void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int P = a.P;
-  const long capP = (long)a.cap * P;
-  if (!pair_pass(gx, bid, hn, pid, interior, work, fpart, ipart, a, P, 1, s))
-    return (int)cudaErrorInvalidValue;
-  stencil_finish_kernel<<<1, kThreads, 0, s>>>(fpart, ipart, blocks_for(P),
-                                               en, out);
-  newton_gather_kernel<<<blocks_for(capP), kThreads, 0, s>>>(work, gf, a, P);
-  // folds z -> y -> x: gf -> work plane 0 -> work plane 1 -> gf
-  const float* src[3] = {gf, work, work + 3 * capP};
-  float* dst[3] = {work, work + 3 * capP, gf};
-  for (int k = 0; k < 3; ++k) {
-    const int axis = 2 - k;
-    fold_kernel<<<blocks_for(3 * capP), kThreads, 0, s>>>(
-        src[k], dst[k], faces + (long)(2 * axis) * P,
-        faces + (long)(2 * axis + 1) * P, f.shift[axis][0], f.shift[axis][1],
-        3L * a.cap, P);
-  }
-  return (int)cudaGetLastError();
+// blocks of the window kernel: the size of its tally partials (the
+// whole-grid stencil's at nwin 1)
+int lle_window_blocks(int period, int nwin) {
+  return stencil_blocks(period, nwin);
 }
 
-// blocks of the window kernel's pair pass: the size of its partials
-int lle_window_blocks(int period, int nwin) {
-  return blocks_for(period) * nwin;
+// ghost: a plane like gf, scratch for the ghost columns' reactions;
+// code: P bytes of scratch for the fold's image codes
+int lle_newton_half_forces(const float* gx, const int* bid, const uint8_t* hn,
+                           const int* pid, const uint8_t* interior,
+                           const uint8_t* faces, float* gf, float* ghost,
+                           uint8_t* code, float* fpart, int* ipart,
+                           float* en, long long* out, StencilArgs a,
+                           FoldArgs f, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err =
+      launch_stencil<newton_half_kernel<true>, newton_half_kernel<false>>(
+          a, true, stencil_grid(a.P, 1), s, gx, bid, hn, pid, interior, gf,
+          ghost, fpart, ipart, a, a.P);
+  if (err != cudaSuccess) return (int)err;
+  fold_code_kernel<<<blocks_for(a.P), kThreads, 0, s>>>(interior, faces, f,
+                                                         a.P, code);
+  fold_kernel<<<dim3(blocks_for(a.P), a.cap), kThreads, 0, s>>>(
+      gf, ghost, code, f, a.cap, a.P);
+  // ~11,000 block partials at config 6: a full block reduces them
+  stencil_finish_kernel<<<1, 1024, 0, s>>>(
+      fpart, ipart, stencil_blocks(a.P, 1), en, out);
+  return (int)cudaGetLastError();
 }
 
 // nwin windows of `period` columns side by side (a.P = nwin * period);
 // ownint: each window's own interior columns
 int lle_window_forces(const float* xw, const int* bid, const uint8_t* hn,
-                      const int* pid, const uint8_t* ownint, float* work,
-                      float* f, float* fpart, int* ipart, float* stats,
-                      StencilArgs a, int period, int nwin, void* stream) {
+                      const int* pid, const uint8_t* ownint, float* f,
+                      float* fpart, int* ipart, float* stats, StencilArgs a,
+                      int period, int nwin, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (!pair_pass(xw, bid, hn, pid, ownint, work, fpart, ipart, a, period,
-                 nwin, s))
-    return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      launch_stencil<newton_half_kernel<true>, newton_half_kernel<false>>(
+          a, true, stencil_grid(period, nwin), s, xw, bid, hn, pid, ownint,
+          f, static_cast<float*>(nullptr), fpart, ipart, a, period);
+  if (err != cudaSuccess) return (int)err;
   window_finish_kernel<<<1, kThreads, 0, s>>>(
-      fpart, ipart, lle_window_blocks(period, nwin), stats);
-  newton_gather_kernel<<<dim3(blocks_for((long)a.cap * period), nwin),
-                         kThreads, 0, s>>>(work, f, a, period);
+      fpart, ipart, stencil_blocks(period, nwin), stats);
   return (int)cudaGetLastError();
 }
 

@@ -8,12 +8,16 @@ its own library, and the nvcc runs of all sources start together:
 
 ``step.cu`` holds the four kernels of the 100k path, ``blocked.cu`` the
 Newton-half stencil past the whole-plane gate and the sharded stencil's
-window kernel, ``tiled.cu`` the tiled full stencil (each includes
+window kernel (both include ``stencil.cuh``, the pair stencil they share
+with ``step.cu``), ``tiled.cu`` the tiled full stencil (each includes
 ``common.cuh``), ``probes.cu`` the reciprocal and elementwise-chain
-microprobes (``lammps_le_torch/probes``).  A library's name carries a hash of its source, the header
-and the flags, so an edited source is rebuilt.  ``-fmad=false`` keeps
-every multiply and add separately rounded, as in the plain PyTorch
-versions; division and sqrt stay IEEE (no ``--use_fast_math``).  Run
+microprobes (``lammps_le_torch/probes``).  A library's name carries a
+hash of its source, the headers and the flags, so an edited source is
+rebuilt.  ``-fmad=false`` keeps every multiply and add separately
+rounded, as in the plain PyTorch versions; division and sqrt stay IEEE
+(no ``--use_fast_math``), but for the stencils' reciprocal, which is
+approximate by default and chosen at each launch (``kernels.APPROX_RCP``,
+both forms built).  Run
 ``python -m lammps_le_torch.csrc.build`` to build ahead of time with
 ptxas's register report.
 """
@@ -29,7 +33,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent
 SOURCES = {"step": CSRC / "step.cu", "blocked": CSRC / "blocked.cu",
            "tiled": CSRC / "tiled.cu", "probes": CSRC / "probes.cu"}
-HEADER = CSRC / "common.cuh"
+HEADERS = (CSRC / "common.cuh", CSRC / "stencil.cuh")
 BUILD_DIR = CSRC.parent / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,7 +55,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256(
-        SOURCES[name].read_bytes() + HEADER.read_bytes()
+        SOURCES[name].read_bytes()
+        + b"".join(h.read_bytes() for h in HEADERS)
         + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

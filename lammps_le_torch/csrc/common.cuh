@@ -10,15 +10,16 @@
 
 // stencil arguments, passed by value (mirrored by kernels.StencilArgs);
 // at file scope so the C entry points taking them keep external linkage.
-// delta: column offsets of the stencil's offsets (27 for the full
-// stencil; the self cell + 13 forward ones for the Newton-half stencil);
-// P: the planes' row stride (all windows' columns for the window kernel)
+// delta: column offsets of the 27 stencil offsets in _OFFSETS order
+// (lammps_le_torch/ops/grid.py); P: the planes' row stride (all windows'
+// columns for the window kernel)
 struct StencilArgs {
   float lj1, lj2, lj3, lj4, cutsq, offe, floorsq;
   float inv_r0sq, neg_kf, sigf_sq, wca_cutsq, wca_floorsq, f_wca, e_wca;
   float epsf, e_fene, bond_reach_sq, r0sq;
   int has_bond, wca_is_lj, energy;
   int cap, P, n;
+  int approx;  // the pair kernels' reciprocal: approximate (1) or IEEE
   int delta[27];
 };
 
@@ -162,21 +163,47 @@ __global__ void stencil_finish_kernel(const float* __restrict__ fpart,
 }
 
 // ---------------------------------------------------------------------
-// one (i, j) slot pair of the LJ + FENE + exclusion stencil, op for op
-// kernels_ref._pair_terms at unit i weight (engine.py:683-756): returns
-// the force factor (the force on i is d * ffac) and adds the pair's
-// energies and bond tallies, times wgt, to the thread's sums
+// the reciprocal of the stencils' pair math (K1's _rcp,
+// lammps_le_tpu/fast/pallas_step.py:283-289): with APPROX the
+// approximate reciprocal (rcp.approx.ftz.f32, one MUFU.RCP) refined by one
+// Newton step r * (2 - x * r), as the reference does on hardware
+// (APPROX_RCP, pallas_step.py:128); without it IEEE division, bitwise the
+// plain versions'.  Every argument is >= the floors or 0.1, never
+// denormal, so the flush to zero changes nothing.
 
-__device__ __forceinline__ float pair_force(const StencilArgs& a, float dx,
-                                            float dy, float dz, int bi,
-                                            int u1i, int pi, int bj, int u1j,
+template <bool APPROX>
+__device__ __forceinline__ float stencil_rcp(float x) {
+  if (!APPROX) return 1.f / x;
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r * (2.f - x * r);
+}
+
+// one (i, j) slot pair of the LJ + FENE + exclusion stencil, op for op
+// kernels_ref._pair_terms at unit i weight (engine.py:683-756) but for
+// the reciprocal (stencil_rcp): returns the force factor (the force on i
+// is (x_i - x_j) * ffac) and adds the pair's energies and bond tallies,
+// times wgt, to the thread's sums.  rsq is |x_i - x_j|^2; bonded: j is
+// i's chain neighbour either way (bj == u1i || bi == u1j); excl: j is
+// i's extruder partner (bj == pi).  Every mask (cut, bond reach, WCA,
+// the FENE clamp) is decided before a reciprocal.
+
+// whether a pair can have a force or a tally: within the cut, or bonded.
+// pair_force of any other pair returns 0 and adds nothing, so a caller
+// may skip it (about 19 in 20 of a stencil's pairs lie past the cut)
+__device__ __forceinline__ bool pair_acts(const StencilArgs& a, float rsq,
+                                         bool bonded) {
+  return rsq < a.cutsq || bonded;
+}
+
+template <bool APPROX>
+__device__ __forceinline__ float pair_force(const StencilArgs& a, float rsq,
+                                            bool bonded, bool excl,
                                             int wgt, PairTally& t) {
-  const float rsq = dx * dx + dy * dy + dz * dz;
   const bool nz_pair = rsq > 0.f;
-  const bool bonded = (bj == u1i) || (bi == u1j);
   const bool in_cut = rsq < a.cutsq;
   const bool w_b_m = a.has_bond && bonded && (rsq < a.bond_reach_sq);
-  const bool lj_ok = in_cut && nz_pair && !bonded && (bj != pi);
+  const bool lj_ok = in_cut && nz_pair && !bonded && !excl;
   float rsq_den;
   bool w12;
   if (a.wca_is_lj) {
@@ -188,7 +215,7 @@ __device__ __forceinline__ float pair_force(const StencilArgs& a, float dx,
                   ? fmaxf(rsq, a.wca_floorsq)
                   : fmaxf((in_cut && nz_pair) ? rsq : 1.f, a.floorsq);
   }
-  const float r2 = 1.f / rsq_den;
+  const float r2 = stencil_rcp<APPROX>(rsq_den);
   const float r6 = r2 * r2 * r2;
   float ffac = w12 ? r6 * (a.lj1 * r6 - a.lj2) * r2 : 0.f;
   if (a.energy && lj_ok)
@@ -199,7 +226,7 @@ __device__ __forceinline__ float pair_force(const StencilArgs& a, float dx,
       t.ncl += wgt;
       rlog = 0.1f;
     }
-    float fb = a.neg_kf / rlog;
+    float fb = APPROX ? a.neg_kf * stencil_rcp<true>(rlog) : a.neg_kf / rlog;
     const float sr2 = a.sigf_sq * r2;
     const float sr6 = sr2 * sr2 * sr2;
     const bool wca = rsq < a.wca_cutsq;

@@ -13,8 +13,10 @@
 // lammps_le_torch/fast/kernels_ref.py op for op: the file is built with
 // -fmad=false and IEEE division/sqrt, so every per-slot and per-pair value
 // is bitwise the plain one and only the order of the force and energy
-// sums differs.  Minimum image uses rintf (round half to even, as
-// jnp.round / torch.round).
+// sums differs; but for the stencil's reciprocal, approximate by default
+// as on the reference's hardware (stencil_rcp in common.cuh; IEEE with
+// StencilArgs.approx 0).  Minimum image uses rintf (round half to even,
+// as jnp.round / torch.round).
 //
 // K2's step loop (pallas_step.py:1002-1022) is the kernels' launch-
 // controlled form: each takes a LaunchCtl in device memory and its step
@@ -28,7 +30,7 @@
 
 #include <cstddef>
 
-#include "common.cuh"
+#include "stencil.cuh"
 
 // kernel arguments, passed by value (mirrored by the ctypes Structures of
 // lammps_le_torch/fast/kernels.py); at file scope so the C entry points
@@ -164,66 +166,34 @@ __global__ void halo_kernel(float* __restrict__ gx, const int* halo_cols,
 
 // ---------------------------------------------------------------------
 // stencil_forces <- pallas_step.py:249-510, 753-774 (K1 / K2b), in the
-// full 27-offset form of engine.make_kernel (engine.py:672-784)
-//
-// Bound: at 100k beads (cap 9, P 33664) about 74 M candidate slot pairs
-// of ~40 flops and five 4-byte loads each; the planes (~7 MB) sit in L2,
-// so the loads are L1/L2 traffic and the kernel is bound by load and FP32
-// issue.  Design: one thread per (row i, column c) slot accumulates its
-// own complete force over 27 offsets x cap j-rows — no Newton reactions,
-// no atomics, no ghost fold-back, a fixed summation order.  Threads along
-// c read neighbouring columns, so each j-row load of a warp is one
-// coalesced line.  Tallies (energies, bond sightings, clamps, links)
-// reduce per block and then in a one-block finishing pass.
+// full 27-offset form of engine.make_kernel (engine.py:672-784): the
+// occupancy-following block of stencil.cuh, each valid slot summing its
+// own complete force over the 27 offsets' occupied rows (no Newton
+// reactions, no ghost fold-back), in a fixed order.  Tallies (energies,
+// bond sightings, clamps, links) reduce per block and then in a one-block
+// finishing pass.
 
-
-__global__ void stencil_kernel(const float* __restrict__ gx,
-                               const int* __restrict__ bid,
-                               const uint8_t* __restrict__ hn,
-                               const int* __restrict__ pid,
-                               const uint8_t* __restrict__ interior,
-                               float* __restrict__ gf,
-                               float* __restrict__ fpart,
-                               int* __restrict__ ipart, StencilArgs a,
-                               const LaunchCtl* ctl, int s) {
-  __shared__ float shf[32];
-  __shared__ int shi[32];
+template <bool APPROX>
+__global__ void __launch_bounds__(kTileThreads)
+    stencil_kernel(const float* __restrict__ gx, const int* __restrict__ bid,
+                   const uint8_t* __restrict__ hn,
+                   const int* __restrict__ pid,
+                   const uint8_t* __restrict__ interior,
+                   float* __restrict__ gf, float* __restrict__ fpart,
+                   int* __restrict__ ipart, StencilArgs a,
+                   const LaunchCtl* ctl, int s) {
   if (step_off(ctl, s)) return;
-  const int cap = a.cap, P = a.P, n = a.n;
-  const long capP = (long)cap * P;
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  PairTally tl = {0.f, 0.f, 0, 0};
-  int nlink = 0;
-  if (t < capP) {
-    const int c = (int)(t % P);
-    const int bi = bid[t];
-    float fx = 0.f, fy = 0.f, fz = 0.f;
-    if (interior[c] && bi < n) {
-      const float xi = gx[t], yi = gx[capP + t], zi = gx[2 * capP + t];
-      const int u1i = hn[t] ? bi + 1 : n + 2;
-      const int pi = pid[t];
-      nlink = hn[t] ? 1 : 0;
-      for (int o = 0; o < 27; ++o) {
-        const int cj = c + a.delta[o];  // in [0, P) for interior c
-        for (int rj = 0; rj < cap; ++rj) {
-          const long j = (long)rj * P + cj;
-          const float dx = xi - gx[j];
-          const float dy = yi - gx[capP + j];
-          const float dz = zi - gx[2 * capP + j];
-          const int bj = bid[j];
-          const float ffac = pair_force(a, dx, dy, dz, bi, u1i, pi, bj,
-                                        hn[j] ? bj + 1 : n + 2, 1, tl);
-          fx += dx * ffac;
-          fy += dy * ffac;
-          fz += dz * ffac;
-        }
-      }
-    }
-    gf[t] = fx;
-    gf[capP + t] = fy;
-    gf[2 * capP + t] = fz;
-  }
-  block_tallies(tl, nlink, fpart, ipart, shf, shi);
+  stencil_tile<false, APPROX>(gx, bid, hn, pid, interior, gf, nullptr, fpart,
+                              ipart, a, a.P);
+}
+
+cudaError_t stencil_launch(const float* gx, const int* bid, const uint8_t* hn,
+                           const int* pid, const uint8_t* interior, float* gf,
+                           float* fpart, int* ipart, const StencilArgs& a,
+                           const LaunchCtl* ctl, int step, cudaStream_t s) {
+  return launch_stencil<stencil_kernel<true>, stencil_kernel<false>>(
+      a, false, stencil_grid(a.P, 1), s, gx, bid, hn, pid, interior, gf,
+      fpart, ipart, a, ctl, step);
 }
 
 // the controlled launch's stencil finishing pass: the step's clamp events
@@ -584,15 +554,21 @@ int lle_kick_drift_halo(const float* gx, const float* gv, const float* gf,
 // partial buffers the wrappers allocate
 int lle_blocks(long work) { return blocks_for(work); }
 
+// the stencil's blocks (the size of its tally partials) and the most
+// rows a column may hold
+int lle_stencil_blocks(int P) { return stencil_blocks(P, 1); }
+int lle_stencil_max_cap() { return kMaxCap; }
+
 int lle_stencil_forces(const float* gx, const int* bid, const uint8_t* hn,
                        const int* pid, const uint8_t* interior, float* gf,
                        float* fpart, int* ipart, float* en, long long* out,
                        StencilArgs a, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int nb = blocks_for((long)a.cap * a.P);
-  stencil_kernel<<<nb, kThreads, 0, s>>>(gx, bid, hn, pid, interior, gf,
-                                         fpart, ipart, a, nullptr, 0);
-  stencil_finish_kernel<<<1, kThreads, 0, s>>>(fpart, ipart, nb, en, out);
+  const cudaError_t err = stencil_launch(gx, bid, hn, pid, interior, gf,
+                                         fpart, ipart, a, nullptr, 0, s);
+  if (err != cudaSuccess) return (int)err;
+  stencil_finish_kernel<<<1, kThreads, 0, s>>>(
+      fpart, ipart, stencil_blocks(a.P, 1), en, out);
   return (int)cudaGetLastError();
 }
 
@@ -640,15 +616,16 @@ int lle_launch_begin(LaunchCtl* ctl, unsigned int sstep0, unsigned int k0,
 int lle_step_ctl(StepPlanes p, StencilArgs sa, SpringArgs pa,
                  LangevinArgs la, int step, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int cap = sa.cap, P = sa.P, nb = blocks_for((long)cap * P);
+  const int cap = sa.cap, P = sa.P;
   kick_drift_launch(p.gx, p.gv, p.gf, p.bid, p.interior, p.halo_cols,
                     p.halo_src, p.halo_shift, p.gx, p.gv, cap, P, p.H, sa.n,
                     p.kick, p.dt, p.ctl, step, s);
-  stencil_kernel<<<nb, kThreads, 0, s>>>(p.gx, p.bid, p.hn, p.pid,
+  const cudaError_t err = stencil_launch(p.gx, p.bid, p.hn, p.pid,
                                          p.interior, p.gf, p.fpart, p.ipart,
-                                         sa, p.ctl, step);
-  stencil_fold_kernel<<<1, kThreads, 0, s>>>(p.fpart, p.ipart, nb,
-                                             sa.energy, p.ctl, step);
+                                         sa, p.ctl, step, s);
+  if (err != cudaSuccess) return (int)err;
+  stencil_fold_kernel<<<1, kThreads, 0, s>>>(
+      p.fpart, p.ipart, stencil_blocks(P, 1), sa.energy, p.ctl, step);
   if (pa.E > 0)
     springs_kernel<<<blocks_for(pa.E), kThreads, 0, s>>>(
         p.gx, p.gf, p.exl, p.exr, p.active, p.eb, pa, p.ctl, step);

@@ -23,11 +23,22 @@ tiled_stencil_forces   pallas_kernel.py:59 (K5)
 ``StepLoop`` launches the step kernels' launch-controlled forms over up to
 LAUNCH_MAX steps as one CUDA graph replay; its count ``step_loop`` counts
 launches, and each step kernel's count grows by the steps it executed.
+
+The pair stencils (``stencil_forces``, ``newton_half_forces``,
+``window_forces``, and the step loop's stencil) take their reciprocals
+approximately (``rcp.approx`` plus one Newton step), as the reference does
+on hardware, when ``APPROX_RCP`` is true at the call (at the step loop's
+first launch for the loop): the default, unless the environment sets
+``LLE_APPROX_RCP=0`` (the reference's switch, pallas_step.py:128), read
+once at import.  With it false they divide exactly, and every per-pair
+value is the plain version's bit for bit.  ``tiled_stencil_forces``
+divides exactly, as its reference (pallas_kernel.py) does.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -38,6 +49,8 @@ LAUNCHES = {"kick_drift_halo": 0, "stencil_forces": 0,
             "extruder_springs": 0, "langevin_kick_monitor": 0,
             "step_loop": 0, "newton_half_forces": 0, "window_forces": 0,
             "tiled_stencil_forces": 0}
+
+APPROX_RCP = os.environ.get("LLE_APPROX_RCP", "1") == "1"
 
 _LIBS = None
 _P = ctypes.c_void_p
@@ -51,7 +64,7 @@ class StencilArgs(ctypes.Structure):
         "neg_kf", "sigf_sq", "wca_cutsq", "wca_floorsq", "f_wca", "e_wca",
         "epsf", "e_fene", "bond_reach_sq", "r0sq")]
         + [(k, _I) for k in ("has_bond", "wca_is_lj", "energy", "cap", "P",
-                             "n")]
+                             "n", "approx")]
         + [("delta", _I * 27)])
 
 
@@ -92,44 +105,53 @@ def _lib(name="step"):
     if _LIBS is None:
         from ..csrc.build import build
 
-        paths = build()
-        lib = ctypes.CDLL(str(paths["step"]))
-        lib.lle_blocks.argtypes = [ctypes.c_long]
-        lib.lle_blocks.restype = _I
-        lib.lle_kick_drift_halo.argtypes = (
-            [_P] * 10 + [_I] * 4 + [_F, _F, _P])
-        lib.lle_stencil_forces.argtypes = [_P] * 10 + [StencilArgs, _P]
-        lib.lle_extruder_springs.argtypes = [_P] * 6 + [SpringArgs, _P]
-        lib.lle_langevin_kick_monitor.argtypes = (
-            [_P] * 12 + [LangevinArgs, _P])
-        _U = ctypes.c_uint32
-        lib.lle_launch_begin.argtypes = [_P, _U, _U, _U, _I, _I, _F, _F, _P]
-        lib.lle_step_ctl.argtypes = [StepPlanes, StencilArgs, SpringArgs,
-                                     LangevinArgs, _I, _P]
-        for fn in ("lle_kick_drift_halo", "lle_stencil_forces",
-                   "lle_extruder_springs", "lle_langevin_kick_monitor",
-                   "lle_launch_begin", "lle_step_ctl", "lle_ctl_words",
-                   "lle_ctl_stats"):
-            getattr(lib, fn).restype = _I
-        blk = ctypes.CDLL(str(paths["blocked"]))
-        blk.lle_newton_max_cap.restype = _I
-        blk.lle_newton_half_forces.argtypes = (
-            [_P] * 12 + [StencilArgs, FoldArgs, _P])
-        blk.lle_newton_half_forces.restype = _I
-        blk.lle_window_forces.argtypes = (
-            [_P] * 10 + [StencilArgs, _I, _I, _P])
-        blk.lle_window_forces.restype = _I
-        blk.lle_window_blocks.argtypes = [_I, _I]
-        blk.lle_window_blocks.restype = _I
-        tld = ctypes.CDLL(str(paths["tiled"]))
-        tld.lle_tiled_max_cap.restype = _I
-        tld.lle_tiled_blocks.argtypes = [_I]
-        tld.lle_tiled_blocks.restype = _I
-        tld.lle_tiled_stencil_forces.argtypes = [_P] * 10 + [StencilArgs,
-                                                             _P]
-        tld.lle_tiled_stencil_forces.restype = _I
-        _LIBS = {"step": lib, "blocked": blk, "tiled": tld}
+        _LIBS = bind(build())
     return _LIBS[name]
+
+
+def bind(paths):
+    """The step, blocked and tiled libraries at ``paths`` ({name: path},
+    as csrc.build.build returns them) loaded, every entry point's argtypes
+    set: {name: ctypes.CDLL}."""
+    lib = ctypes.CDLL(str(paths["step"]))
+    lib.lle_blocks.argtypes = [ctypes.c_long]
+    lib.lle_blocks.restype = _I
+    lib.lle_stencil_blocks.argtypes = [_I]
+    lib.lle_stencil_blocks.restype = _I
+    lib.lle_stencil_max_cap.restype = _I
+    lib.lle_kick_drift_halo.argtypes = (
+        [_P] * 10 + [_I] * 4 + [_F, _F, _P])
+    lib.lle_stencil_forces.argtypes = [_P] * 10 + [StencilArgs, _P]
+    lib.lle_extruder_springs.argtypes = [_P] * 6 + [SpringArgs, _P]
+    lib.lle_langevin_kick_monitor.argtypes = (
+        [_P] * 12 + [LangevinArgs, _P])
+    _U = ctypes.c_uint32
+    lib.lle_launch_begin.argtypes = [_P, _U, _U, _U, _I, _I, _F, _F, _P]
+    lib.lle_step_ctl.argtypes = [StepPlanes, StencilArgs, SpringArgs,
+                                 LangevinArgs, _I, _P]
+    for fn in ("lle_kick_drift_halo", "lle_stencil_forces",
+               "lle_extruder_springs", "lle_langevin_kick_monitor",
+               "lle_launch_begin", "lle_step_ctl", "lle_ctl_words",
+               "lle_ctl_stats"):
+        getattr(lib, fn).restype = _I
+    blk = ctypes.CDLL(str(paths["blocked"]))
+    blk.lle_stencil_max_cap.restype = _I
+    blk.lle_newton_half_forces.argtypes = (
+        [_P] * 13 + [StencilArgs, FoldArgs, _P])
+    blk.lle_newton_half_forces.restype = _I
+    blk.lle_window_forces.argtypes = (
+        [_P] * 9 + [StencilArgs, _I, _I, _P])
+    blk.lle_window_forces.restype = _I
+    blk.lle_window_blocks.argtypes = [_I, _I]
+    blk.lle_window_blocks.restype = _I
+    tld = ctypes.CDLL(str(paths["tiled"]))
+    tld.lle_tiled_max_cap.restype = _I
+    tld.lle_tiled_blocks.argtypes = [_I]
+    tld.lle_tiled_blocks.restype = _I
+    tld.lle_tiled_stencil_forces.argtypes = [_P] * 10 + [StencilArgs,
+                                                         _P]
+    tld.lle_tiled_stencil_forces.restype = _I
+    return {"step": lib, "blocked": blk, "tiled": tld}
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -197,15 +219,17 @@ def kick_drift_halo(gx, gv, gf, bid, interior, halo_cols, halo_src,
     return gx_out, gv_out
 
 
-def _stencil_args(C, n, strides, offsets, energy, cap, P):
+def _stencil_args(C, n, strides, energy, cap, P):
+    """The kernels' argument block: the 27 offsets' column deltas in
+    _OFFSETS order, the reciprocal's form from APPROX_RCP."""
     sx, sy, sz = strides
-    deltas = [a * sx + b * sy + c * sz for (a, b, c) in offsets]
+    deltas = [a * sx + b * sy + c * sz for (a, b, c) in _OFFSETS]
     return StencilArgs(
         C.lj1, C.lj2, C.lj3, C.lj4, C.cutsq, C.offe, C.floorsq, C.inv_r0sq,
         C.neg_kf, C.sigf_sq, C.wca_cutsq, C.wca_floorsq, C.f_wca, C.e_wca,
         C.epsf, C.e_fene, C.bond_reach_sq, C.r0sq, int(C.kf != 0.0),
-        int(C.wca_is_lj), int(energy), cap, P, n,
-        (_I * 27)(*deltas))  # unused slots stay 0
+        int(C.wca_is_lj), int(energy), cap, P, n, int(APPROX_RCP),
+        (_I * 27)(*deltas))
 
 
 def _stencil_outputs(gx, nblk):
@@ -226,6 +250,12 @@ def _stencil_inputs(gx, bid, hn, pid, interior):
     return cap, P
 
 
+def _check_cap(name, cap, max_cap):
+    if cap > max_cap:
+        raise ValueError(f"{name}: cell cap {cap} is past the {max_cap} rows "
+                         f"the kernel is built for")
+
+
 def stencil_forces(gx, bid, hn, pid, interior, C, n: int, strides,
                    energy: bool):
     """27-offset LJ + FENE + exclusion forces.  Returns (gf, energies (2,)
@@ -235,8 +265,10 @@ def stencil_forces(gx, bid, hn, pid, interior, C, n: int, strides,
                                   energy)
     cap, P = _stencil_inputs(gx, bid, hn, pid, interior)
     lib = _lib()
-    gf, fpart, ipart, en, ints = _stencil_outputs(gx, lib.lle_blocks(cap * P))
-    a = _stencil_args(C, n, strides, _OFFSETS, energy, cap, P)
+    _check_cap("stencil_forces", cap, lib.lle_stencil_max_cap())
+    gf, fpart, ipart, en, ints = _stencil_outputs(gx,
+                                                  lib.lle_stencil_blocks(P))
+    a = _stencil_args(C, n, strides, energy, cap, P)
     err = lib.lle_stencil_forces(
         _ptr(gx), _ptr(bid), _ptr(hn), _ptr(pid), _ptr(interior), _ptr(gf),
         _ptr(fpart), _ptr(ipart), _ptr(en), _ptr(ints), a, _stream())
@@ -249,29 +281,27 @@ def newton_half_forces(gx, bid, hn, pid, interior, faces, C, n: int,
                        strides, fold_shifts, energy: bool):
     """Newton-half LJ + FENE + exclusion forces with the ghost fold (the
     blocked kernel's function, kernels_ref.newton_half_forces).  Returns
-    what ``stencil_forces`` returns.  Deterministic: no atomics."""
+    what ``stencil_forces`` returns.  Deterministic: no float atomics."""
     if _on_cpu(gx):
         return ref.newton_half_forces(gx, bid, hn, pid, interior, faces, C,
                                       n, strides, fold_shifts, energy)
     cap, P = _stencil_inputs(gx, bid, hn, pid, interior)
     _check("faces", faces, torch.bool, (6, P))
     blk = _lib("blocked")
-    if cap > blk.lle_newton_max_cap():
-        raise ValueError(f"newton_half_forces: cell cap {cap} is past the "
-                         f"{blk.lle_newton_max_cap()} rows the kernel is "
-                         f"built for")
-    gf, fpart, ipart, en, ints = _stencil_outputs(gx, _lib().lle_blocks(P))
-    # own forces + 13 reaction buffers, then the fold's ping-pong planes
-    work = torch.empty((len(ref.HALF_OFFSETS), 3, cap, P),
-                       dtype=torch.float32, device=gx.device)
-    a = _stencil_args(C, n, strides, ref.HALF_OFFSETS, energy, cap, P)
+    _check_cap("newton_half_forces", cap, blk.lle_stencil_max_cap())
+    gf, fpart, ipart, en, ints = _stencil_outputs(
+        gx, blk.lle_window_blocks(P, 1))
+    # scratch: the ghost columns' reactions, the fold's image codes
+    ghost = torch.empty_like(gx)
+    code = torch.empty(P, dtype=torch.uint8, device=gx.device)
+    a = _stencil_args(C, n, strides, energy, cap, P)
     f = FoldArgs()
     for axis, (lo, hi) in enumerate(fold_shifts):
         f.shift[axis][0], f.shift[axis][1] = lo, hi
     err = blk.lle_newton_half_forces(
         _ptr(gx), _ptr(bid), _ptr(hn), _ptr(pid), _ptr(interior),
-        _ptr(faces), _ptr(work), _ptr(gf), _ptr(fpart), _ptr(ipart),
-        _ptr(en), _ptr(ints), a, f, _stream())
+        _ptr(faces), _ptr(gf), _ptr(ghost), _ptr(code), _ptr(fpart),
+        _ptr(ipart), _ptr(en), _ptr(ints), a, f, _stream())
     _raise("newton_half_forces", err)
     LAUNCHES["newton_half_forces"] += 1
     return gf, en, ints
@@ -283,7 +313,7 @@ def window_forces(xw, bidw, hnw, pidw, ownint, C, n: int, period: int,
     ``period`` columns, laid side by side, in one launch (the sharded
     stencil's window call, kernels_ref.window_forces).  Returns (f (3,
     cap, S * period), stats (5,) = [e_lj, e_b, bond sightings, clamp
-    events, interior links]).  Deterministic: no atomics."""
+    events, interior links]).  Deterministic: no float atomics."""
     if _on_cpu(xw):
         return ref.window_forces(xw, bidw, hnw, pidw, ownint, C, n, period,
                                  strides, energy)
@@ -293,23 +323,18 @@ def window_forces(xw, bidw, hnw, pidw, ownint, C, n: int, period: int,
         raise ValueError(f"window_forces: {Q} columns are not windows of "
                          f"{period} wider than the margin {sx + sy + sz}")
     blk = _lib("blocked")
-    if cap > blk.lle_newton_max_cap():
-        raise ValueError(f"window_forces: cell cap {cap} is past the "
-                         f"{blk.lle_newton_max_cap()} rows the kernel is "
-                         f"built for")
+    _check_cap("window_forces", cap, blk.lle_stencil_max_cap())
     nblk = blk.lle_window_blocks(period, Q // period)
     dev = xw.device
-    work = torch.empty((len(ref.HALF_OFFSETS), 3, cap, Q),
-                       dtype=torch.float32, device=dev)
     f = torch.empty_like(xw)
     fpart = torch.empty(2 * nblk, dtype=torch.float32, device=dev)
     ipart = torch.empty(3 * nblk, dtype=torch.int32, device=dev)
     stats = torch.empty(5, dtype=torch.float32, device=dev)
-    a = _stencil_args(C, n, strides, ref.HALF_OFFSETS, energy, cap, Q)
+    a = _stencil_args(C, n, strides, energy, cap, Q)
     err = blk.lle_window_forces(
-        _ptr(xw), _ptr(bidw), _ptr(hnw), _ptr(pidw), _ptr(ownint),
-        _ptr(work), _ptr(f), _ptr(fpart), _ptr(ipart), _ptr(stats), a,
-        period, Q // period, _stream())
+        _ptr(xw), _ptr(bidw), _ptr(hnw), _ptr(pidw), _ptr(ownint), _ptr(f),
+        _ptr(fpart), _ptr(ipart), _ptr(stats), a, period, Q // period,
+        _stream())
     _raise("window_forces", err)
     LAUNCHES["window_forces"] += 1
     return f, stats
@@ -325,13 +350,10 @@ def tiled_stencil_forces(gx, bid, hn, pid, interior, C, n: int, strides,
                                         strides, energy)
     cap, P = _stencil_inputs(gx, bid, hn, pid, interior)
     tld = _lib("tiled")
-    if cap > tld.lle_tiled_max_cap():
-        raise ValueError(f"tiled_stencil_forces: cell cap {cap} is past the "
-                         f"{tld.lle_tiled_max_cap()} rows the kernel is "
-                         f"built for")
+    _check_cap("tiled_stencil_forces", cap, tld.lle_tiled_max_cap())
     gf, fpart, ipart, en, ints = _stencil_outputs(gx,
                                                   tld.lle_tiled_blocks(P))
-    a = _stencil_args(C, n, strides, _OFFSETS, energy, cap, P)
+    a = _stencil_args(C, n, strides, energy, cap, P)
     err = tld.lle_tiled_stencil_forces(
         _ptr(gx), _ptr(bid), _ptr(hn), _ptr(pid), _ptr(interior), _ptr(gf),
         _ptr(fpart), _ptr(ipart), _ptr(en), _ptr(ints), a, _stream())
@@ -450,6 +472,8 @@ class StepLoop:
         cap, P = gx.shape[1:]
         E = exl_slot.shape[0] if L.S is not None else 0
         nblk = lib.lle_blocks(cap * P)
+        _check_cap("step_loop", cap, lib.lle_stencil_max_cap())
+        sblk = lib.lle_stencil_blocks(P)
         dev = gx.device
         f32, i32 = dict(dtype=torch.float32, device=dev), dict(
             dtype=torch.int32, device=dev)
@@ -466,8 +490,8 @@ class StepLoop:
             active=torch.zeros(max(E, 1), dtype=torch.bool, device=dev),
             eb=torch.zeros(max(E, 1), **f32),
             lgm=None if lgm is None else torch.empty((cap, P), **f32),
-            fpart=torch.empty(2 * nblk, **f32),
-            ipart=torch.empty(3 * nblk, **i32),
+            fpart=torch.empty(2 * sblk, **f32),
+            ipart=torch.empty(3 * sblk, **i32),
             lpart=torch.empty(3 * nblk, **f32),
             zpart=torch.empty(4 * nblk + 3, **f32) if L.zero else None,
             ctl=torch.zeros(lib.lle_ctl_words(), **i32))
@@ -482,8 +506,8 @@ class StepLoop:
             ptr["exr_slot"], ptr["active"], ptr["eb"], ptr["lgm"],
             ptr["fpart"], ptr["ipart"], ptr["lpart"], ptr["zpart"],
             ptr["ctl"], int(g.halo_cols.shape[0]), L.kick, L.dt)
-        self.args = {e: _stencil_args(L.C, L.n, L.strides, _OFFSETS, e, cap,
-                                      P) for e in (False, True)}
+        self.args = {e: _stencil_args(L.C, L.n, L.strides, e, cap, P)
+                     for e in (False, True)}
         # E = 0: no springs step (the chain's ctx.S is None)
         self.spring = (_spring_args(L.S, E, cap, P) if E
                        else SpringArgs(E=0))

@@ -45,30 +45,43 @@ def _system(n=2000, cap=9):
     return system, data
 
 
-def _planes(dev, cap=9):
-    """Thermal-ish positions (one FENE clamp, one bond out of reach) on
-    the grid, on the card."""
-    system, data = _system(cap=cap)
+def _planes_x():
+    """Thermal-ish positions of _system's beads: one FENE bond past the
+    clamp (bead 100), one out of the stencil's reach (bead 300)."""
+    _, data = _system()
     r = np.random.default_rng(0)
     x = data.x + r.normal(scale=0.05, size=data.x.shape)
     x[100, 0] += 1.45
     x[300, 1] += 4.5
+    return x
+
+
+def _planes(dev, cap=9):
+    """_planes_x on the grid, on the card."""
+    system, _ = _system(cap=cap)
+    maps = fast_maps(system)
+    g = GridConsts.build(system, maps, dev)
+    p = _place(system, maps, g, _planes_x(), dev)
+    return system, maps, g, p, torch.arange(system.max_extruders,
+                                            device=dev) < 20
+
+
+def _place(system, maps, g, x, dev):
+    """The planes of positions x, with 20 extruders (random v and f)."""
+    r = np.random.default_rng(0)
+    r.normal(scale=0.05, size=x.shape)
     e = system.max_extruders
     left = np.full(e, -1, np.int64)
     right = np.full(e, -1, np.int64)
     left[:20] = np.arange(20) * 97 + 3
     right[:20] = left[:20] + 2
-    maps = fast_maps(system)
-    g = GridConsts.build(system, maps, dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    planes = place(system, maps, g, torch.tensor(x, **f32),
-                   torch.tensor(r.normal(size=x.shape), **f32),
-                   torch.tensor(r.normal(size=x.shape), **f32),
-                   torch.tensor(left, device=dev),
-                   torch.tensor(right, device=dev),
-                   torch.zeros(x.shape, dtype=torch.int64, device=dev))
-    active = torch.tensor(left >= 0, device=dev)
-    return system, maps, g, planes, active
+    return place(system, maps, g, torch.tensor(x, **f32),
+                 torch.tensor(r.normal(size=x.shape), **f32),
+                 torch.tensor(r.normal(size=x.shape), **f32),
+                 torch.tensor(left, device=dev),
+                 torch.tensor(right, device=dev),
+                 torch.zeros(x.shape, dtype=torch.int64, device=dev))
 
 
 def _close(a, b):
@@ -87,39 +100,119 @@ def test_kick_drift_halo_bitwise(dev):
     assert K.LAUNCHES["kick_drift_halo"] == 1
 
 
+# the pair stencils' cases: cap x energies x reciprocal form on thermal
+# planes, and planes with one interior column holding cap beads
+STENCIL_CASES = ([(cap, energy, approx, False) for cap in (8, 9, 16)
+                  for energy in (True, False) for approx in (True, False)]
+                 + [(9, True, True, True), (9, True, False, True),
+                    (16, True, True, True), (16, False, False, True)])
+
+
+@pytest.fixture
+def rcp_form(monkeypatch):
+    """Set the stencils' reciprocal form (kernels.APPROX_RCP) for a test."""
+    def set_form(approx):
+        monkeypatch.setattr(K, "APPROX_RCP", approx)
+    return set_form
+
+
+def _stencil_planes(dev, cap, crowd):
+    """_planes, and with ``crowd`` cap beads moved into an empty interior
+    cell (a column with every row full, its beads 0.7 apart on a lattice)
+    beside another interior column left empty.  Returns (system, maps, g,
+    planes, the full column or None, the empty column)."""
+    from lammps_le_torch.ops.cells import cell_coords
+
+    system, maps, g, p, _ = _planes(dev, cap)
+    n = system.n
+    occ = (p[3] < n).sum(0)
+    empty = torch.nonzero((occ == 0) & g.interior)[:, 0].tolist()
+    if not crowd:
+        return system, maps, g, p, None, empty[0]
+    full, keep = empty[0], empty[-1]
+    _, ny, nz = maps.nxyz
+    py, pz = ny + 2, nz + 2
+    c3 = np.array([full // (py * pz), (full // pz) % py, full % pz]) - 1
+    nb = system.neighbor
+    h = np.array(system.box_size) / np.array([nb.nx, nb.ny, nb.nz])
+    center = np.array(system.box_lo) + (c3 + 0.5) * h
+    lattice = np.array([(i, j, k) for k in range(2) for j in range(3)
+                        for i in range(3)], float)[:cap] - [1.0, 1.0, 0.5]
+    assert len(lattice) == cap
+    x = torch.tensor(_planes_x(), dtype=torch.float64)
+    moved = np.arange(cap) * 37 + 900
+    x[moved] = torch.tensor(center + 0.7 * lattice)
+    assert torch.equal(cell_coords(x[moved], system),
+                       torch.tensor(c3).expand(cap, 3))
+    p = _place(system, maps, g, x.numpy(), dev)
+    occ = (p[3] < n).sum(0)
+    assert int(occ[full]) == cap and int(occ[keep]) == 0
+    return system, maps, g, p, full, keep
+
+
+def _check_stencil(a, b, r, g, empty, full=None):
+    """Two launches bitwise equal, the plain version's forces within 3e-5
+    max|f|, its energies within 2e-2, its flags and clamps equal (the
+    planes set FLAG_BOND_REACH and FLAG_FENE_CLAMP); ghost columns and the
+    empty column exactly 0."""
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert _close(a[0], r[0])
+    assert float((a[1] - r[1]).abs().max()) <= 2e-2
+    assert torch.equal(a[2], r[2]) and int(a[2][0]) == 64 | 8
+    assert float(a[0][:, :, ~g.interior].abs().max()) == 0.0
+    assert float(a[0][:, :, empty].abs().max()) == 0.0
+    if full is not None:
+        assert bool((a[0][:, :, full].abs().sum(0) > 0).all())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("energy", [True, False])
-def test_stencil_forces(dev, energy):
-    system, maps, g, p, _ = _planes(dev)
+@pytest.mark.parametrize("cap,energy,approx,crowd", STENCIL_CASES)
+def test_stencil_forces(dev, rcp_form, cap, energy, approx, crowd):
+    rcp_form(approx)
+    system, maps, g, p, full, empty = _stencil_planes(dev, cap, crowd)
     args = (p[0], p[3], p[4], p[5], g.interior, StencilConsts(system),
             system.n, maps.strides, energy)
-    fk, ek, ik = K.stencil_forces(*args)
-    fr, er, ir = R.stencil_forces(*args)
-    assert _close(fk, fr)
-    assert float((ek - er).abs().max()) <= 2e-2
-    assert torch.equal(ik, ir) and int(ik[0]) == 64 | 8
+    K.reset_launches()
+    a = K.stencil_forces(*args)
+    b = K.stencil_forces(*args)
+    assert K.LAUNCHES["stencil_forces"] == 2
+    _check_stencil(a, b, R.stencil_forces(*args), g, empty, full)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cap,energy", [(9, True), (9, False), (8, True),
-                                        (16, True)])
-def test_newton_half_forces(dev, cap, energy):
+@pytest.mark.parametrize("cap,energy,approx,crowd", STENCIL_CASES)
+def test_newton_half_forces(dev, rcp_form, cap, energy, approx, crowd):
     """Against the plain version, ghost columns exactly zero, and two
     launches on the same inputs bitwise equal (no atomics)."""
-    system, maps, g, p, _ = _planes(dev, cap)
+    rcp_form(approx)
+    system, maps, g, p, full, empty = _stencil_planes(dev, cap, crowd)
     args = (p[0], p[3], p[4], p[5], g.interior, g.faces,
             StencilConsts(system), system.n, maps.strides, maps.fold_shifts,
             energy)
     K.reset_launches()
     a = K.newton_half_forces(*args)
     b = K.newton_half_forces(*args)
-    r = R.newton_half_forces(*args)
     assert K.LAUNCHES["newton_half_forces"] == 2
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
-    assert _close(a[0], r[0])
-    assert float((a[1] - r[1]).abs().max()) <= 2e-2
-    assert torch.equal(a[2], r[2]) and int(a[2][0]) == 64 | 8
-    assert float(a[0][:, :, ~g.interior].abs().max()) == 0.0
+    _check_stencil(a, b, R.newton_half_forces(*args), g, empty, full)
+
+
+@pytest.mark.cuda
+def test_stencil_reciprocal_forms(dev, rcp_form):
+    """The approximate and the IEEE reciprocal on the same planes: forces
+    within 3e-5 max|f| of each other, flags and clamps equal; the IEEE
+    form is every pair's plain value, so its one-launch-per-offset sums
+    stay within the plain version's tolerance too."""
+    system, maps, g, p, _, _ = _stencil_planes(dev, 9, False)
+    args = (p[0], p[3], p[4], p[5], g.interior, g.faces,
+            StencilConsts(system), system.n, maps.strides, maps.fold_shifts,
+            True)
+    out = {}
+    for approx in (True, False):
+        rcp_form(approx)
+        out[approx] = K.newton_half_forces(*args)
+    assert _close(out[True][0], out[False][0])
+    assert torch.equal(out[True][2], out[False][2])
+    assert not torch.equal(out[True][0], out[False][0])
 
 
 @pytest.mark.cuda
@@ -156,13 +249,16 @@ def test_langevin_kick_monitor(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("approx", [True, False])
 @pytest.mark.parametrize("sp,energy", [(2, True), (4, False), (1, True)])
-def test_window_forces(dev, sp, energy):
+def test_window_forces(dev, rcp_form, sp, energy, approx):
     """The sharded stencil's window kernel against its plain version on
-    sp windows (one launch for all), two launches bitwise equal; the
-    assembled, folded forces against stencil_forces, ghost columns 0."""
+    sp windows (one launch for all), two launches bitwise equal, its
+    bond sightings, clamps and links equal; the assembled, folded forces
+    against stencil_forces, ghost columns 0."""
     from lammps_le_torch.parallel.shard_step import make_sharded_kernel
 
+    rcp_form(approx)
     system, maps, g, p, _ = _planes(dev)
     kern = make_sharded_kernel(system, maps, 2, [dev] * sp)
     (slabs, args), = kern.window_args(p[0], p[3], p[4], p[5], energy)
