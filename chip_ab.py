@@ -6,15 +6,21 @@ between processes, so only one process compares):
     python3 chip_ab.py kernels DIR [DIR ...] [--rounds N]
     python3 chip_ab.py steps CHECKOUT [--rounds N]
 
-``kernels``: the pair stencils K1 (``stencil_forces``) on path 1's
-settled 100k planes and K3 (``newton_half_forces``) on config 6's,
-without energies (a production step's form), through the package's
-wrappers on the libraries built from its own lammps_le_torch/csrc and
-from each DIR (a copy of that directory with other sources), with the
-package's nvcc flags.  Per tree: the median and quartiles over the
-rounds of the device ms a call (CUDA events around 20 back-to-back
-calls a round, queued behind a sleep kernel) and the largest force
-difference from the package's own kernels.
+``kernels``: the pair stencils K1 (``stencil_forces``, in both
+reciprocal forms) and K5 (``tiled_stencil_forces``) and the Langevin
+kernel K2d+e without zero and with zero over path 5's group on path 1's
+settled 100k planes, K3
+(``newton_half_forces``) and the Langevin kernel on config 6's
+(``kernel_cases``), through the package's wrappers on the libraries
+built from its own lammps_le_torch/csrc and from each DIR (a copy of
+that directory with other sources), with the package's nvcc flags.  Per
+case and tree: the median and quartiles over the rounds of the device
+ms a call (CUDA events around 20 back-to-back calls a round, queued
+behind a sleep kernel), the largest difference of the first output
+(forces) from the package's own kernels, and whether every output was
+bitwise the package's in every round; first, per DIR, whether the SASS
+of K1's and K3/K4's block-body instances is the package's
+(``same_sass``).
 
 ``steps``: path 1 (1,500 steps after a 40-step warm-up, the step loop in
 auto mode) and config 6 (600 steps after 20) from the same settled
@@ -85,41 +91,110 @@ def build_trees(dirs):
     return out
 
 
-def kernels(args, dev):
+def kernel_cases(dev):
+    """[(label, call)] of the kernels ``kernels`` times, each call through
+    the package's wrapper (on whichever libraries kernels._LIBS holds)
+    returning its output tensors: on path 1's settled 100k planes the
+    stencils K1 and K5 and the Langevin kernel without zero and group and
+    with zero over path 5's group (beads 1-90,000); on config 6's K3 and
+    the Langevin kernel without zero.  Stencils without energies (a
+    production step's form)."""
+    import numpy as np
     import torch
 
     from lammps_le_torch.fast import kernels as K
     from lammps_le_torch.fast.consts import StencilConsts
-    from lammps_le_torch.fast.engine import to_fast
+    from lammps_le_torch.fast.engine import _lgm_plane, to_fast
     from lammps_le_torch.fast.maps import fast_maps
     from lammps_le_torch.fast.place import GridConsts
 
-    dirs = [ROOT / "lammps_le_torch" / "csrc"] + [Path(d) for d in args.dirs]
-    trees = [K.bind(paths) for paths in build_trees(dirs)]
     cases = []
-    for label, (sim, state) in zip(("K1 100k", "K3 config 6"),
-                                   settled(dev)):
+    for size, (sim, state) in zip(("100k", "config 6"), settled(dev)):
         system = sim.system
         maps = fast_maps(system)
         g = GridConsts.build(system, maps, dev)
         fs = to_fast(state, sim)
         C, n = StencilConsts(system), system.n
-        if label.startswith("K3"):
-            fn = (lambda fs=fs, g=g, C=C, n=n, maps=maps:
-                  K.newton_half_forces(fs.gx, fs.bid, fs.hn, fs.pid,
-                                       g.interior, g.faces, C, n,
-                                       maps.strides, maps.fold_shifts,
-                                       False)[0])
+        st = (fs.gx, fs.bid, fs.hn, fs.pid, g.interior)
+        lan = (fs.gx, fs.gx_ref, fs.gv, fs.gf, fs.bid, g.interior,
+               (123456789, 987654321), fs.step, -0.1, 0.7, 0.003, sim.dt,
+               0.3, 0.2, n, True)
+        if size == "100k":
+            member = np.zeros(n, bool)
+            member[:chip_smoke.N_CHAIN] = True
+            lgm = _lgm_plane(member, fs.slot_of, maps, torch.float32)
+            cases += [
+                ("K1 100k", lambda st=st, C=C, n=n, maps=maps:
+                 K.stencil_forces(*st, C, n, maps.strides, False)),
+                ("K1 IEEE 100k", lambda st=st, C=C, n=n, maps=maps:
+                 chip_smoke.exact_form(lambda: K.stencil_forces(
+                     *st, C, n, maps.strides, False))),
+                ("K5 100k", lambda st=st, C=C, n=n, maps=maps:
+                 K.tiled_stencil_forces(*st, C, n, maps.strides, False)),
+                ("K2d+e 100k", lambda lan=lan:
+                 K.langevin_kick_monitor(*lan)),
+                ("K2d+e zero+group 100k", lambda lan=lan, lgm=lgm:
+                 K.langevin_kick_monitor(*lan, lgm, True))]
         else:
-            fn = (lambda fs=fs, g=g, C=C, n=n, maps=maps:
-                  K.stencil_forces(fs.gx, fs.bid, fs.hn, fs.pid,
-                                   g.interior, C, n, maps.strides,
-                                   False)[0])
-        cases.append((label, fn))
+            cases += [
+                ("K3 config 6", lambda st=st, g=g, C=C, n=n, maps=maps:
+                 K.newton_half_forces(*st, g.faces, C, n, maps.strides,
+                                      maps.fold_shifts, False)),
+                ("K2d+e config 6", lambda lan=lan:
+                 K.langevin_kick_monitor(*lan))]
+    return cases
+
+
+# the block-body instances of K1 (step.cu) and of K3 and K4 (blocked.cu)
+# in both reciprocal forms: their mangled names' patterns
+STENCIL_INSTANCES = {"step": {"K1 approx": r"\S*14stencil_kernelILb1E",
+                              "K1 IEEE": r"\S*14stencil_kernelILb0E"},
+                     "blocked": {
+                         "K3/K4 approx": r"\S*18newton_half_kernelILb1E",
+                         "K3/K4 IEEE": r"\S*18newton_half_kernelILb0E"}}
+
+
+def same_sass(libs_a, libs_b):
+    """{instance: whether its SASS instructions (predicate, opcode,
+    operands, in order) are the same in both trees' libraries} for
+    STENCIL_INSTANCES, listed with the toolkit's cuobjdump."""
+    from lammps_le_torch.csrc.build import nvcc
+    from lammps_le_torch.probes import listing
+
+    tool = Path(nvcc()).parent / "cuobjdump"
+
+    def dump(path):
+        return subprocess.run([str(tool), "-sass", str(path)],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+
+    out = {}
+    for lib, instances in STENCIL_INSTANCES.items():
+        text_a, text_b = dump(libs_a[lib]), dump(libs_b[lib])
+        for label, pat in instances.items():
+            out[label] = ([c[1:] for c in listing(text_a, pat)]
+                          == [c[1:] for c in listing(text_b, pat)])
+    return out
+
+
+def kernels(args, dev):
+    import torch
+
+    from lammps_le_torch.fast import kernels as K
+
+    dirs = [ROOT / "lammps_le_torch" / "csrc"] + [Path(d) for d in args.dirs]
+    built = build_trees(dirs)
+    trees = [K.bind(paths) for paths in built]
+    for d, paths in zip(dirs[1:], built[1:]):
+        print(f"{d}: stencil instances with the package's SASS: "
+              f"{same_sass(built[0], paths)}", flush=True)
+    cases = kernel_cases(dev)
     K._LIBS = trees[0]
+    K._LAN_SCRATCH.clear()
     ref = [fn() for _, fn in cases]
     times = [[[] for _ in cases] for _ in trees]
     diffs = [[0.0] * len(cases) for _ in trees]
+    same = [[True] * len(cases) for _ in trees]
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     for r in range(args.rounds):
@@ -127,7 +202,10 @@ def kernels(args, dev):
         if r % 2:
             order.reverse()
         for t in order:
+            # each tree's Langevin kernel places its ticket words after
+            # its own partials: fresh zeroed scratch for every tree
             K._LIBS = trees[t]
+            K._LAN_SCRATCH.clear()
             for c, (_, fn) in enumerate(cases):
                 for _ in range(3):
                     fn()
@@ -137,18 +215,21 @@ def kernels(args, dev):
                 torch.cuda._sleep(40_000_000)
                 start.record()
                 for _ in range(20):
-                    gf = fn()
+                    out = fn()
                 stop.record()
                 torch.cuda.synchronize()
                 times[t][c].append(start.elapsed_time(stop) / 20)
-                diffs[t][c] = float((gf - ref[c]).abs().max())
+                diffs[t][c] = float((out[0] - ref[c][0]).abs().max())
+                same[t][c] &= all(torch.equal(a, b)
+                                  for a, b in zip(out, ref[c]))
     K._LIBS = None
-    for t, d in enumerate(dirs):
-        for c, (label, _) in enumerate(cases):
+    for c, (label, _) in enumerate(cases):
+        for t, d in enumerate(dirs):
             m, lo, hi = quartiles(times[t][c])
             print(f"{label} {d}: device {m:.4f} ms a call (IQR {lo:.4f}-"
-                  f"{hi:.4f} over {args.rounds} rounds); max|f - f_pkg| "
-                  f"{diffs[t][c]:.3g}", flush=True)
+                  f"{hi:.4f} over {args.rounds} rounds); max|out0 - "
+                  f"out0_pkg| {diffs[t][c]:.3g}, every output equal to the "
+                  f"package's {same[t][c]}", flush=True)
 
 
 def port_sim(sim, pkg):

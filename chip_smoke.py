@@ -91,7 +91,14 @@ HBM_BPS = 3.35e12
 # into rates (``set_rates``); an IEEE reciprocal costs the instructions
 # that the built library issues for one (probes.probe_rcp.rcp_price).
 LANES_SM, MUFU_LANES_SM = 128, 16
-RATES = {}  # f32 and mufu operations/s, the reciprocal's instructions
+# 32-bit integer add, shift and bitwise operations a clock per SM (the
+# same table, compute capability 9.0): the rate of threefry's rounds
+INT_LANES_SM = 64
+RATES = {}  # f32, int32 and mufu operations/s, the reciprocal's price
+# integer operations of one threefry2x32 word (csrc/step.cu threefry_x0):
+# 20 rounds of an add, a rotation (one funnel shift) and a xor, 5 key
+# injections of two adds and the round constant, the counter and key adds
+THREEFRY_OPS = 20 * 3 + 5 * 3 + 2
 # f32 operations of one slot pair within the LJ cut or bonded (an acting
 # pair, ``pair_counts``): 3 differences, 5 for r^2, 1 division, 2 for
 # r^6, 4 for the force factor, 6 to scale and add the force; the
@@ -412,43 +419,68 @@ def set_rates(card):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     price, exact, approx = rcp_price()
     RATES.update(f32=LANES_SM * sms * mhz * 1e6,
+                 int32=INT_LANES_SM * sms * mhz * 1e6,
                  mufu=MUFU_LANES_SM * sms * mhz * 1e6, div=price)
     print(f"bound rates ({card}): {sms} SMs at {mhz:.0f} MHz: f32 "
           f"{RATES['f32']:.4g} operations/s ({LANES_SM} lanes a clock per "
-          f"SM; no FMA under -fmad=false), MUFU "
+          f"SM; no FMA under -fmad=false), int32 {RATES['int32']:.4g}/s "
+          f"({INT_LANES_SM} lanes), MUFU "
           f"{RATES['mufu']:.4g}/s; an IEEE reciprocal issues {price} "
           f"instructions on its fast path (SASS of the one-pass kernels: "
           f"exact {' '.join(exact)} | approximate {' '.join(approx)})",
           flush=True)
 
 
-def bound(nbytes, ops, divs=0, mufu=0, approx=False):
+def bound(nbytes, ops, divs=0, mufu=0, approx=False, int_ops=0):
     """(ms, what bounds it): the least time an H100 SXM takes to move
     ``nbytes`` or to issue ``ops`` f32 operations, ``divs`` reciprocals
-    and ``mufu`` further MUFU operations, whichever is longest.  Each
-    reciprocal issues RATES["div"] instructions (IEEE) or APPROX_RCP_OPS
-    (``approx``: the stencils' approximate one), one of them on the MUFU
-    pipe."""
+    and ``mufu`` further MUFU operations, or ``int_ops`` 32-bit integer
+    operations, whichever is longest.  Each reciprocal issues
+    RATES["div"] instructions (IEEE) or APPROX_RCP_OPS (``approx``: the
+    stencils' approximate one), one of them on the MUFU pipe."""
     price = APPROX_RCP_OPS if approx else RATES["div"]
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = max((ops + divs * price) / RATES["f32"],
-                (divs + mufu) / RATES["mufu"]) * 1e3
+                (divs + mufu) / RATES["mufu"],
+                int_ops / RATES["int32"] if int_ops else 0.0) * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops
             else (t_ops, "operations"))
 
 
-def bonded_terms(bid, hn, own, n, newton, energy):
+def bonded_terms(bid, hn, own, n, newton, energy, tiled=False):
     """(IEEE divisions, MUFU operations) of the bonded pairs a stencil call
     on these planes computes besides every pair's reciprocal: the FENE
-    force's ``neg_kf / rlog`` (csrc/common.cuh:202, csrc/tiled.cu:64) for
+    force's ``neg_kf / rlog`` (csrc/common.cuh pair_force, tiled_pair) for
     each bond within reach, seen from both of its beads by the full
-    stencils and once by the Newton-half ones, and with ``energy`` its
-    ``logf`` (charged as one MUFU operation, its least cost)."""
+    stencils and once by the Newton-half ones, with ``tiled`` (K5's
+    formulas) also its ``rsq / r0^2`` and ``sigma^2 / rsq_w``, and with
+    ``energy`` its ``logf`` (charged as one MUFU operation, its least
+    cost)."""
     from lammps_le_torch.fast import kernels_ref as R
 
     links = int((R.valid_mask(bid, own, n) & hn).sum())
     pairs = links if newton else 2 * links
-    return pairs, pairs if energy else 0
+    return pairs * (3 if tiled else 1), pairs if energy else 0
+
+
+def langevin_bound(bid, interior, n, lgm=None, zero=False):
+    """langevin_kick_monitor's bound on these planes: x, x_ref, v, f and
+    bid in and f, v out per slot, the interior mask, and with a group its
+    plane; ~46 f32 operations a slot, 6 more with ``zero`` (the weight
+    and the mean); threefry's integer work, THREEFRY_OPS a word, three
+    words for each slot of nonzero weight (valid, and in the group where
+    ``lgm`` is given), drawn once: what the function needs, however often
+    a kernel draws them."""
+    from lammps_le_torch.fast import kernels_ref as R
+
+    cap, P = bid.shape
+    w = R.valid_mask(bid, interior, n)
+    if lgm is not None:
+        w = w & (lgm != 0)
+    words = 3 * int(w.sum())
+    return bound(cap * P * (48 + 4 + 24 + (0 if lgm is None else 4)) + P,
+                 cap * P * (52 if zero else 46),
+                 int_ops=words * THREEFRY_OPS)
 
 
 def pair_counts(x, bid, hn, own, n, cutsq, offsets, deltas):
@@ -525,9 +557,11 @@ def stencil_bound(name, fs, g, maps, C, n, energy=True):
                                            g.interior, n, C.cutsq, offsets,
                                            deltas))
     nbytes = cap * P * (12 + 4 + 1 + 4 + 12) + P * (1 + 6 * newton)
-    bdivs, bmufu = bonded_terms(fs.bid, fs.hn, g.interior, n, newton, energy)
+    tiled = name == "tiled_stencil_forces"
+    bdivs, bmufu = bonded_terms(fs.bid, fs.hn, g.interior, n, newton, energy,
+                                tiled)
     return bound(nbytes, ops, divs=divs + bdivs, mufu=bmufu,
-                 approx=K.APPROX_RCP and name != "tiled_stencil_forces")
+                 approx=K.APPROX_RCP and not tiled)
 
 
 def window_bound(wargs, n, energy=True):
@@ -790,9 +824,7 @@ def kernel_phases(fs, sim, g):
     recs["langevin_kick_monitor"] = dict(
         replaces="lammps_le_tpu/fast/pallas_step.py:932", max_abs_err=err,
         tol="noise bitwise; f, v 3e-5*max|f|",
-        # x, x_ref, v, f, bid in, f, v out per slot; ~46 f32 operations a
-        # slot (the threefry integer work is not counted)
-        bound=bound(cap * P * (48 + 4 + 24) + P, cap * P * 46),
+        bound=langevin_bound(fs.bid, g.interior, n),
         t=timings(lambda: K.langevin_kick_monitor(*lm_args), 50),
         t_plain=timings(lambda: R.langevin_kick_monitor(*lm_args), 5))
     return recs
@@ -1159,12 +1191,28 @@ def shard_phase(fs, sim, g, dev):
     return rec
 
 
+def shuffle_rows(planes, seed=0):
+    """``planes`` (tensors of shape (..., cap, P)) with the rows of each
+    column in another order, one random permutation a column from
+    ``seed``: planes that no placement packs, on which the stencils must
+    give the same forces at the moved slots."""
+    import torch
+
+    cap, P = planes[0].shape[-2:]
+    gen = torch.Generator(device=planes[0].device).manual_seed(seed)
+    order = torch.argsort(torch.rand((cap, P), generator=gen,
+                                     device=planes[0].device), dim=0)
+    return tuple(torch.take_along_dim(t, order.expand_as(t), dim=-2)
+                 for t in planes)
+
+
 def tiled_phase(fs, sim, g):
     """tiled_stencil_forces vs its plain version on the measured 100k
-    planes (forces within 3e-5 max|f|, energies, flags and clamps equal)
-    and vs stencil_forces (2e-4 max|f|, flags and clamps equal).  Returns
-    its record (no launch count), with stencil_forces' time on the same
-    planes."""
+    planes and on the same planes with each column's rows shuffled
+    (forces within 3e-5 max|f|, energies, flags and clamps equal), and vs
+    stencil_forces (2e-4 max|f|, flags and clamps equal).  Returns its
+    record (no launch count), with stencil_forces' times on the same
+    planes in both reciprocal forms."""
     import torch
 
     from lammps_le_torch.fast import kernels as K
@@ -1175,40 +1223,103 @@ def tiled_phase(fs, sim, g):
     system = sim.system
     maps = fast_maps(system)
     n = system.n
-    args = (fs.gx, fs.bid, fs.hn, fs.pid, g.interior, StencilConsts(system),
-            n, maps.strides, True)
-    gf_k, en_k, in_k = K.tiled_stencil_forces(*args)
-    gf_r, en_r, in_r = R.tiled_stencil_forces(*args)
+    tail = (StencilConsts(system), n, maps.strides, True)
+    args = (fs.gx, fs.bid, fs.hn, fs.pid, g.interior) + tail
+    gx_s, bid_s, hn_s, pid_s = shuffle_rows((fs.gx, fs.bid, fs.hn, fs.pid))
+    shuffled = (gx_s, bid_s, hn_s, pid_s, g.interior) + tail
     gf_s, en_s, in_s = K.stencil_forces(*args)
-    fmax = float(gf_r.abs().max())
-    err = float((gf_k - gf_r).abs().max())
-    tol = F_REL * max(fmax, 1.0)
-    err_full = float((gf_s - gf_k).abs().max())
-    de = (en_k.double() - en_r.double()).abs()
-    e_ok = bool(torch.all(de <= E_ABS + E_REL * en_r.double().abs()))
-    print(f"tiled_stencil_forces at {tuple(fs.gx.shape)}: max_abs_err "
-          f"{err:.3g} (tol {tol:.3g}), energies {en_k.tolist()} vs plain "
-          f"{en_r.tolist()}, flags/clamps {in_k.tolist()} vs "
-          f"{in_r.tolist()}; vs stencil_forces max|df| {err_full:.3g}, "
-          f"energies {en_s.tolist()}, flags/clamps {in_s.tolist()}",
-          flush=True)
-    if not err <= tol or not e_ok or not torch.equal(in_k, in_r):
-        fail(f"tiled_stencil_forces vs its plain version: {err} (tol {tol}),"
-             f" {en_k.tolist()} vs {en_r.tolist()}, {in_k.tolist()} vs "
-             f"{in_r.tolist()}")
-    if not err_full <= F_REL_STENCILS * max(fmax, 1.0) or not torch.equal(
-            in_s, in_k):
+    errs = []
+    for label, a in (("packed", args), ("rows shuffled", shuffled)):
+        gf_k, en_k, in_k = K.tiled_stencil_forces(*a)
+        gf_r, en_r, in_r = R.tiled_stencil_forces(*a)
+        fmax = float(gf_r.abs().max())
+        err = float((gf_k - gf_r).abs().max())
+        tol = F_REL * max(fmax, 1.0)
+        de = (en_k.double() - en_r.double()).abs()
+        e_ok = bool(torch.all(de <= E_ABS + E_REL * en_r.double().abs()))
+        print(f"tiled_stencil_forces at {tuple(fs.gx.shape)}, {label}: "
+              f"max_abs_err {err:.3g} (tol {tol:.3g}), energies "
+              f"{en_k.tolist()} vs plain {en_r.tolist()}, flags/clamps "
+              f"{in_k.tolist()} vs {in_r.tolist()}", flush=True)
+        if not err <= tol or not e_ok or not torch.equal(in_k, in_r):
+            fail(f"tiled_stencil_forces vs its plain version ({label}): "
+                 f"{err} (tol {tol}), {en_k.tolist()} vs {en_r.tolist()}, "
+                 f"{in_k.tolist()} vs {in_r.tolist()}")
+        errs.append(err)
+        if label == "packed":
+            out, tol0, fmax0 = (gf_k, en_k, in_k), tol, fmax
+    err_full = float((gf_s - out[0]).abs().max())
+    print(f"tiled_stencil_forces vs stencil_forces on the packed planes: "
+          f"max|df| {err_full:.3g}, energies {en_s.tolist()}, flags/clamps "
+          f"{in_s.tolist()}", flush=True)
+    if not err_full <= F_REL_STENCILS * max(fmax0, 1.0) or not torch.equal(
+            in_s, out[2]):
         fail(f"tiled_stencil_forces vs stencil_forces: {err_full}, "
-             f"{in_k.tolist()} vs {in_s.tolist()}")
-    return dict(
-        replaces="lammps_le_tpu/fast/pallas_kernel.py:59", max_abs_err=err,
-        tol=f"{F_REL}*max|f|={tol:.3g}; vs stencil_forces "
-        f"{F_REL_STENCILS}*max|f|",
-        bound=stencil_bound("tiled_stencil_forces", fs, g, maps, args[5],
-                           n),
+             f"{out[2].tolist()} vs {in_s.tolist()}")
+    rec = dict(
+        replaces="lammps_le_tpu/fast/pallas_kernel.py:59",
+        max_abs_err=max(errs),
+        tol=f"{F_REL}*max|f|={tol0:.3g}, packed and rows shuffled; vs "
+        f"stencil_forces {F_REL_STENCILS}*max|f|",
+        bound=stencil_bound("tiled_stencil_forces", fs, g, maps, tail[0],
+                            n),
         t=timings(lambda: K.tiled_stencil_forces(*args), 20),
+        t_shuffled=timings(lambda: K.tiled_stencil_forces(*shuffled), 20),
         t_plain=timings(lambda: R.tiled_stencil_forces(*args), 3, 1),
-        t_full=timings(lambda: K.stencil_forces(*args), 20))
+        t_full=timings(lambda: K.stencil_forces(*args), 20),
+        t_full_exact=timings(
+            lambda: exact_form(lambda: K.stencil_forces(*args)), 20))
+    print(f"tiled_stencil_forces / stencil_forces on the packed 100k planes "
+          f"({card_line()}): device {rec['t'][0]:.4f} / "
+          f"{rec['t_full_exact'][0]:.4f} ms (IEEE form) = "
+          f"{rec['t'][0] / rec['t_full_exact'][0]:.3f}, / "
+          f"{rec['t_full'][0]:.4f} (default form) = "
+          f"{rec['t'][0] / rec['t_full'][0]:.3f}; rows shuffled "
+          f"{rec['t_shuffled'][0]:.4f} ms", flush=True)
+    return rec
+
+
+def step_graph_nodes(sim, g, fs, zero):
+    """(kernel nodes, all nodes) of one step of K2's step loop for ``sim``
+    on the planes of ``fs``, its Langevin fix's ``zero`` set as given: the
+    loop's kernels loaded by a launch of limit 0 (every kernel returns at
+    once), then one controlled step captured into a CUDA graph whose
+    cudaGraph_t is kept, and its nodes read with the driver's
+    cuGraphGetNodes and cuGraphNodeGetType (kernel nodes are type 0)."""
+    import ctypes
+
+    import torch
+
+    from lammps_le_torch.fast.maps import fast_maps
+    from lammps_le_torch.fast.pallas_step import make_step_kernel
+    from lammps_le_torch.fixes import Langevin
+
+    lf = next(f for f in sim.fixes if isinstance(f, Langevin))
+    loop = make_step_kernel(sim.system, fast_maps(sim.system), sim.ex_btype,
+                            dt=sim.dt, langevin=dataclasses.replace(
+                                lf, zero=zero), g=g).loop
+    loop._alloc(fs.gx, fs.exl_slot, fs.lgm)
+    loop._begin(0, (0, 0), 0, True, 0.0, 0.0)
+    loop._steps(1, False)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        loop._steps(1, False)
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(count)):
+        fail("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)):
+        fail("cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            fail("cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    return kinds.count(0), len(kinds)
 
 
 def zero_group_phase(fs, sim, g):
@@ -1219,8 +1330,10 @@ def zero_group_phase(fs, sim, g):
     force alone (v, f, gamma1 and the kick 0) summed over the group per
     component within f32 round-off of 0; the forces and velocities of
     every slot outside the group bitwise those of the zero-off call.
-    Returns its record (no launch count), with the time of the call
-    without zero and group on the same planes."""
+    Prints the kernel nodes of one step of the step loop's graphs with
+    zero on and off.  Returns its record (no launch count), with the times
+    of the call without zero, with and without the group, on the same
+    planes."""
     import torch
 
     from lammps_le_torch.fast import kernels as K
@@ -1279,19 +1392,23 @@ def zero_group_phase(fs, sim, g):
              f"{sum_tol}")
     if not same:
         fail("zero changed forces or velocities outside the group")
+    (k_on, all_on), (k_off, all_off) = (step_graph_nodes(sim, g, fs, z)
+                                        for z in (True, False))
+    print(f"K2's step loop on the path-5 planes, one step's graph: "
+          f"{k_on} kernel nodes with zero on ({all_on} nodes), {k_off} "
+          f"with zero off ({all_off}): zero adds {k_on - k_off}",
+          flush=True)
     return dict(
         replaces="lammps_le_tpu/fast/pallas_step.py:932", max_abs_err=err,
         tol=f"{F_REL}*max|f|={tol:.3g}; bitwise run to run; group sum of "
         f"the random force <= {sum_tol:.3g}; outside the group bitwise the "
         f"zero-off call's",
-        # bid, the interior mask and the group plane in for the mean;
-        # x, x_ref, v, f in and f, v out per slot; ~46 f32 operations a
-        # slot, 6 more for the weight and the mean (the threefry integer
-        # work is not counted)
-        bound=bound(cap * P * (48 + 4 + 4 + 24) + P, cap * P * 52),
+        bound=langevin_bound(fs.bid, g.interior, n, lgm, True),
+        bound_nozero=langevin_bound(fs.bid, g.interior, n),
         t=timings(lambda: K.langevin_kick_monitor(*on), 50),
         t_plain=timings(lambda: R.langevin_kick_monitor(*on), 5),
-        t_nozero=timings(lambda: K.langevin_kick_monitor(*head), 50))
+        t_nozero=timings(lambda: K.langevin_kick_monitor(*head), 50),
+        t_group=timings(lambda: K.langevin_kick_monitor(*head, lgm), 50))
 
 
 def group_temperatures(fs, system):
@@ -1791,11 +1908,6 @@ def main(argv=None):
     tiled = tiled_phase(fs, sim, g)
     recs += path_records("100k tiled", dict(tiled_stencil_forces=tiled),
                          launches)
-    print(f"100k stencils, device ms per call ({card}): "
-          f"tiled_stencil_forces {tiled['t'][0]:.4f} ({tiled['t'][2]}; bound "
-          f"{tiled['bound'][0]:.4f} by {tiled['bound'][1]}), stencil_forces "
-          f"{tiled['t_full'][0]:.4f} ({tiled['t_full'][2]}; wall per "
-          f"back-to-back call {tiled['t_full'][1]:.4f})", flush=True)
     del fs, start
     torch.cuda.empty_cache()
 
@@ -1820,9 +1932,12 @@ def main(argv=None):
     recs += path_records("100k langevin zero+group",
                          dict(langevin_kick_monitor=zg), launches)
     print(f"langevin_kick_monitor on the path-5 planes, device ms per call "
-          f"({card}): zero+group {zg['t'][0]:.4f}, without zero and group "
-          f"{zg['t_nozero'][0]:.4f}: the zero pass and the group plane cost "
-          f"{zg['t'][0] - zg['t_nozero'][0]:.4f}", flush=True)
+          f"({card}): zero+group {zg['t'][0]:.4f} (bound "
+          f"{zg['bound'][0]:.4f} by {zg['bound'][1]}), group without zero "
+          f"{zg['t_group'][0]:.4f}, without zero and group "
+          f"{zg['t_nozero'][0]:.4f} (bound {zg['bound_nozero'][0]:.4f} by "
+          f"{zg['bound_nozero'][1]}): zero+group / no zero "
+          f"{zg['t'][0] / zg['t_nozero'][0]:.3f}", flush=True)
     print(f"100k steps/s in this call ({card}): "
           + ", ".join(f"{k} {v:.2f}" for k, v in sps.items()), flush=True)
     del fs, g, start, x_full

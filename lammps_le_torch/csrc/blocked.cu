@@ -68,8 +68,8 @@ __global__ void __launch_bounds__(kTileThreads)
                        float* __restrict__ gf, float* __restrict__ ghost,
                        float* __restrict__ fpart, int* __restrict__ ipart,
                        StencilArgs a, int period) {
-  stencil_tile<true, APPROX>(gx, bid, hn, pid, colok, gf, ghost, fpart,
-                             ipart, a, period);
+  stencil_tile<kHalf, APPROX>(gx, bid, hn, pid, colok, gf, ghost, fpart,
+                              ipart, a, period);
 }
 
 // K3's ghost fold (kernels_ref.ghost_fold), inverted: the ghost images of

@@ -1,7 +1,8 @@
 // Shared pieces of the Hopper kernels (step.cu, blocked.cu, tiled.cu): the
 // stencil argument block, the block reductions, the one-block finishing
-// pass of the stencil tallies and the per-pair stencil math.  Each .cu
-// file is its own library, so the helpers have internal linkage in each.
+// pass of the stencil tallies and the per-pair stencil math (K1's form,
+// pair_force, and K5's, tiled_pair).  Each .cu file is its own library,
+// so the helpers have internal linkage in each.
 
 #pragma once
 
@@ -237,6 +238,48 @@ __device__ __forceinline__ float pair_force(const StencilArgs& a, float rsq,
       t.e_b += (float)wgt *
                (a.e_fene * logf(rlog) +
                 (wca ? a.e_wca * sr6 * (sr6 - 1.f) + a.epsf : 0.f));
+  }
+  return ffac;
+}
+
+// one (i, j) slot pair in K5's own formulas (pallas_kernel.py:124-175,
+// kernels_ref.tiled_stencil_forces) at unit i weight, IEEE division
+// only (K5's reference has no approximate reciprocal): returns the force
+// factor and adds the pair's energies and bond tallies to the thread's
+// sums.  bonded: either slot is the other's chain neighbour (the has-next
+// bits); partner: j is i's extruder partner.  The exclusion is bonded or
+// partner; a bond needs rsq > 0 and the bond reach; its WCA is its own
+// term at rsq floored to the WCA floor; the FENE log takes rsq / r0^2 by
+// division.  A pair past the cut and not bonded enters neither branch:
+// it adds exactly nothing, so pair_acts may skip it as for pair_force
+__device__ __forceinline__ float tiled_pair(const StencilArgs& a, float rsq,
+                                            bool bonded, bool partner,
+                                            PairTally& t) {
+  const bool nz_pair = rsq > 0.f;
+  float ffac = 0.f;
+  if (rsq < a.cutsq && nz_pair && !(bonded || partner)) {
+    const float r2 = 1.f / fmaxf(rsq, a.floorsq);
+    const float r6 = r2 * r2 * r2;
+    ffac = r6 * (a.lj1 * r6 - a.lj2) * r2;
+    if (a.energy) t.e_lj += r6 * (a.lj3 * r6 - a.lj4) - a.offe;
+  }
+  if (a.has_bond && bonded && nz_pair && rsq < a.bond_reach_sq) {
+    float rlog = 1.f - rsq / a.r0sq;
+    if (rlog < 0.1f) {
+      t.ncl += 1;
+      rlog = 0.1f;
+    }
+    float fb = a.neg_kf / rlog;
+    const float rsq_w = fmaxf(rsq, a.wca_floorsq);
+    const float sr2 = a.sigf_sq / rsq_w;
+    const float sr6 = sr2 * sr2 * sr2;
+    const bool wca = rsq < a.wca_cutsq;
+    fb = fb + (wca ? a.f_wca * sr6 * (sr6 - 0.5f) / rsq_w : 0.f);
+    ffac = ffac + fb;
+    t.nb += 1;
+    if (a.energy)
+      t.e_b += a.e_fene * logf(rlog) +
+               (wca ? a.e_wca * sr6 * (sr6 - 1.f) + a.epsf : 0.f);
   }
   return ffac;
 }

@@ -1,10 +1,14 @@
 // The pair stencil of the Hopper kernels K1 (stencil_forces, step.cu), K3
-// (newton_half_forces) and K4 (window_forces, blocked.cu): one block body
-// whose work follows the cells' occupancy.
+// (newton_half_forces), K4 (window_forces, blocked.cu) and K5
+// (tiled_stencil_forces, tiled.cu): one block body whose work follows the
+// cells' occupancy, in three forms (Form): K1's full stencil, the
+// Newton-half one of K3 and K4, and K5's full stencil in its own pair
+// formulas.
 //
 // <- lammps_le_tpu/fast/pallas_step.py:249 make_offset_loop (K1), the body
-// of make_step_kernel (K2), make_blocked_kernel (blocked_kernel.py:90, K3)
-// and the sharded stencil's window call (shard_step.py:55, K4).
+// of make_step_kernel (K2), make_blocked_kernel (blocked_kernel.py:90, K3),
+// the sharded stencil's window call (shard_step.py:55, K4) and
+// make_pallas_kernel (pallas_kernel.py:59, K5).
 //
 // Bound: f32 issue.  Placement packs each column's beads into its first
 // rows (fast/place.py: rank -> row), so about one slot in three holds a
@@ -29,7 +33,12 @@
 // only its distance and bond test are computed.
 //
 // The full stencil (K1) sums, for each valid i, the 27 offsets' pairs
-// d * ffac.  The Newton-half stencils (K3, K4) compute each pair
+// d * ffac.  K5's form is the same loop with K5's pair function
+// (tiled_pair in common.cuh: its own bonded test, exclusion, bond and
+// WCA terms, IEEE division only) and K5's edge: a j column outside
+// [0, P) is a far-away empty slot (no wrap), so it is neither read nor
+// looped over.  Its i weight is the column's interior bit, as K1's.
+// The Newton-half stencils (K3, K4) compute each pair
 // (i, j = i + delta, delta in the self cell and the 13 forward offsets)
 // on the i side, at the reference's weights (tallies, energies), and the
 // j side takes its reaction by computing the same pair again, in the
@@ -67,6 +76,14 @@ constexpr int kGroup = 3;         // pencils staged at a time (one a)
 // groups go a = 0, 1, -1, so that the own columns come first
 constexpr int kOwn = 1;
 constexpr int kMaxCap = 32;       // rows a column may hold
+constexpr float kFar = -1.0e4f;   // coordinate of an empty slot (_FAR)
+
+// the block body's forms: the pair function, the i side and the edge
+enum Form {
+  kFull,   // K1: pair_force, the 27 offsets, columns mod the period
+  kHalf,   // K3, K4: pair_force, the Newton-half weights and reactions
+  kTiled,  // K5: tiled_pair, the 27 offsets, no wrap past [0, P)
+};
 
 // dynamic shared memory of a block at `cap` rows; the full stencil
 // stages no partners (it reads the i slot's from the plane)
@@ -170,21 +187,23 @@ __device__ void tile_tallies(PairTally t, int nlink, float* fpart,
 
 // One block of the stencil: columns [w0, w0 + kTile) of period
 // blockIdx.y (columns base .. base + period - 1 of the planes, the j
-// column of offset d being (w + d) mod period).  HALF: the Newton-half
-// stencil, whose every occupied slot is an item and keeps the reactions
-// it takes, ghost columns included (else the full one, whose items are
-// the i side's slots).  colok: the i side's columns (interior, or a
+// column of offset d being (w + d) mod period; kTiled: w + d, empty
+// outside [0, period)).  kHalf: the Newton-half stencil, whose every
+// occupied slot is an item and keeps the reactions it takes, ghost
+// columns included (else a full one, whose items are the i side's
+// slots).  colok: the i side's columns (interior, or a
 // window's own interior).  gf gets every slot of the block's columns,
 // but with ghost non-null a column off the i side's gets zeros in gf and
 // its reactions in ghost (K3, whose fold then reads them there); fpart /
 // ipart the block's tallies (tile_tallies).
-template <bool HALF, bool APPROX>
+template <Form F, bool APPROX>
 __device__ __forceinline__ void stencil_tile(
     const float* __restrict__ gx, const int* __restrict__ bid,
     const uint8_t* __restrict__ hn, const int* __restrict__ pid,
     const uint8_t* __restrict__ colok, float* __restrict__ gf,
     float* __restrict__ ghost, float* __restrict__ fpart,
     int* __restrict__ ipart, const StencilArgs& a, int period) {
+  constexpr bool HALF = F == kHalf;
   extern __shared__ float4 sh4[];
   __shared__ int s_total;
   __shared__ unsigned int s_own;  // bit t: column w0 + t is on the i side
@@ -227,7 +246,14 @@ __device__ __forceinline__ void stencil_tile(
     for (int it = threadIdx.x; it < nst; it += blockDim.x) {
       const int k = it % kSpan, jr = it / kSpan;
       const int j = jr / cap, r = jr - j * cap;
-      int w = (w0 + a.delta[3 * (p0 + j) + 1] - 1 + k) % period;
+      int w = w0 + a.delta[3 * (p0 + j) + 1] - 1 + k;
+      if (F == kTiled && (w < 0 || w >= period)) {
+        // K5's edge: a far-away empty slot, no j rows, not on the i side
+        spos[it] = make_float4(kFar, kFar, kFar, __int_as_float(n));
+        if (r == 0) sok[j * kSpan + k] = 0;
+        continue;
+      }
+      w %= period;
       if (w < 0) w += period;
       const long t = (long)r * P + base + w;
       const int b = bid[t];
@@ -307,10 +333,14 @@ __device__ __forceinline__ void stencil_tile(
           const int wq = __float_as_int(q.w), bq = wq & 0x7fffffff;
           const bool bonded = (bq == u1s) || (wq == pred);
           if (!pair_acts(a, rsq, bonded)) continue;
-          const int pq = pull ? spid[s] : -2;
-          const bool excl = (bq == psx) || (bs == pq);
-          const float ffac =
-              pair_force<APPROX>(a, rsq, bonded, excl, wgt, tl);
+          float ffac;
+          if (F == kTiled) {
+            ffac = tiled_pair(a, rsq, bonded, bq == ps, tl);
+          } else {
+            const int pq = pull ? spid[s] : -2;
+            const bool excl = (bq == psx) || (bs == pq);
+            ffac = pair_force<APPROX>(a, rsq, bonded, excl, wgt, tl);
+          }
           fx += dx * ffac;
           fy += dy * ffac;
           fz += dz * ffac;

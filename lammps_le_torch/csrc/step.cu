@@ -24,8 +24,9 @@
 // (the reactive skin trigger fired) or s >= limit.  The host writes a
 // launch's controls with launch_begin_kernel, runs the LAUNCH_MAX steps'
 // kernels (one CUDA graph replay), and reads the control block once.  The
-// finishing passes fold each step's flags, clamps and trigger into the
-// block in a fixed order, with no atomics.  A null LaunchCtl is the
+// finishing passes (the stencil's fold kernel, the Langevin pass's last
+// block) fold each step's flags, clamps and trigger into the block in a
+// fixed order, with no float atomics.  A null LaunchCtl is the
 // one-step chain: the arguments' own key, counter base and gamma2.
 
 #include <cstddef>
@@ -183,7 +184,7 @@ __global__ void __launch_bounds__(kTileThreads)
                    int* __restrict__ ipart, StencilArgs a,
                    const LaunchCtl* ctl, int s) {
   if (step_off(ctl, s)) return;
-  stencil_tile<false, APPROX>(gx, bid, hn, pid, interior, gf, nullptr, fpart,
+  stencil_tile<kFull, APPROX>(gx, bid, hn, pid, interior, gf, nullptr, fpart,
                               ipart, a, a.P);
 }
 
@@ -281,23 +282,43 @@ __global__ void springs_kernel(const float* __restrict__ gx,
 // engine.py:1398-1455, with fix langevin's group (the weight w = valid *
 // lgm, pallas_step.py:722-723) and zero (pallas_step.py:953-958)
 //
-// Bound: device-memory bytes plus the threefry integer work (3 x 20
-// rounds per slot).  Design: one thread per slot draws its three noise
-// words, applies the Langevin force and the final kick, and computes its
-// squared displacement since the rebuild and its look-ahead; per-block
-// top-2 / max, then a one-block finishing pass.  Without zero and group
-// that is the whole kernel (the group weight is the valid mask).
+// Bound: device-memory bytes (76 B a slot), beside the threefry integer
+// work (3 x 20 rounds per slot of nonzero weight) and ~46 f32 operations
+// a slot.  Design: one thread per slot draws its three noise words
+// (where its weight is not 0: about one slot in three), applies the
+// Langevin force and the final kick, and computes its squared
+// displacement since the rebuild and its look-ahead; per-block top-2 /
+// max, and the last block to finish merges them (last_block): one
+// launch.  Without zero and group that is the whole kernel (the group
+// weight is the valid mask).
 //
 // zero needs the grid-wide sum of noise * w before any slot can apply
-// its force, so it adds a pass before: per block the three sums of
-// noise * w and the sum of the group plane (members only draw their
-// words), then a one-block pass that reduces the partials in a fixed
-// order (no atomics: bitwise the same run to run) into the three means.
-// The main pass then recomputes each slot's words rather than reading
-// stored noise planes: ~230 integer operations a slot again (threefry is
-// ~77 a word), against 12 B a slot written and read back; the main pass
-// is bound by its 76 B a slot, under which the integer work runs.
+// its force, so it adds one pass before: per block (four slots a
+// thread, loads first) the three sums of noise * w and the sum of the
+// group plane (members only draw their words), and its last block
+// reduces the partials in a fixed order (no float atomics: bitwise the
+// same run to run) into the three means.  Two launches with zero, one
+// without.  The zero pass is latency-bound, not bound by its 8 B a slot:
+// on an H100 80GB HBM3 at 700 W (chip_ab.py kernels, PERF.md) ~7.5 us of
+// its ~9.5 at 100k beads are its launch, loads, reductions and ticket
+// and ~2 its threefry; one launch whose blocks meet at a grid barrier
+// between the sums and the main phase was no faster.  The main pass
+// recomputes each slot's words rather than reading them stored by the
+// zero pass: they cost it ~1.2 us at 100k, and storing the members'
+// words (12 B each, written and read back: ~0.65 us of bytes) would save
+// at most about half of that (not tried).
+//
+// The ticket words the last block counts on lie after each pass's
+// partials; they start at 0 and each launch leaves them 0 (the counter
+// wraps at the grid's size), so CUDA-graph replays start clean.  A step
+// that step_off stops takes no ticket.
 
+// the main pass's block; zero's pass: its block and the slots a thread
+// sums (the fastest shapes chip_ab.py timed).  Their partials fit the
+// buffers the wrappers size for blocks of kThreads slots (lle_blocks)
+constexpr int kLanThreads = 512;
+constexpr int kSumThreads = 256, kSumSlots = 4;
+static_assert(kSumSlots == 4, "the zero pass adds its slots in pairs");
 
 __device__ unsigned int rotl(unsigned int x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -346,84 +367,170 @@ __device__ __forceinline__ float lan_noise(const LangevinArgs& a, int b,
   return (float)(x0 >> 8) * (1.f / 16777216.f) - 0.5f;
 }
 
-// zero, first pass: per block the sums of noise * w (3) and of the group
-// plane; w == 0 slots add exactly 0, so they draw no words
-__global__ void langevin_sum_kernel(const int* __restrict__ bid,
-                                    const uint8_t* __restrict__ interior,
-                                    const float* __restrict__ lgm,
-                                    float* __restrict__ part,
-                                    LangevinArgs a0, const LaunchCtl* ctl,
-                                    int step) {
+// whether this block is the launch's last to write its partials: thread
+// 0, which wrote them, takes a ticket with an acquire-release atomic
+// (its partials are visible before the ticket counts, and the last
+// block sees every block's); the counter wraps to 0 at the grid's last
+// ticket.  The same answer in every thread
+__device__ bool last_block(float* ticket_word) {
+  __shared__ int last;
+  if (threadIdx.x == 0) {
+    unsigned int old;
+    asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;"
+                 : "=r"(old)
+                 : "l"(ticket_word), "r"(gridDim.x - 1)
+                 : "memory");
+    last = old == gridDim.x - 1;
+  }
+  __syncthreads();
+  return last;
+}
+
+// zero's pass: per block the sums of noise * w (3) and of the group
+// plane (w == 0 slots add exactly 0, so they draw no words); the last
+// block reduces them in a fixed order into the means sum * inv_cnt,
+// inv_cnt = 1 / max(sum lgm, 1) with a group and 1/n without
+// (engine.py:1428-1434).  zpart: 4 partials a block, the 3 means, the
+// ticket word
+__global__ void __launch_bounds__(kSumThreads)
+    langevin_sum_kernel(const int* __restrict__ bid,
+                        const uint8_t* __restrict__ interior,
+                        const float* __restrict__ lgm, float* zpart,
+                        LangevinArgs a0, const LaunchCtl* ctl, int step) {
   __shared__ float sh[32];
   if (step_off(ctl, step)) return;
   const LangevinArgs a = step_args(a0, ctl, step);
-  const long capP = (long)a.cap * a.P;
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  float s[3] = {0.f, 0.f, 0.f}, cnt = 0.f;
-  if (t < capP) {
-    const int b = bid[t];
-    const float vf = (interior[t % a.P] && b < a.n) ? 1.f : 0.f;
-    cnt = a.group ? lgm[t] : 0.f;
-    const float w = a.group ? vf * cnt : vf;
-    if (w != 0.f)
-      for (int k = 0; k < 3; ++k) s[k] = lan_noise(a, b, k) * w;
+  const int capP = a.cap * a.P;
+  const int t0 = blockIdx.x * kSumThreads * kSumSlots + threadIdx.x;
+  // a thread's slots t0 + j * kSumThreads: every load first, then the
+  // members' words
+  int b[kSumSlots];
+  float w[kSumSlots];
+  float cnt = 0.f;
+#pragma unroll
+  for (int j = 0; j < kSumSlots; ++j) {
+    const int t = t0 + j * kSumThreads;
+    b[j] = a.n;
+    w[j] = 0.f;
+    if (t < capP) {
+      b[j] = bid[t];
+      const float vf = (interior[t % a.P] && b[j] < a.n) ? 1.f : 0.f;
+      const float g = a.group ? lgm[t] : 0.f;
+      cnt += g;
+      w[j] = a.group ? vf * g : vf;
+    }
   }
+  float x[kSumSlots][3], s[3];
+#pragma unroll
+  for (int j = 0; j < kSumSlots; ++j) {
+    for (int k = 0; k < 3; ++k) x[j][k] = 0.f;
+    if (w[j] != 0.f)
+      for (int k = 0; k < 3; ++k) x[j][k] = lan_noise(a, b[j], k) * w[j];
+  }
+  // in pairs, to keep the sums' tree shallow (chip_smoke.py's
+  // zero_group_phase bounds the round-off by the tree's depth)
+  for (int k = 0; k < 3; ++k)
+    s[k] = (x[0][k] + x[1][k]) + (x[2][k] + x[3][k]);
   for (int k = 0; k < 3; ++k) {
     const float r = block_sum(s[k], sh);
-    if (threadIdx.x == 0) part[4 * blockIdx.x + k] = r;
+    if (threadIdx.x == 0) zpart[4 * blockIdx.x + k] = r;
   }
   cnt = block_sum(cnt, sh);
-  if (threadIdx.x == 0) part[4 * blockIdx.x + 3] = cnt;
-}
-
-// zero, finishing pass (one block): the partials reduced in a fixed
-// order, then the means sum * inv_cnt, inv_cnt = 1 / max(sum lgm, 1) with
-// a group and 1/n without (engine.py:1428-1434)
-__global__ void langevin_mean_kernel(const float* __restrict__ part,
-                                     int nblocks, float* __restrict__ mean,
-                                     LangevinArgs a, const LaunchCtl* ctl,
-                                     int step) {
-  __shared__ float sh[32];
-  if (step_off(ctl, step)) return;
-  float s[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int b = threadIdx.x; b < nblocks; b += blockDim.x)
-    for (int k = 0; k < 4; ++k) s[k] += part[4 * b + k];
-  for (int k = 0; k < 4; ++k) s[k] = block_sum(s[k], sh);
+  if (threadIdx.x == 0) zpart[4 * blockIdx.x + 3] = cnt;
+  const int nb = gridDim.x;
+  if (!last_block(zpart + 4 * nb + 3)) return;
+  // the partials of other blocks through L2 (__ldcg), in block order
+  float m[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int blk = threadIdx.x; blk < nb; blk += blockDim.x) {
+    const float4 q = __ldcg(reinterpret_cast<const float4*>(zpart) + blk);
+    m[0] += q.x;
+    m[1] += q.y;
+    m[2] += q.z;
+    m[3] += q.w;
+  }
+  for (int k = 0; k < 4; ++k) m[k] = block_sum(m[k], sh);
   if (threadIdx.x == 0) {
-    const float inv = a.group ? 1.f / fmaxf(s[3], 1.f) : a.inv_n;
-    for (int k = 0; k < 3; ++k) mean[k] = s[k] * inv;
+    const float inv = a.group ? 1.f / fmaxf(m[3], 1.f) : a.inv_n;
+    for (int k = 0; k < 3; ++k) zpart[4 * nb + k] = m[k] * inv;
   }
 }
 
-// gf_out / gv_out may be gf / gv (each slot reads its own values first)
-__global__ void langevin_kernel(const float* __restrict__ gx,
-                                const float* __restrict__ gxr,
-                                const float* gv, const float* gf,
-                                const int* __restrict__ bid,
-                                const uint8_t* __restrict__ interior,
-                                const float* __restrict__ lgm,
-                                const float* __restrict__ mean,
-                                float* gf_out, float* gv_out,
-                                float* __restrict__ part, LangevinArgs a0,
-                                const LaunchCtl* ctl, int s) {
+// the launch's last block: the global top-2 from the block pairs: M =
+// max m1_b, and the largest value != M is m1_b where m1_b != M, else m2_b
+// (engine.py:1311-1312).  A controlled step folds its skin bit and
+// trigger into the control block (the trigger stops the launch:
+// pallas_step.py:993-1004) and writes the stats rows after it; the
+// chain's step writes [flag bits, trigger]
+__device__ void langevin_finish(const float* part, int nblocks,
+                                const LangevinArgs& a,
+                                long long* __restrict__ out, LaunchCtl* ctl,
+                                int s, float* sh) {
+  float m = 0.f, p = 0.f;
+  for (int b = threadIdx.x; b < nblocks; b += blockDim.x) {
+    m = fmaxf(m, __ldcg(part + 3 * b));
+    p = fmaxf(p, __ldcg(part + 3 * b + 2));
+  }
+  const float M = block_bcast(block_max(m, sh), sh);
+  p = block_max(p, sh);
+  float m2 = 0.f;
+  for (int b = threadIdx.x; b < nblocks; b += blockDim.x) {
+    const float m1b = __ldcg(part + 3 * b);
+    m2 = fmaxf(m2, m1b != M ? m1b : __ldcg(part + 3 * b + 1));
+  }
+  m2 = block_max(m2, sh);
+  if (threadIdx.x == 0) {
+    const bool bad = sqrtf(M) + sqrtf(m2) > a.bad_cut;
+    const int trig = p > a.trig_cut ? 1 : 0;
+    if (ctl == nullptr) {
+      out[0] = bad ? 4 : 0;
+      out[1] = trig;
+    } else {
+      ctl->skin |= bad ? 1 : 0;
+      ctl->trig = trig;
+      ctl->steps_done = s + 1;
+      ctl->stopped |= trig;
+      ctl->stats[2] = (float)ctl->reach;
+      ctl->stats[3] = 2.f * (float)ctl->clamps;
+      ctl->stats[5] = (float)ctl->skin;
+      ctl->stats[6] = (float)trig;
+      ctl->stats[7] = (float)(s + 1);
+    }
+  }
+}
+
+// gf_out / gv_out may be gf / gv (each slot reads its own values first).
+// part: 3 partials a block (m1, m2, max look-ahead), the ticket word
+__global__ void __launch_bounds__(kLanThreads)
+    langevin_kernel(const float* __restrict__ gx,
+                    const float* __restrict__ gxr, const float* gv,
+                    const float* gf, const int* __restrict__ bid,
+                    const uint8_t* __restrict__ interior,
+                    const float* __restrict__ lgm,
+                    const float* __restrict__ mean, float* gf_out,
+                    float* gv_out, float* part,
+                    long long* __restrict__ out, LangevinArgs a0,
+                    LaunchCtl* ctl, int s) {
   __shared__ float sh[32];
   if (step_off(ctl, s)) return;
   const LangevinArgs a = step_args(a0, ctl, s);
-  const long capP = (long)a.cap * a.P;
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int capP = a.cap * a.P;
+  const int t = blockIdx.x * kLanThreads + threadIdx.x;
   float dsq = 0.f, pred = 0.f;
   if (t < capP) {
-    const int c = (int)(t % a.P);
+    const int c = t % a.P;
     const int b = bid[t];
     const bool valid = interior[c] && b < a.n;
     const float vf = valid ? 1.f : 0.f;
     const float wl = a.group ? vf * lgm[t] : vf;
     float vn[3], d[3];
     for (int k = 0; k < 3; ++k) {
-      const long i = k * capP + t;
+      const long i = (long)k * capP + t;
       const float v = gv[i];
       float f = gf[i];
-      if (a.langevin) {
+      // a slot of weight 0 (empty, halo, outside the group) draws no
+      // words: its force stays f, which f + term * 0 is (the stencils
+      // write no -0 for the sign of the zero to change)
+      if (a.langevin && wl != 0.f) {
         float noise = lan_noise(a, b, k);
         if (a.zero) noise = noise - mean[k];
         f = f + (a.gamma1 * v + a.gamma2 * noise) * wl;
@@ -449,49 +556,8 @@ __global__ void langevin_kernel(const float* __restrict__ gx,
     part[3 * blockIdx.x + 1] = m2;
     part[3 * blockIdx.x + 2] = pm;
   }
-}
-
-// global top-2 from the block pairs: M = max m1_b, and the largest value
-// != M is m1_b where m1_b != M, else m2_b (engine.py:1311-1312).  A
-// controlled step folds its skin bit and trigger into the control block
-// (the trigger stops the launch: pallas_step.py:993-1004) and writes the
-// stats rows after it; the chain's step writes [flag bits, trigger]
-__global__ void langevin_finish_kernel(const float* __restrict__ part,
-                                       int nblocks, float bad_cut,
-                                       float trig_cut,
-                                       long long* __restrict__ out,
-                                       LaunchCtl* ctl, int s) {
-  __shared__ float sh[32];
-  if (step_off(ctl, s)) return;
-  float m = 0.f, p = 0.f;
-  for (int b = threadIdx.x; b < nblocks; b += blockDim.x) {
-    m = fmaxf(m, part[3 * b]);
-    p = fmaxf(p, part[3 * b + 2]);
-  }
-  const float M = block_bcast(block_max(m, sh), sh);
-  p = block_max(p, sh);
-  float m2 = 0.f;
-  for (int b = threadIdx.x; b < nblocks; b += blockDim.x)
-    m2 = fmaxf(m2, part[3 * b] != M ? part[3 * b] : part[3 * b + 1]);
-  m2 = block_max(m2, sh);
-  if (threadIdx.x == 0) {
-    const bool bad = sqrtf(M) + sqrtf(m2) > bad_cut;
-    const int trig = p > trig_cut ? 1 : 0;
-    if (ctl == nullptr) {
-      out[0] = bad ? 4 : 0;
-      out[1] = trig;
-    } else {
-      ctl->skin |= bad ? 1 : 0;
-      ctl->trig = trig;
-      ctl->steps_done = s + 1;
-      ctl->stopped |= trig;
-      ctl->stats[2] = (float)ctl->reach;
-      ctl->stats[3] = 2.f * (float)ctl->clamps;
-      ctl->stats[5] = (float)ctl->skin;
-      ctl->stats[6] = (float)trig;
-      ctl->stats[7] = (float)(s + 1);
-    }
-  }
+  if (last_block(part + 3 * gridDim.x))
+    langevin_finish(part, gridDim.x, a, out, ctl, s, sh);
 }
 
 // the launches of each kernel pair; ctl null: the chain's one step
@@ -515,20 +581,18 @@ void langevin_launch(const float* gx, const float* gxr, const float* gv,
                      float* gf_out, float* gv_out, float* part, float* zpart,
                      long long* out, LangevinArgs a, LaunchCtl* ctl, int step,
                      cudaStream_t s) {
-  const int nb = blocks_for((long)a.cap * a.P);
+  const int capP = a.cap * a.P;
   const float* mean = nullptr;
   if (a.langevin && a.zero) {
-    langevin_sum_kernel<<<nb, kThreads, 0, s>>>(bid, interior, lgm, zpart,
-                                                a, ctl, step);
-    langevin_mean_kernel<<<1, kThreads, 0, s>>>(zpart, nb, zpart + 4 * nb,
-                                                a, ctl, step);
-    mean = zpart + 4 * nb;
+    const int nz = (capP + kSumThreads * kSumSlots - 1) /
+                   (kSumThreads * kSumSlots);
+    langevin_sum_kernel<<<nz, kSumThreads, 0, s>>>(bid, interior, lgm,
+                                                   zpart, a, ctl, step);
+    mean = zpart + 4 * nz;
   }
-  langevin_kernel<<<nb, kThreads, 0, s>>>(gx, gxr, gv, gf, bid, interior,
-                                          lgm, mean, gf_out, gv_out, part,
-                                          a, ctl, step);
-  langevin_finish_kernel<<<1, kThreads, 0, s>>>(part, nb, a.bad_cut,
-                                                a.trig_cut, out, ctl, step);
+  langevin_kernel<<<(capP + kLanThreads - 1) / kLanThreads, kLanThreads, 0,
+                    s>>>(gx, gxr, gv, gf, bid, interior, lgm, mean, gf_out,
+                         gv_out, part, out, a, ctl, step);
 }
 
 }  // namespace
@@ -582,7 +646,9 @@ int lle_extruder_springs(const float* gx, float* gf, const int* exl,
   return (int)cudaGetLastError();
 }
 
-// zpart: with zero, 4 partials a block and the 3 means after them
+// part: 3 partials a block and a ticket word; zpart (zero only): 4
+// partials a block, the 3 means and a ticket word.  The ticket words must
+// be 0 at the first launch; every launch leaves them 0
 int lle_langevin_kick_monitor(const float* gx, const float* gxr,
                               const float* gv, const float* gf,
                               const int* bid, const uint8_t* interior,

@@ -4,7 +4,8 @@
 Each wrapper takes the tensors of the plain version in ``kernels_ref.py``
 and returns the same results.  On CPU tensors it runs the plain version;
 on CUDA tensors it checks device, dtype, shape and contiguity, allocates
-its outputs with ``torch.empty``, launches the kernel on PyTorch's current
+its outputs with ``torch.empty`` (the Langevin kernel's small zeroed
+scratch is kept per stream), launches the kernel on PyTorch's current
 stream (building the library with nvcc at first use) and raises if the
 launch is refused — there is no fallback.  ``LAUNCHES`` counts, per
 wrapper, the calls that launched the kernel.
@@ -17,14 +18,15 @@ langevin_kick_monitor  pallas_step.py:932-1000 (K2d + K2e)
 StepLoop               pallas_step.py:554, 725-1022 (K2's step loop)
 newton_half_forces     blocked_kernel.py:90 (K3), body K1
 window_forces          parallel/shard_step.py:55 (K4), body K1
-tiled_stencil_forces   pallas_kernel.py:59 (K5)
+tiled_stencil_forces   pallas_kernel.py:59 (K5), body K1
 =====================  ==================================================
 
 ``StepLoop`` launches the step kernels' launch-controlled forms over up to
 LAUNCH_MAX steps as one CUDA graph replay; its count ``step_loop`` counts
 launches, and each step kernel's count grows by the steps it executed.
 
-The pair stencils (``stencil_forces``, ``newton_half_forces``,
+The pair stencils share one block body (``csrc/stencil.cuh``); all but
+``tiled_stencil_forces`` (``stencil_forces``, ``newton_half_forces``,
 ``window_forces``, and the step loop's stencil) take their reciprocals
 approximately (``rcp.approx`` plus one Newton step), as the reference does
 on hardware, when ``APPROX_RCP`` is true at the call (at the step loop's
@@ -391,6 +393,28 @@ def extruder_springs(gx, gf, exl_slot, exr_slot, active, S):
     return eb
 
 
+_LAN_SCRATCH = {}
+
+
+def _langevin_buffers(nblk, dev):
+    """The Langevin kernel's zeroed work buffers for up to ``nblk``
+    blocks (``lle_blocks``): (part: 3 partials a block and a ticket word,
+    zpart: zero's 4 partials a block, its 3 means and a ticket word).  A
+    ticket word must be 0 at a launch, and every launch leaves it 0."""
+    return (torch.zeros(3 * nblk + 1, dtype=torch.float32, device=dev),
+            torch.zeros(4 * nblk + 4, dtype=torch.float32, device=dev))
+
+
+def _langevin_scratch(dev, nblk):
+    """_langevin_buffers kept per device, stream and size, so that a
+    call allocates and zeroes nothing: launches on one stream run in
+    order, and each leaves the ticket words 0 for the next."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream, nblk)
+    if key not in _LAN_SCRATCH:
+        _LAN_SCRATCH[key] = _langevin_buffers(nblk, dev)
+    return _LAN_SCRATCH[key]
+
+
 def langevin_kick_monitor(gx, gx_ref, gv, gf, bid, interior, key_words,
                           sstep: int, gamma1: float, gamma2: float,
                           kick: float, dt: float, bad_cut: float,
@@ -399,9 +423,10 @@ def langevin_kick_monitor(gx, gx_ref, gv, gf, bid, interior, key_words,
     """Langevin force over the group ``lgm`` ((cap, P) 0/1 plane, or None
     for all beads), with ``zero`` its random force's group mean
     subtracted first; the final half kick and skin monitor.  Returns (gf,
-    gv, ints (2,) int64 = [skin flag bits, look-ahead trigger]).  With
-    ``zero`` the kernel takes two passes over the planes; the reduction
-    between them uses no atomics (bitwise the same run to run)."""
+    gv, ints (2,) int64 = [skin flag bits, look-ahead trigger]).  One
+    launch, two with ``zero`` (a pass for the group means first); each
+    pass's last block reduces its block partials in a fixed order, with
+    no float atomics (bitwise the same run to run)."""
     if _on_cpu(gx):
         return ref.langevin_kick_monitor(
             gx, gx_ref, gv, gf, bid, interior, key_words, sstep, gamma1,
@@ -416,11 +441,8 @@ def langevin_kick_monitor(gx, gx_ref, gv, gf, bid, interior, key_words,
     nblk = lib.lle_blocks(cap * P)
     gf_out = torch.empty_like(gf)
     gv_out = torch.empty_like(gv)
-    part = torch.empty(3 * nblk, dtype=torch.float32, device=gx.device)
+    part, zpart = _langevin_scratch(gx.device, nblk)
     zero = bool(zero and langevin)
-    # the zero pass's block partials (4 a block) and the 3 group means
-    zpart = (torch.empty(4 * nblk + 3, dtype=torch.float32,
-                         device=gx.device) if zero else None)
     ints = torch.empty(2, dtype=torch.int64, device=gx.device)
     k0, k1 = key_words
     a = LangevinArgs(int(k0), int(k1), (int(sstep) * 4) & 0xFFFFFFFF,
@@ -430,8 +452,7 @@ def langevin_kick_monitor(gx, gx_ref, gv, gf, bid, interior, key_words,
     err = lib.lle_langevin_kick_monitor(
         _ptr(gx), _ptr(gx_ref), _ptr(gv), _ptr(gf), _ptr(bid),
         _ptr(interior), None if lgm is None else _ptr(lgm), _ptr(gf_out),
-        _ptr(gv_out), _ptr(part), None if zpart is None else _ptr(zpart),
-        _ptr(ints), a, _stream())
+        _ptr(gv_out), _ptr(part), _ptr(zpart), _ptr(ints), a, _stream())
     _raise("langevin_kick_monitor", err)
     LAUNCHES["langevin_kick_monitor"] += 1
     return gf_out, gv_out, ints
@@ -477,6 +498,7 @@ class StepLoop:
         dev = gx.device
         f32, i32 = dict(dtype=torch.float32, device=dev), dict(
             dtype=torch.int32, device=dev)
+        lpart, zpart = _langevin_buffers(nblk, dev)
         b = dict(
             gx=torch.empty((3, cap, P), **f32),
             gv=torch.empty((3, cap, P), **f32),
@@ -492,8 +514,7 @@ class StepLoop:
             lgm=None if lgm is None else torch.empty((cap, P), **f32),
             fpart=torch.empty(2 * sblk, **f32),
             ipart=torch.empty(3 * sblk, **i32),
-            lpart=torch.empty(3 * nblk, **f32),
-            zpart=torch.empty(4 * nblk + 3, **f32) if L.zero else None,
+            lpart=lpart, zpart=zpart,
             ctl=torch.zeros(lib.lle_ctl_words(), **i32))
         self.buf = b
         self.stats_at = lib.lle_ctl_stats()

@@ -283,19 +283,35 @@ def test_window_forces(dev, rcp_form, sp, energy, approx):
     assert float(gf[:, :, ~g.interior].abs().max()) == 0.0
 
 
+# K5's cases: cap x energies on thermal planes (a cap past 16, the old
+# kernel's limit, among them), crowded planes as STENCIL_CASES', and
+# planes whose rows are shuffled within each column
+TILED_CASES = ([(cap, energy, False, False) for cap in (8, 9, 12, 16, 24)
+                for energy in (True, False)]
+               + [(9, True, True, False), (16, False, True, False),
+                  (9, True, False, True), (16, True, True, True),
+                  (24, False, False, True)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("cap,energy", [(9, True), (9, False), (16, True)])
-def test_tiled_stencil_forces(dev, cap, energy):
-    system, maps, g, p, _ = _planes(dev, cap)
-    args = (p[0], p[3], p[4], p[5], g.interior, StencilConsts(system),
-            system.n, maps.strides, energy)
+@pytest.mark.parametrize("cap,energy,crowd,shuffle", TILED_CASES)
+def test_tiled_stencil_forces(dev, cap, energy, crowd, shuffle):
+    """K5 on the shared block body against its plain version (K5's own
+    formulas), two launches bitwise equal, on packed planes and on planes
+    whose rows are shuffled within each column (the body must be exact
+    for any plane)."""
+    system, maps, g, p, full, empty = _stencil_planes(dev, cap, crowd)
+    planes = (p[0], p[3], p[4], p[5])
+    if shuffle:
+        planes = chip_smoke.shuffle_rows(planes, seed=cap)
+        assert not torch.equal(planes[1], p[3])
+    args = planes + (g.interior, StencilConsts(system), system.n,
+                     maps.strides, energy)
     K.reset_launches()
-    fk, ek, ik = K.tiled_stencil_forces(*args)
-    fr, er, ir = R.tiled_stencil_forces(*args)
-    assert K.LAUNCHES["tiled_stencil_forces"] == 1
-    assert _close(fk, fr)
-    assert float((ek - er).abs().max()) <= 2e-2
-    assert torch.equal(ik, ir) and int(ik[0]) == 64 | 8
+    a = K.tiled_stencil_forces(*args)
+    b = K.tiled_stencil_forces(*args)
+    assert K.LAUNCHES["tiled_stencil_forces"] == 2
+    _check_stencil(a, b, R.tiled_stencil_forces(*args), g, empty, full)
 
 
 @pytest.mark.cuda
@@ -350,17 +366,60 @@ def test_langevin_kick_monitor_zero_group(dev, zero, group):
     assert _close(a[0], r[0]) and _close(a[1], r[1])
 
 
+# the plain version's forces and velocities without zero (x, y, z; float
+# hex of f32 values, computed on the CPU) at the slots of beads 0, 777 and
+# 1999, with and without the group of beads 1-1,800 (bead 1999 lies
+# outside it): the kernel gives them bit for bit, as it did before its
+# finishing pass moved into its last block
+NOZERO_PINS = {
+    False: {0: (("0x1.85e938p-1", "-0x1.e6bb3ap-2", "0x1.403720p-1"),
+                ("-0x1.597e12p+0", "-0x1.53f78ep-1", "-0x1.475e78p-4")),
+            777: (("-0x1.732d16p+0", "0x1.1ad288p+0", "-0x1.03d472p-2"),
+                  ("0x1.6c8162p+0", "0x1.68356ap-1", "-0x1.3493cep-3")),
+            1999: (("0x1.16d8f2p-1", "-0x1.475f4ep-3", "-0x1.d437c0p-9"),
+                   ("0x1.2c6c3ap-2", "0x1.a5ffa6p+0", "0x1.a009d8p-2"))},
+    True: {0: (("0x1.85e938p-1", "-0x1.e6bb3ap-2", "0x1.403720p-1"),
+               ("-0x1.597e12p+0", "-0x1.53f78ep-1", "-0x1.475e78p-4")),
+           777: (("-0x1.732d16p+0", "0x1.1ad288p+0", "-0x1.03d472p-2"),
+                 ("0x1.6c8162p+0", "0x1.68356ap-1", "-0x1.3493cep-3")),
+           1999: (("0x1.d7c016p-1", "-0x1.663a36p-5", "-0x1.69804ep-4"),
+                  ("0x1.2d9486p-2", "0x1.a6167cp+0", "0x1.9fc740p-2"))}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [False, True])
+def test_langevin_no_zero_is_pinned(dev, group):
+    """Without zero the kernel (one launch) is its plain version bit for
+    bit: every output equal, and the pinned values at three beads."""
+    system, maps, g, p, _ = _planes(dev)
+    lgm = _group_plane(system, maps, p, 0.9) if group else None
+    args = (p[0], p[0] + 0.01, p[1], p[2], p[3], g.interior, (7, 9), 33,
+            -0.1, 0.7, 0.003, 0.006, 9.0, 9.0, system.n, True, lgm, False)
+    gf, gv, ints = K.langevin_kick_monitor(*args)
+    r = R.langevin_kick_monitor(*args)
+    assert torch.equal(gf, r[0]) and torch.equal(gv, r[1])
+    assert ints.tolist() == r[2].tolist() == [0, 0]
+    P = p[3].shape[1]
+    for bead, (f_pin, v_pin) in NOZERO_PINS[group].items():
+        row, col = divmod(int(p[6][bead]), P)
+        assert [float(gf[k, row, col]) for k in range(3)] == [
+            float.fromhex(h) for h in f_pin]
+        assert [float(gv[k, row, col]) for k in range(3)] == [
+            float.fromhex(h) for h in v_pin]
+
+
 @pytest.mark.cuda
 def test_zero_group_phase(dev):
     """chip_smoke's path-5 kernel checks on small planes: the group's
-    random force sums to zero, slots outside it as with zero off."""
+    random force sums to zero, slots outside it as with zero off; the
+    step loop's graph nodes a step with zero on and off."""
     from lammps_le_torch.fixes import Langevin
     from lammps_le_torch.integrate import Simulation
 
     system, maps, g, p, _ = _planes(dev)
     fs = SimpleNamespace(gx=p[0], gx_ref=p[0] + 0.01, gv=p[1], gf=p[2],
                          bid=p[3], lgm=_group_plane(system, maps, p, 0.9),
-                         step=33)
+                         exl_slot=p[7], step=33)
     sim = Simulation(system=system, dt=0.006, ex_btype=2, fixes=(
         Langevin(1.0, 1.0, 10.0, zero=True, group="chain"),))
     chip_smoke.set_rates(chip_smoke.card_line())
@@ -457,28 +516,39 @@ def _same_run(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("run", ["le", "quiet"])
+@pytest.mark.parametrize("run", ["le", "quiet", "zero"])
 def test_step_loop_is_the_chain_bitwise(dev, run):
     """60 steps in K2's step loop on the card (graph replays) and on the
     eager chain from the same state: the same run bit for bit, in fewer
-    launches than steps; with every LE fix and energies every 4 steps,
-    and a quiet NVE + Langevin window with energies every 25."""
+    launches than steps; with every LE fix and energies every 4 steps, a
+    quiet NVE + Langevin window with energies every 25, and every LE fix
+    with fix langevin zero on the group of beads 1-1,800."""
     from lammps_le_torch.fast import make_fast_segment, to_fast
     from lammps_le_torch.fixes import NVE, Langevin
 
-    fixes, energy_every = ((chip_smoke.le_fixes(5, 7, 0.3), 4)
-                           if run == "le" else
-                           ((NVE(), Langevin(1.0, 1.0, 10.0, seed=3)), 25))
+    groups = None
+    if run == "le":
+        fixes, energy_every = chip_smoke.le_fixes(5, 7, 0.3), 4
+    elif run == "quiet":
+        fixes, energy_every = (NVE(), Langevin(1.0, 1.0, 10.0, seed=3)), 25
+    else:
+        fixes = chip_smoke.le_fixes(5, 7, 0.3, zero=True, group="chain")
+        energy_every = 4
+        member = np.zeros(2000, bool)
+        member[:1800] = True
+        groups = {"chain": member}
     sim, st = _warm_run(dev, fixes, energy_every)
     runs = {}
     for pallas in (False, "real"):
         segment, _ = make_fast_segment(sim, pallas=pallas, device=dev)
-        fs = to_fast(st, sim)
+        fs = to_fast(st, sim, groups=groups)
         b = fs.step
         segment(fs, b, 60, b, b + 60)
         runs[pallas] = fs
     _same_run(runs[False], runs["real"])
     assert runs[False].n_launches == 0 < runs["real"].n_launches < 60
+    if groups is not None:
+        assert torch.equal(runs[False].lgm, runs["real"].lgm)
 
 
 def _loop(dev, lan_seed=3):

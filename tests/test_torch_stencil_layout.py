@@ -194,3 +194,38 @@ def test_bound_pair_counts(n, cap):
     assert 0 < brute == sum(a for _, a in count(cutsq, False).values())
     links = int((valid & hn).sum())
     assert 0 < 2 * links == sum(a for _, a in count(0.0).values())
+
+
+def test_langevin_bound(monkeypatch):
+    """chip_smoke.langevin_bound's arithmetic on small planes: the bytes
+    the kernel streams (76 B a slot, 80 with the group plane, the
+    interior mask), ~46 f32 operations a slot (52 with zero), and
+    threefry's integer work at the int32 rate: three words of
+    THREEFRY_OPS (77) for each valid slot, or each group member with a
+    group, counted once."""
+    system, maps, _, planes = _placed(*GRIDS[0])
+    bid, n = planes[3], system.n
+    interior = torch.tensor(maps.interior)
+    cap, P = bid.shape
+    valid = R.valid_mask(bid, interior, n)
+    lgm = (bid < n // 2).to(torch.float32)
+    members = int((valid & (lgm > 0)).sum())
+    assert 0 < members < int(valid.sum())
+    assert chip_smoke.THREEFRY_OPS == 77 and chip_smoke.INT_LANES_SM == 64
+    rates = dict(f32=1e15, int32=1e9, mufu=1e15, div=10)
+    monkeypatch.setattr(chip_smoke, "RATES", rates)
+    ms, by = chip_smoke.langevin_bound(bid, interior, n)
+    assert by == "operations"
+    assert ms == pytest.approx(3 * 77 * int(valid.sum()) / 1e6, rel=1e-12)
+    ms, by = chip_smoke.langevin_bound(bid, interior, n, lgm, True)
+    assert ms == pytest.approx(3 * 77 * members / 1e6, rel=1e-12)
+    rates.update(f32=1e9, int32=1e15)
+    ms, by = chip_smoke.langevin_bound(bid, interior, n, lgm, True)
+    assert by == "operations"
+    assert ms == pytest.approx(cap * P * 52 / 1e6, rel=1e-12)
+    rates.update(f32=1e15)
+    for group, width in ((None, 76), (lgm, 80)):
+        ms, by = chip_smoke.langevin_bound(bid, interior, n, group)
+        assert by == "bytes"
+        assert ms == pytest.approx((cap * P * width + P) / chip_smoke.HBM_BPS
+                                   * 1e3, rel=1e-12)
