@@ -20,7 +20,14 @@ behind a sleep kernel), the largest difference of the first output
 (forces) from the package's own kernels, and whether every output was
 bitwise the package's in every round; first, per DIR, whether the SASS
 of K1's and K3/K4's block-body instances is the package's
-(``same_sass``).
+(``same_sass``).  Then K2's step loop on path 1's settled planes (as if
+just rebuilt): a launch of limit 16, which the trigger stops after d
+steps, and a launch of limit d (live steps only), through the step loop
+of the package and of each DIR's package (DIR/.. when it holds one,
+copied to build/ab and imported under another name, building its own
+libraries); per round and tree the device ms of one launch (its control
+kernel and graph, ``chip_smoke.loop_launch_ms``), and whether its planes
+are the package's bit for bit.
 
 ``steps``: path 1 (1,500 steps after a 40-step warm-up, the step loop in
 auto mode) and config 6 (600 steps after 20) from the same settled
@@ -91,14 +98,14 @@ def build_trees(dirs):
     return out
 
 
-def kernel_cases(dev):
+def kernel_cases(states, dev):
     """[(label, call)] of the kernels ``kernels`` times, each call through
     the package's wrapper (on whichever libraries kernels._LIBS holds)
     returning its output tensors: on path 1's settled 100k planes the
     stencils K1 and K5 and the Langevin kernel without zero and group and
     with zero over path 5's group (beads 1-90,000); on config 6's K3 and
     the Langevin kernel without zero.  Stencils without energies (a
-    production step's form)."""
+    production step's form).  ``states``: ``settled``'s."""
     import numpy as np
     import torch
 
@@ -109,7 +116,7 @@ def kernel_cases(dev):
     from lammps_le_torch.fast.place import GridConsts
 
     cases = []
-    for size, (sim, state) in zip(("100k", "config 6"), settled(dev)):
+    for size, (sim, state) in zip(("100k", "config 6"), states):
         system = sim.system
         maps = fast_maps(system)
         g = GridConsts.build(system, maps, dev)
@@ -177,6 +184,106 @@ def same_sass(libs_a, libs_b):
     return out
 
 
+class _Replay:
+    """A step loop from before the conditional graph (one graph a limit)
+    behind ``StepLoop.launch``."""
+
+    def __init__(self, loop):
+        self.loop, self.buf, self.held = loop, loop.buf, loop.held
+
+    def launch(self, sstep, do_drift, key_words, t0, t_slope, limit):
+        self.loop._begin(sstep, key_words, limit, do_drift, t0, t_slope)
+        self.loop.graphs[limit].replay()
+
+
+def loop_packages(dirs):
+    """[(tree index, package)] of the trees whose step loop ``kernels``
+    times: the package for tree 0, and for each other DIR whose parent is
+    a package (DIR/../fast/kernels.py), that package copied to build/ab
+    and imported as lammps_le_torch_tree<i>."""
+    import lammps_le_torch
+
+    out = [(0, lammps_le_torch)]
+    for i, d in enumerate(dirs[1:], 1):
+        src = Path(d).resolve().parent
+        if not (src / "fast" / "kernels.py").exists():
+            print(f"{d}: no package around it, no step-loop cases",
+                  flush=True)
+            continue
+        name = f"lammps_le_torch_tree{i}"
+        shutil.rmtree(AB_DIR / name, ignore_errors=True)
+        shutil.copytree(src, AB_DIR / name, ignore=shutil.ignore_patterns(
+            "build", "__pycache__"))
+        if str(AB_DIR) not in sys.path:
+            sys.path.insert(0, str(AB_DIR))
+        out.append((i, importlib.import_module(name)))
+    return out
+
+
+def loop_runs(pkgs, sim, state, dev):
+    """{tree: (launcher, the (gx, gv, gf) planes, head)} of each package's
+    step loop on path 1's settled state as if just rebuilt, staged and
+    built by one call of limit 16 (its host time printed: the loop's
+    set-up, its graphs' captures among it), and d: the steps the trigger
+    let that launch run."""
+    import torch
+
+    from lammps_le_torch.fast.engine import to_fast
+    from lammps_le_torch.fixes import Langevin
+
+    fs = to_fast(state, sim)
+    lf = next(f for f in sim.fixes if isinstance(f, Langevin))
+    args = (fs.gx, fs.gv, fs.gf, fs.gx, fs.bid, fs.hn, fs.pid, fs.exl_slot,
+            fs.exr_slot, fs.ex_left >= 0, fs.lgm)
+    head = (fs.step + 1, True, (123456789, 987654321), 1.0, 0.0)
+    runs, steps = {}, set()
+    for t, pkg in pkgs:
+        maps_mod = importlib.import_module(pkg.__name__ + ".fast.maps")
+        place = importlib.import_module(pkg.__name__ + ".fast.place")
+        ps = importlib.import_module(pkg.__name__ + ".fast.pallas_step")
+        maps = maps_mod.fast_maps(sim.system)
+        g = place.GridConsts.build(sim.system, maps, dev)
+        real = ps.make_step_kernel(sim.system, maps, sim.ex_btype,
+                                   dt=sim.dt, langevin=lf, g=g)
+        # the package's libraries built (and loaded) outside the timing
+        importlib.import_module(pkg.__name__ + ".fast.kernels")._lib()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps.add(int(real(*args, *head, 16)[3][7]))
+        print(f"K2 loop tree {t}: first launch, set-up included, "
+              f"{1e3 * (time.perf_counter() - t0):.2f} ms", flush=True)
+        loop = real.loop
+        runs[t] = (loop if hasattr(loop, "launch") else _Replay(loop),
+                   (fs.gx, fs.gv, fs.gf), head)
+    if len(steps) != 1:
+        raise RuntimeError(f"the trees' 16-step launches ran {steps} steps")
+    return runs, steps.pop()
+
+
+def time_loops(runs, d, rounds):
+    """The step-loop cases: per tree, limit (16, d), the device ms of a
+    launch over the rounds (trees alternating), and whether every
+    launch's planes were tree 0's."""
+    import torch
+
+    times = {(t, lim): [] for t in runs for lim in (16, d)}
+    same = {key: True for key in times}
+    ref = {}
+    for r in range(rounds):
+        order = list(runs) if r % 2 == 0 else list(reversed(runs))
+        for t in order:
+            loop, planes, head = runs[t]
+            for lim in ((16, d) if r % 2 == 0 else (d, 16)):
+                times[(t, lim)].append(chip_smoke.loop_launch_ms(
+                    loop, planes, head, lim))
+                out = [loop.buf[k].clone() for k in ("gx", "gv", "gf")]
+                if t == min(runs):
+                    ref.setdefault(lim, out)
+                same[(t, lim)] &= (lim in ref and all(
+                    torch.equal(a, b) for a, b in zip(out, ref[lim])))
+    return times, same
+
+
 def kernels(args, dev):
     import torch
 
@@ -188,7 +295,8 @@ def kernels(args, dev):
     for d, paths in zip(dirs[1:], built[1:]):
         print(f"{d}: stencil instances with the package's SASS: "
               f"{same_sass(built[0], paths)}", flush=True)
-    cases = kernel_cases(dev)
+    states = settled(dev)
+    cases = kernel_cases(states, dev)
     K._LIBS = trees[0]
     K._LAN_SCRATCH.clear()
     ref = [fn() for _, fn in cases]
@@ -230,6 +338,26 @@ def kernels(args, dev):
                   f"{hi:.4f} over {args.rounds} rounds); max|out0 - "
                   f"out0_pkg| {diffs[t][c]:.3g}, every output equal to the "
                   f"package's {same[t][c]}", flush=True)
+    # K2's step loop: the package's on tree 0's libraries, the others'
+    # on their own
+    K._LIBS = trees[0]
+    K._LAN_SCRATCH.clear()
+    runs, d = loop_runs(loop_packages(dirs), *states[0], dev)
+    times, same_loop = time_loops(runs, d, args.rounds)
+    K._LIBS = None
+    for lim, label in ((16, f"stopped after {d} steps"),
+                       (d, "live steps only")):
+        for t in runs:
+            m, lo, hi = quartiles(times[(t, lim)])
+            print(f"K2 loop limit {lim} ({label}) 100k {dirs[t]}: device "
+                  f"{m:.4f} ms a launch (IQR {lo:.4f}-{hi:.4f} over "
+                  f"{args.rounds} rounds); planes equal to the package's "
+                  f"{same_loop[(t, lim)]}", flush=True)
+    for t in runs:
+        ratio = (quartiles(times[(t, 16)])[0]
+                 / quartiles(times[(t, d)])[0])
+        print(f"K2 loop {dirs[t]}: limit 16 / limit {d} {ratio:.4f}",
+              flush=True)
 
 
 def port_sim(sim, pkg):

@@ -11,9 +11,10 @@ user entry points:
    thermalized, settled with 500 seeded extruders, then 1,500 measured
    production steps with extrusion, ex_load and ex_unload, on the full
    27-offset stencil in K2's step loop (``make_fast_segment``'s auto mode:
-   launches of up to 16 steps, one CUDA graph replay and one host read
-   each), then the same window from the same settled state on the chain
-   (one host-driven step a launch), which it must repeat;
+   launches of up to 16 steps, one launch of one conditional CUDA graph
+   and one host read each), then the same window from the same settled
+   state on the chain (one host-driven step a launch), which it must
+   repeat;
 2. config 6 (benchmarks/configs.py:269-362): a 1,000,000-bead chromosome
    past the whole-plane gate, where the engine takes the Newton-half
    stencil, with 5,000 seeded extruders and 600 measured steps;
@@ -27,7 +28,8 @@ user entry points:
 After each it holds that path's hand-written CUDA kernels against their
 plain PyTorch versions at the shapes the run gave them and times both
 (one record per path and kernel, K2's step loop against its plain loop
-among them; paths 3, 4 and 5 record their stencil or their Langevin
+among them, with its launch stopped by the trigger against the launch
+of its steps and its graph's nodes a step; paths 3, 4 and 5 record their stencil or their Langevin
 kernel, the other kernels having run at path 1's shapes),
 and the stencils of paths 3 and 4 against the full stencil on the same
 planes; it repeats paths 3 and 4 with every stencil call held against
@@ -833,17 +835,19 @@ def kernel_phases(fs, sim, g):
 def loop_line(label, loops, wall, segment=None):
     """Print a step-loop window's launches a step and steps a launch (the
     chain's: one host-driven step a launch), and with ``segment`` its
-    graphs (one a limit; their kernels allocate nothing, so the graphs'
-    pool holds no tensor) and static planes."""
+    graph (one conditional graph; its kernels allocate nothing) and its
+    static planes."""
     import torch
 
     extra = ""
     if segment is not None:
         loop = segment.loop
-        extra = (f"; graphs captured for limits {sorted(loop.graphs)}, "
-                 f"static planes and buffers {loop.nbytes()} B; device "
-                 f"memory allocated {torch.cuda.memory_allocated()} B, "
-                 f"reserved {torch.cuda.memory_reserved()} B")
+        kern, nodes = loop.body_nodes()
+        extra = (f"; one conditional graph, its body {kern} kernel nodes of "
+                 f"{nodes}; static planes and buffers {loop.nbytes()} B; "
+                 f"device memory allocated "
+                 f"{torch.cuda.memory_allocated()} B, reserved "
+                 f"{torch.cuda.memory_reserved()} B")
     print(f"{label}: {loops} step-loop launches in {MEASURE} steps, "
           f"{loops / MEASURE:.4f} a step, {MEASURE / max(loops, 1):.2f} "
           f"steps a launch; {MEASURE / wall:.2f} steps/s ({card_line()})"
@@ -885,14 +889,53 @@ def chain_witness(fs, fs_c, system, rebuilds, rebuilds_c, wall, wall_c,
              f"max|dx| {dx}")
 
 
+def loop_launch_ms(loop, planes, head, limit, reps=20):
+    """Device ms of one launch of the step loop ``loop`` (its control
+    kernel and its graph, ``loop.launch(*head, limit)``) from the (gx, gv,
+    gf) ``planes`` each time: the planes copied into the loop's static
+    planes before each launch, outside its pair of CUDA events, every
+    launch queued behind a sleep kernel so that the events see device
+    time only.  The loop's other planes are those its last call staged;
+    its next call stages gx, gv and gf anew."""
+    import torch
+
+    def restore():
+        for k, t in zip(("gx", "gv", "gf"), planes):
+            loop.buf[k].copy_(t)
+
+    for _ in range(2):
+        restore()
+        loop.launch(*head, limit)
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    # ~20 ms, past the host's time to queue the launches
+    torch.cuda._sleep(40_000_000)
+    for a, b in pairs:
+        restore()
+        a.record()
+        loop.launch(*head, limit)
+        b.record()
+    torch.cuda.synchronize()
+    for k in ("gx", "gv", "gf"):
+        loop.held.pop(k, None)
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
 def step_loop_phase(fs, sim, g, phases):
     """K2's step loop (``make_step_kernel``) on the card against its plain
     loop on the planes of the run that left ``fs``, as if just rebuilt
     (gx_ref = gx): one step (x bitwise, f and v within 3e-5 max|f|, the
     stats rows 2-7 equal) and a whole launch of LAUNCH_MAX steps (stats
-    rows 2-7 equal, x within 1e-3).  Times a launch; its bound is the sum
-    of its steps' kernel bounds (``phases``: path 1's records; the stencil
-    without energies).  Returns its record (no launch count)."""
+    rows 2-7 equal, x within 1e-3).  That launch must stop at the trigger
+    after d < LAUNCH_MAX steps, and equal a launch of limit d from the
+    same state (planes bitwise, stats rows equal), each in d iterations of
+    the graph's conditional node, and take within 1.05x its device time
+    (``loop_launch_ms``, three alternating rounds, medians).  The graph's
+    body must hold 5 kernel nodes with zero off and 6 with zero on.
+    Times a launch; its bound is the sum of its steps' kernel bounds
+    (``phases``: path 1's records; the stencil without energies).
+    Returns its record (no launch count)."""
     import torch
 
     from lammps_le_torch.fast.consts import StencilConsts
@@ -909,16 +952,18 @@ def step_loop_phase(fs, sim, g, phases):
     args = (fs.gx, fs.gv, fs.gf, fs.gx, fs.bid, fs.hn, fs.pid, fs.exl_slot,
             fs.exr_slot, fs.ex_left >= 0, fs.lgm)
     key = (123456789, 987654321)
+    head = (fs.step + 1, True, key, 1.0, 0.0)
 
     def call(f, limit):
-        return f(*args, fs.step + 1, True, key, 1.0, 0.0, limit)
+        return f(*args, *head, limit)
 
     (x1, v1, f1, s1), (xp, vp, fp, sp) = call(real, 1), call(plain, 1)
     fmax = float(fp.abs().max())
     err = max(float((f1 - fp).abs().max()), float((v1 - vp).abs().max()))
-    x16, _, _, s16 = call(real, LAUNCH_MAX)
+    *p16, s16 = call(real, LAUNCH_MAX)
+    it16 = real.loop.iterations
     xp16, _, _, sp16 = call(plain, LAUNCH_MAX)
-    dx = float((x16 - xp16).abs().max())
+    dx = float((p16[0] - xp16).abs().max())
     print(f"step_loop on the 100k planes: one step max|df|, |dv| {err:.3g} "
           f"(tol {F_REL * max(fmax, 1.0):.3g}), x bitwise "
           f"{torch.equal(x1, xp)}, stats {s1.tolist()} vs plain "
@@ -930,6 +975,40 @@ def step_loop_phase(fs, sim, g, phases):
             or not torch.equal(s16[2:], sp16[2:]) or not dx <= 1e-3):
         fail("step_loop differs from its plain loop")
     steps = int(s16[7])
+    if not steps < LAUNCH_MAX:
+        fail(f"the trigger did not stop a {LAUNCH_MAX}-step launch on path "
+             f"1's planes")
+    *p_d, s_d = call(real, steps)
+    it_d = real.loop.iterations
+    same = all(torch.equal(a, b) for a, b in zip(p16, p_d))
+    t16, t_d = [], []
+    for r in range(3):
+        for limit in ((LAUNCH_MAX, steps) if r % 2 == 0
+                      else (steps, LAUNCH_MAX)):
+            (t16 if limit == LAUNCH_MAX else t_d).append(loop_launch_ms(
+                real.loop, (fs.gx, fs.gv, fs.gf), head, limit))
+    ratio = float(np.median(t16) / np.median(t_d))
+    (k_on, all_on), (k_off, all_off) = (step_graph_nodes(sim, g, fs, z)
+                                        for z in (True, False))
+    print(f"step_loop ends at the trigger ({card_line()}): a {LAUNCH_MAX}-"
+          f"step launch stopped after {steps} steps in {it16} loop "
+          f"iterations, a {steps}-step launch in {it_d}; planes bitwise "
+          f"{same}, stats equal {torch.equal(s16, s_d)}; device ms a launch "
+          f"(control kernel + graph, by events) {np.median(t16):.4f} "
+          f"against {np.median(t_d):.4f}: ratio {ratio:.4f} (tol 1.05; "
+          f"rounds {[round(t, 4) for t in t16]} and "
+          f"{[round(t, 4) for t in t_d]}); one step's graph body: {k_on} "
+          f"kernel nodes with zero on ({all_on} nodes), {k_off} with zero "
+          f"off ({all_off})", flush=True)
+    if not same or not torch.equal(s16, s_d) or it16 != steps or it_d != steps:
+        fail("a step-loop launch stopped by the trigger differs from the "
+             "launch of its steps, or ran another count of iterations")
+    if not ratio <= 1.05:
+        fail(f"a stopped {LAUNCH_MAX}-step launch takes {ratio:.4f}x the "
+             f"device time of a {steps}-step launch")
+    if (k_on, k_off) != (6, 5):
+        fail(f"the step loop's body holds {k_on} kernel nodes with zero on "
+             f"and {k_off} with it off, want 6 and 5")
     parts = [stencil_bound("stencil_forces", fs, g, maps,
                            StencilConsts(system), system.n, False)]
     parts += [phases[k]["bound"] for k in ("kick_drift_halo",
@@ -940,8 +1019,10 @@ def step_loop_phase(fs, sim, g, phases):
     return dict(
         replaces="lammps_le_tpu/fast/pallas_step.py:554", max_abs_err=err,
         tol=f"one step {F_REL}*max|f|={F_REL * max(fmax, 1.0):.3g}, x "
-        f"bitwise; {LAUNCH_MAX} steps x 1e-3; stats rows 2-7 equal",
-        steps=steps,
+        f"bitwise; {LAUNCH_MAX} steps x 1e-3; stats rows 2-7 equal; "
+        f"stopped launch bitwise the launch of its steps, within 1.05x its "
+        f"device time",
+        steps=steps, ratio=ratio,
         # the launch's steps, each its kernels' bounds
         bound=(steps * sum(t for t, _ in parts), by),
         t=timings(lambda: call(real, LAUNCH_MAX), 20),
@@ -1282,14 +1363,9 @@ def tiled_phase(fs, sim, g):
 def step_graph_nodes(sim, g, fs, zero):
     """(kernel nodes, all nodes) of one step of K2's step loop for ``sim``
     on the planes of ``fs``, its Langevin fix's ``zero`` set as given: the
-    loop's kernels loaded by a launch of limit 0 (every kernel returns at
-    once), then one controlled step captured into a CUDA graph whose
-    cudaGraph_t is kept, and its nodes read with the driver's
-    cuGraphGetNodes and cuGraphNodeGetType (kernel nodes are type 0)."""
-    import ctypes
-
-    import torch
-
+    body of the loop's conditional graph, built as at its first launch,
+    its nodes read by the library from its own graph (cudaGraphGetNodes,
+    cudaGraphNodeGetType)."""
     from lammps_le_torch.fast.maps import fast_maps
     from lammps_le_torch.fast.pallas_step import make_step_kernel
     from lammps_le_torch.fixes import Langevin
@@ -1299,27 +1375,8 @@ def step_graph_nodes(sim, g, fs, zero):
                             dt=sim.dt, langevin=dataclasses.replace(
                                 lf, zero=zero), g=g).loop
     loop._alloc(fs.gx, fs.exl_slot, fs.lgm)
-    loop._begin(0, (0, 0), 0, True, 0.0, 0.0)
-    loop._steps(1, False)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-        loop._steps(1, False)
-    cu = ctypes.CDLL("libcuda.so.1")
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    count = ctypes.c_size_t(0)
-    if cu.cuGraphGetNodes(handle, None, ctypes.byref(count)):
-        fail("cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * count.value)()
-    if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)):
-        fail("cuGraphGetNodes failed")
-    kinds = []
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
-            fail("cuGraphNodeGetType failed")
-        kinds.append(kind.value)
-    return kinds.count(0), len(kinds)
+    loop._build()
+    return loop.body_nodes()
 
 
 def zero_group_phase(fs, sim, g):
@@ -1330,8 +1387,7 @@ def zero_group_phase(fs, sim, g):
     force alone (v, f, gamma1 and the kick 0) summed over the group per
     component within f32 round-off of 0; the forces and velocities of
     every slot outside the group bitwise those of the zero-off call.
-    Prints the kernel nodes of one step of the step loop's graphs with
-    zero on and off.  Returns its record (no launch count), with the times
+    Returns its record (no launch count), with the times
     of the call without zero, with and without the group, on the same
     planes."""
     import torch
@@ -1392,12 +1448,6 @@ def zero_group_phase(fs, sim, g):
              f"{sum_tol}")
     if not same:
         fail("zero changed forces or velocities outside the group")
-    (k_on, all_on), (k_off, all_off) = (step_graph_nodes(sim, g, fs, z)
-                                        for z in (True, False))
-    print(f"K2's step loop on the path-5 planes, one step's graph: "
-          f"{k_on} kernel nodes with zero on ({all_on} nodes), {k_off} "
-          f"with zero off ({all_off}): zero adds {k_on - k_off}",
-          flush=True)
     return dict(
         replaces="lammps_le_tpu/fast/pallas_step.py:932", max_abs_err=err,
         tol=f"{F_REL}*max|f|={tol:.3g}; bitwise run to run; group sum of "
@@ -1838,6 +1888,16 @@ def main(argv=None):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     set_rates(card)
     recs = []
+    if args.profile:
+        # CUPTI traces each iteration of a conditional graph node only in
+        # graphs instantiated after its first session (a first session
+        # saw one step-loop step of each launch): one session before any
+        # graph exists
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.zeros(1, device=dev).add_(1)
+            torch.cuda.synchronize()
 
     # the 100k path: full 27-offset stencil, within the whole-plane gate
     data, system = production_config(BEADS)

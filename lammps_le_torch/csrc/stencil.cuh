@@ -56,7 +56,7 @@
 // differ from them by a few ulp.  The sums are taken in a fixed order,
 // so a launch repeats itself bit for bit.  Tallies reduce per block, in
 // a fixed grid sized from the period alone (not from the occupancy), as
-// K2's captured graphs need.
+// K2's captured graph needs.
 //
 // The shape (32 columns, 160 threads, three pencils at a time, one pair
 // chain a thread) is the fastest of those chip_ab.py's kernels mode
@@ -107,7 +107,7 @@ inline int stencil_blocks(int period, int nwin) {
 
 // let kernel K take `bytes` of dynamic shared memory: past the default
 // 48 KB (caps above 14) its limit is raised, once for the largest size
-// asked (the step loop's first launch runs outside its graph captures)
+// asked (the step loop's first launch runs outside its graph's capture)
 template <auto K>
 cudaError_t allow_smem(int bytes) {
   static int allowed = 48 * 1024;

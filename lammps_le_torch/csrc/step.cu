@@ -19,19 +19,29 @@
 // as jnp.round / torch.round).
 //
 // K2's step loop (pallas_step.py:1002-1022) is the kernels' launch-
-// controlled form: each takes a LaunchCtl in device memory and its step
-// index s inside the launch, and returns at once when the launch stopped
-// (the reactive skin trigger fired) or s >= limit.  The host writes a
-// launch's controls with launch_begin_kernel, runs the LAUNCH_MAX steps'
-// kernels (one CUDA graph replay), and reads the control block once.  The
-// finishing passes (the stencil's fold kernel, the Langevin pass's last
-// block) fold each step's flags, clamps and trigger into the block in a
-// fixed order, with no float atomics.  A null LaunchCtl is the
-// one-step chain: the arguments' own key, counter base and gamma2.
+// controlled form: each takes a LaunchCtl in device memory, whose
+// steps_done is its step index s inside the launch (only the step's last
+// kernel advances it), and returns at once when the launch stopped (the
+// reactive skin trigger fired) or s >= limit.  The host writes a
+// launch's controls with launch_begin_kernel, launches one CUDA graph
+// whose WHILE conditional node runs one controlled step an iteration
+// (StepGraph: the reference's while_loop, whose condition is (s < limit)
+// & (stopped == 0)), and reads the control block once.  The finishing
+// passes (the stencil's fold kernel, the Langevin pass's last block)
+// fold each step's flags, clamps and trigger into the block in a fixed
+// order, with no float atomics, and the Langevin pass's last block sets
+// the loop's condition.  A null LaunchCtl is the one-step chain: the
+// arguments' own key, counter base and gamma2.
 
 #include <cstddef>
+#include <vector>
 
 #include "stencil.cuh"
+
+#if CUDART_VERSION < 12030
+// conditional graph nodes and cudaStreamBeginCaptureToGraph (K2's loop)
+#error "step.cu needs CUDA 12.3 or later"
+#endif
 
 // kernel arguments, passed by value (mirrored by the ctypes Structures of
 // lammps_le_torch/fast/kernels.py); at file scope so the C entry points
@@ -64,7 +74,8 @@ struct LaunchCtl {
   int limit, do_drift, stopped, steps_done;
   int clamps, reach, skin, trig;
   float t0, t_slope;  // thermostat target at step 0 and its slope a step
-  int pad[3];
+  int iters;  // the launch's loop iterations (each must run a step)
+  int pad[2];
   float stats[8];
 };
 static_assert(sizeof(LaunchCtl) == 24 * 4, "LaunchCtl is 24 words");
@@ -94,15 +105,23 @@ struct StepPlanes {
 
 namespace {
 
-// step s of a controlled launch does not run
-__device__ __forceinline__ bool step_off(const LaunchCtl* ctl, int s) {
-  return ctl != nullptr && (ctl->stopped || s >= ctl->limit);
+// the step index s of a controlled launch: the steps it has done, which
+// only the step's last kernel (langevin_finish) advances, so that every
+// kernel of a step reads the same s; 0 for the chain
+__device__ __forceinline__ int step_of(const LaunchCtl* ctl) {
+  return ctl != nullptr ? ctl->steps_done : 0;
+}
+
+// the step due in a controlled launch does not run
+__device__ __forceinline__ bool step_off(const LaunchCtl* ctl) {
+  return ctl != nullptr && (ctl->stopped || ctl->steps_done >= ctl->limit);
 }
 
 // nor does its kick + drift + halo on an event launch's first step (the
 // host integrated it before the events, pallas_step.py:686-690)
-__device__ __forceinline__ bool drift_off(const LaunchCtl* ctl, int s) {
-  return step_off(ctl, s) || (ctl != nullptr && s == 0 && !ctl->do_drift);
+__device__ __forceinline__ bool drift_off(const LaunchCtl* ctl) {
+  return step_off(ctl) ||
+         (ctl != nullptr && ctl->steps_done == 0 && !ctl->do_drift);
 }
 
 __global__ void launch_begin_kernel(LaunchCtl* ctl, unsigned int sstep0,
@@ -137,10 +156,10 @@ __global__ void kick_drift_kernel(const float* gx, const float* gv,
                                   const uint8_t* __restrict__ interior,
                                   float* gx_out, float* gv_out, int cap,
                                   int P, int n, float kick, float dt,
-                                  const LaunchCtl* ctl, int s) {
+                                  const LaunchCtl* ctl) {
   const long capP = (long)cap * P;
   const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= capP || drift_off(ctl, s)) return;
+  if (t >= capP || drift_off(ctl)) return;
   const int c = (int)(t % P);
   const float vf = (interior[c] && bid[t] < n) ? 1.f : 0.f;
   for (int k = 0; k < 3; ++k) {
@@ -153,11 +172,10 @@ __global__ void kick_drift_kernel(const float* gx, const float* gv,
 
 __global__ void halo_kernel(float* __restrict__ gx, const int* halo_cols,
                             const int* halo_src, const float* halo_shift,
-                            int H, int cap, int P, const LaunchCtl* ctl,
-                            int s) {
+                            int H, int cap, int P, const LaunchCtl* ctl) {
   const long capP = (long)cap * P;
   const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long)H * cap || drift_off(ctl, s)) return;
+  if (t >= (long)H * cap || drift_off(ctl)) return;
   const int r = (int)(t / H), h = (int)(t % H);
   const long dst = (long)r * P + halo_cols[h];
   const long src = (long)r * P + halo_src[h];
@@ -182,8 +200,8 @@ __global__ void __launch_bounds__(kTileThreads)
                    const uint8_t* __restrict__ interior,
                    float* __restrict__ gf, float* __restrict__ fpart,
                    int* __restrict__ ipart, StencilArgs a,
-                   const LaunchCtl* ctl, int s) {
-  if (step_off(ctl, s)) return;
+                   const LaunchCtl* ctl) {
+  if (step_off(ctl)) return;
   stencil_tile<kFull, APPROX>(gx, bid, hn, pid, interior, gf, nullptr, fpart,
                               ipart, a, a.P);
 }
@@ -191,55 +209,36 @@ __global__ void __launch_bounds__(kTileThreads)
 cudaError_t stencil_launch(const float* gx, const int* bid, const uint8_t* hn,
                            const int* pid, const uint8_t* interior, float* gf,
                            float* fpart, int* ipart, const StencilArgs& a,
-                           const LaunchCtl* ctl, int step, cudaStream_t s) {
+                           const LaunchCtl* ctl, cudaStream_t s) {
   return launch_stencil<stencil_kernel<true>, stencil_kernel<false>>(
       a, false, stencil_grid(a.P, 1), s, gx, bid, hn, pid, interior, gf,
-      fpart, ipart, a, ctl, step);
-}
-
-// the controlled launch's stencil finishing pass: the step's clamp events
-// (halved) and reach bit folded into the control block, the unhalved
-// energies and the link count into its stats rows
-__global__ void stencil_fold_kernel(const float* __restrict__ fpart,
-                                    const int* __restrict__ ipart,
-                                    int nblocks, int energy, LaunchCtl* ctl,
-                                    int s) {
-  __shared__ float shf[32];
-  __shared__ int shi[32];
-  if (step_off(ctl, s)) return;
-  const StencilSums t = reduce_tallies(fpart, ipart, nblocks, shf, shi);
-  if (threadIdx.x == 0) {
-    ctl->clamps += t.ncl / 2;
-    ctl->reach |= reach_bad(t) ? 1 : 0;
-    if (energy) {
-      ctl->stats[0] = t.e_lj;
-      ctl->stats[1] = t.e_b;
-    }
-    ctl->stats[4] = (float)t.nlink;
-  }
+      fpart, ipart, a, ctl);
 }
 
 // ---------------------------------------------------------------------
 // extruder_springs <- pallas_step.py:776-930 (K2c), the math of
 // engine.make_extruder_pass (engine.py:857-897)
 //
-// Bound: launch latency — at most 1024 springs, 12 scattered loads and 6
+// Bound: launch latency — at most 8,192 springs, 12 scattered loads and 6
 // atomic adds each.  Design: one thread per extruder slot gathers both
 // anchors, takes the minimum image and adds +-force to the anchors'
-// slots.  A bead carries at most one anchor (state.py:130-133), so the
-// targets are unique and the atomics never contend; they only make a
-// broken invariant safe.  Replaces the TPU one-hot-matmul block tables.
+// slots (spring_slot).  A bead carries at most one anchor
+// (state.py:130-133), so the targets are unique and the atomics never
+// contend; they only make a broken invariant safe, and each target's sum
+// is its one add in any order.  Replaces the TPU one-hot-matmul block
+// tables.  The chain launches springs_kernel; the step loop runs the
+// same slots in the blocks after the first of the stencil's fold launch
+// (fold_springs_kernel), which reads the stencil's finished output as
+// they do, so that the springs are no node of their own.
 
-
-__global__ void springs_kernel(const float* __restrict__ gx,
-                               float* __restrict__ gf,
-                               const int* __restrict__ exl,
-                               const int* __restrict__ exr,
-                               const uint8_t* __restrict__ active,
-                               float* __restrict__ eb_out, SpringArgs a,
-                               const LaunchCtl* ctl, int s) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= a.E || step_off(ctl, s)) return;
+__device__ __forceinline__ void spring_slot(const float* __restrict__ gx,
+                                            float* __restrict__ gf,
+                                            const int* __restrict__ exl,
+                                            const int* __restrict__ exr,
+                                            const uint8_t* __restrict__ active,
+                                            float* __restrict__ eb_out,
+                                            const SpringArgs& a, int e) {
+  if (e >= a.E) return;
   const long capP = (long)a.cap * a.P;
   const long sl = exl[e], sr = exr[e];
   if (!active[e] || sl < 0 || sl >= capP || sr < 0 || sr >= capP) {
@@ -275,6 +274,52 @@ __global__ void springs_kernel(const float* __restrict__ gx,
     atomicAdd(gf + k * capP + sr, -fk);
   }
   eb_out[e] = eb;
+}
+
+__global__ void springs_kernel(const float* __restrict__ gx,
+                               float* __restrict__ gf,
+                               const int* __restrict__ exl,
+                               const int* __restrict__ exr,
+                               const uint8_t* __restrict__ active,
+                               float* __restrict__ eb_out, SpringArgs a) {
+  spring_slot(gx, gf, exl, exr, active, eb_out, a,
+              blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+// the controlled step's stencil finishing pass and springs, one launch
+// of 1 + blocks_for(E) blocks.  Block 0 folds the step's clamp events
+// (halved) and reach bit into the control block and the unhalved
+// energies and the link count into its stats rows, and counts the
+// launch's loop iteration; blocks 1.. run one extruder slot a thread
+__global__ void fold_springs_kernel(const float* __restrict__ fpart,
+                                    const int* __restrict__ ipart,
+                                    int nblocks, int energy,
+                                    const float* __restrict__ gx,
+                                    float* __restrict__ gf,
+                                    const int* __restrict__ exl,
+                                    const int* __restrict__ exr,
+                                    const uint8_t* __restrict__ active,
+                                    float* __restrict__ eb, SpringArgs pa,
+                                    LaunchCtl* ctl) {
+  __shared__ float shf[32];
+  __shared__ int shi[32];
+  if (blockIdx.x == 0 && threadIdx.x == 0) ctl->iters += 1;
+  if (step_off(ctl)) return;
+  if (blockIdx.x > 0) {
+    spring_slot(gx, gf, exl, exr, active, eb, pa,
+                (blockIdx.x - 1) * blockDim.x + threadIdx.x);
+    return;
+  }
+  const StencilSums t = reduce_tallies(fpart, ipart, nblocks, shf, shi);
+  if (threadIdx.x == 0) {
+    ctl->clamps += t.ncl / 2;
+    ctl->reach |= reach_bad(t) ? 1 : 0;
+    if (energy) {
+      ctl->stats[0] = t.e_lj;
+      ctl->stats[1] = t.e_b;
+    }
+    ctl->stats[4] = (float)t.nlink;
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -346,11 +391,11 @@ __device__ unsigned int threefry_x0(unsigned int k0, unsigned int k1,
 
 // a controlled step's key, threefry counter base (sstep0 + s) * 4 and
 // gamma2 = g2base * sqrt(t0 + t_slope * s) (pallas_step.py:933-937; the
-// argument block then carries g2base in gamma2)
+// argument block then carries g2base in gamma2), s = step_of(ctl)
 __device__ __forceinline__ LangevinArgs step_args(LangevinArgs a,
-                                                  const LaunchCtl* ctl,
-                                                  int s) {
+                                                  const LaunchCtl* ctl) {
   if (ctl != nullptr) {
+    const int s = ctl->steps_done;
     a.k0 = ctl->k0;
     a.k1 = ctl->k1;
     a.base = (ctl->sstep0 + (unsigned int)s) * 4u;
@@ -396,10 +441,10 @@ __global__ void __launch_bounds__(kSumThreads)
     langevin_sum_kernel(const int* __restrict__ bid,
                         const uint8_t* __restrict__ interior,
                         const float* __restrict__ lgm, float* zpart,
-                        LangevinArgs a0, const LaunchCtl* ctl, int step) {
+                        LangevinArgs a0, const LaunchCtl* ctl) {
   __shared__ float sh[32];
-  if (step_off(ctl, step)) return;
-  const LangevinArgs a = step_args(a0, ctl, step);
+  if (step_off(ctl)) return;
+  const LangevinArgs a = step_args(a0, ctl);
   const int capP = a.cap * a.P;
   const int t0 = blockIdx.x * kSumThreads * kSumSlots + threadIdx.x;
   // a thread's slots t0 + j * kSumThreads: every load first, then the
@@ -457,14 +502,18 @@ __global__ void __launch_bounds__(kSumThreads)
 
 // the launch's last block: the global top-2 from the block pairs: M =
 // max m1_b, and the largest value != M is m1_b where m1_b != M, else m2_b
-// (engine.py:1311-1312).  A controlled step folds its skin bit and
+// (engine.py:1311-1312).  A controlled step s folds its skin bit and
 // trigger into the control block (the trigger stops the launch:
-// pallas_step.py:993-1004) and writes the stats rows after it; the
-// chain's step writes [flag bits, trigger]
+// pallas_step.py:993-1004), advances steps_done to s + 1, writes the
+// stats rows after it and, in the step loop's graph (cond not 0), sets
+// the loop's condition: another step while !stopped && s + 1 < limit
+// (pallas_step.py:1002-1004).  The chain's step writes [flag bits,
+// trigger]
 __device__ void langevin_finish(const float* part, int nblocks,
                                 const LangevinArgs& a,
                                 long long* __restrict__ out, LaunchCtl* ctl,
-                                int s, float* sh) {
+                                cudaGraphConditionalHandle cond, int s,
+                                float* sh) {
   float m = 0.f, p = 0.f;
   for (int b = threadIdx.x; b < nblocks; b += blockDim.x) {
     m = fmaxf(m, __ldcg(part + 3 * b));
@@ -494,6 +543,8 @@ __device__ void langevin_finish(const float* part, int nblocks,
       ctl->stats[5] = (float)ctl->skin;
       ctl->stats[6] = (float)trig;
       ctl->stats[7] = (float)(s + 1);
+      if (cond)
+        cudaGraphSetConditional(cond, !ctl->stopped && s + 1 < ctl->limit);
     }
   }
 }
@@ -509,10 +560,17 @@ __global__ void __launch_bounds__(kLanThreads)
                     const float* __restrict__ mean, float* gf_out,
                     float* gv_out, float* part,
                     long long* __restrict__ out, LangevinArgs a0,
-                    LaunchCtl* ctl, int s) {
+                    LaunchCtl* ctl, cudaGraphConditionalHandle cond) {
   __shared__ float sh[32];
-  if (step_off(ctl, s)) return;
-  const LangevinArgs a = step_args(a0, ctl, s);
+  const int s = step_of(ctl);
+  if (step_off(ctl)) {
+    // a loop iteration that finds the launch over ends the loop (the
+    // condition set after each step keeps it from starting one)
+    if (cond && blockIdx.x == 0 && threadIdx.x == 0)
+      cudaGraphSetConditional(cond, 0);
+    return;
+  }
+  const LangevinArgs a = step_args(a0, ctl);
   const int capP = a.cap * a.P;
   const int t = blockIdx.x * kLanThreads + threadIdx.x;
   float dsq = 0.f, pred = 0.f;
@@ -557,7 +615,7 @@ __global__ void __launch_bounds__(kLanThreads)
     part[3 * blockIdx.x + 2] = pm;
   }
   if (last_block(part + 3 * gridDim.x))
-    langevin_finish(part, gridDim.x, a, out, ctl, s, sh);
+    langevin_finish(part, gridDim.x, a, out, ctl, cond, s, sh);
 }
 
 // the launches of each kernel pair; ctl null: the chain's one step
@@ -566,33 +624,113 @@ void kick_drift_launch(const float* gx, const float* gv, const float* gf,
                        const int* halo_cols, const int* halo_src,
                        const float* halo_shift, float* gx_out, float* gv_out,
                        int cap, int P, int H, int n, float kick, float dt,
-                       const LaunchCtl* ctl, int step, cudaStream_t s) {
+                       const LaunchCtl* ctl, cudaStream_t s) {
   kick_drift_kernel<<<blocks_for((long)cap * P), kThreads, 0, s>>>(
-      gx, gv, gf, bid, interior, gx_out, gv_out, cap, P, n, kick, dt, ctl,
-      step);
+      gx, gv, gf, bid, interior, gx_out, gv_out, cap, P, n, kick, dt, ctl);
   if (H > 0)
     halo_kernel<<<blocks_for((long)H * cap), kThreads, 0, s>>>(
-        gx_out, halo_cols, halo_src, halo_shift, H, cap, P, ctl, step);
+        gx_out, halo_cols, halo_src, halo_shift, H, cap, P, ctl);
 }
 
 void langevin_launch(const float* gx, const float* gxr, const float* gv,
                      const float* gf, const int* bid,
                      const uint8_t* interior, const float* lgm,
                      float* gf_out, float* gv_out, float* part, float* zpart,
-                     long long* out, LangevinArgs a, LaunchCtl* ctl, int step,
-                     cudaStream_t s) {
+                     long long* out, LangevinArgs a, LaunchCtl* ctl,
+                     cudaGraphConditionalHandle cond, cudaStream_t s) {
   const int capP = a.cap * a.P;
   const float* mean = nullptr;
   if (a.langevin && a.zero) {
     const int nz = (capP + kSumThreads * kSumSlots - 1) /
                    (kSumThreads * kSumSlots);
     langevin_sum_kernel<<<nz, kSumThreads, 0, s>>>(bid, interior, lgm,
-                                                   zpart, a, ctl, step);
+                                                   zpart, a, ctl);
     mean = zpart + 4 * nz;
   }
   langevin_kernel<<<(capP + kLanThreads - 1) / kLanThreads, kLanThreads, 0,
                     s>>>(gx, gxr, gv, gf, bid, interior, lgm, mean, gf_out,
-                         gv_out, part, out, a, ctl, step);
+                         gv_out, part, out, a, ctl, cond);
+}
+
+// one controlled step, in place on the static planes, in the chain's
+// order: kick + drift + halo, stencil (energies when sa.energy), its fold
+// with the springs (pa.E > 0), Langevin + final kick + monitor.  la.gamma2
+// is the run's g2base; the key, counter base and ramp come from the
+// block.  cond: the step loop's condition (0 outside its graph)
+cudaError_t step_ctl_launch(const StepPlanes& p, const StencilArgs& sa,
+                            const SpringArgs& pa, const LangevinArgs& la,
+                            cudaGraphConditionalHandle cond,
+                            cudaStream_t s) {
+  const int cap = sa.cap, P = sa.P;
+  kick_drift_launch(p.gx, p.gv, p.gf, p.bid, p.interior, p.halo_cols,
+                    p.halo_src, p.halo_shift, p.gx, p.gv, cap, P, p.H, sa.n,
+                    p.kick, p.dt, p.ctl, s);
+  const cudaError_t err = stencil_launch(p.gx, p.bid, p.hn, p.pid,
+                                         p.interior, p.gf, p.fpart, p.ipart,
+                                         sa, p.ctl, s);
+  if (err != cudaSuccess) return err;
+  fold_springs_kernel<<<1 + (pa.E > 0 ? blocks_for(pa.E) : 0), kThreads, 0,
+                        s>>>(p.fpart, p.ipart, stencil_blocks(P, 1),
+                             sa.energy, p.gx, p.gf, p.exl, p.exr, p.active,
+                             p.eb, pa, p.ctl);
+  langevin_launch(p.gx, p.gxr, p.gv, p.gf, p.bid, p.interior, p.lgm, p.gf,
+                  p.gv, p.lpart, p.zpart, nullptr, la, p.ctl, cond, s);
+  return cudaGetLastError();
+}
+
+// K2's step loop as one CUDA graph: a WHILE conditional node (default
+// value 1 at each launch) whose body is one controlled step, captured
+// into it on a stream of the library's own.  The Langevin pass's last
+// block sets the condition after each step, so a launch runs exactly
+// the steps the trigger and the limit allow and no dead ones; the
+// launch's limit lives in the control block, so one graph serves every
+// limit.  Only the executable graph is launched; the graph is kept for
+// its node count
+struct StepGraph {
+  cudaGraph_t graph = nullptr;
+  cudaGraph_t body = nullptr;  // owned by graph
+  cudaGraphExec_t exec = nullptr;
+};
+
+cudaError_t step_graph_build(StepGraph* g, const StepPlanes& p,
+                             const StencilArgs& sa, const SpringArgs& pa,
+                             const LangevinArgs& la) {
+  cudaError_t err = cudaGraphCreate(&g->graph, 0);
+  if (err != cudaSuccess) return err;
+  cudaGraphConditionalHandle cond;
+  err = cudaGraphConditionalHandleCreate(&cond, g->graph, 1,
+                                         cudaGraphCondAssignDefault);
+  if (err != cudaSuccess) return err;
+  // aggregate initialisation zeroes the rest (the struct has no default
+  // constructor)
+  cudaGraphNodeParams np = {cudaGraphNodeTypeConditional};
+  np.conditional.handle = cond;
+  np.conditional.type = cudaGraphCondTypeWhile;
+  np.conditional.size = 1;
+  cudaGraphNode_t node;
+  err = cudaGraphAddNode(&node, g->graph, nullptr, 0, &np);
+  if (err != cudaSuccess) return err;
+  g->body = np.conditional.phGraph_out[0];
+  cudaStream_t cs;
+  err = cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking);
+  if (err != cudaSuccess) return err;
+  err = cudaStreamBeginCaptureToGraph(cs, g->body, nullptr, nullptr, 0,
+                                      cudaStreamCaptureModeThreadLocal);
+  if (err == cudaSuccess) {
+    const cudaError_t step = step_ctl_launch(p, sa, pa, la, cond, cs);
+    cudaGraph_t captured;
+    err = cudaStreamEndCapture(cs, &captured);
+    if (step != cudaSuccess) err = step;
+  }
+  cudaStreamDestroy(cs);
+  if (err != cudaSuccess) return err;
+  return cudaGraphInstantiate(&g->exec, g->graph, 0);
+}
+
+void step_graph_destroy(StepGraph* g) {
+  if (g->exec) cudaGraphExecDestroy(g->exec);
+  if (g->graph) cudaGraphDestroy(g->graph);
+  delete g;
 }
 
 }  // namespace
@@ -610,7 +748,7 @@ int lle_kick_drift_halo(const float* gx, const float* gv, const float* gf,
                         float kick, float dt, void* stream) {
   kick_drift_launch(gx, gv, gf, bid, interior, halo_cols, halo_src,
                     halo_shift, gx_out, gv_out, cap, P, H, n, kick, dt,
-                    nullptr, 0, (cudaStream_t)stream);
+                    nullptr, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
@@ -629,7 +767,7 @@ int lle_stencil_forces(const float* gx, const int* bid, const uint8_t* hn,
                        StencilArgs a, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t err = stencil_launch(gx, bid, hn, pid, interior, gf,
-                                         fpart, ipart, a, nullptr, 0, s);
+                                         fpart, ipart, a, nullptr, s);
   if (err != cudaSuccess) return (int)err;
   stencil_finish_kernel<<<1, kThreads, 0, s>>>(
       fpart, ipart, stencil_blocks(a.P, 1), en, out);
@@ -641,8 +779,8 @@ int lle_extruder_springs(const float* gx, float* gf, const int* exl,
                          SpringArgs a, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (a.E > 0)
-    springs_kernel<<<blocks_for(a.E), kThreads, 0, s>>>(
-        gx, gf, exl, exr, active, eb, a, nullptr, 0);
+    springs_kernel<<<blocks_for(a.E), kThreads, 0, s>>>(gx, gf, exl, exr,
+                                                         active, eb, a);
   return (int)cudaGetLastError();
 }
 
@@ -660,13 +798,14 @@ int lle_langevin_kick_monitor(const float* gx, const float* gxr,
   return (int)cudaGetLastError();
 }
 
-// the control block's size and the offset of its stats rows, in 4-byte
-// words (kernels.py reads them back)
+// the control block's size and the offsets of its stats rows and its
+// iteration count, in 4-byte words (kernels.py reads them back)
 int lle_ctl_words() { return (int)(sizeof(LaunchCtl) / 4); }
 int lle_ctl_stats() { return (int)(offsetof(LaunchCtl, stats) / 4); }
+int lle_ctl_iters() { return (int)(offsetof(LaunchCtl, iters) / 4); }
 
 // the control kernel: a launch's first step, key, limit, drift flag and
-// thermostat ramp, every tally and stats row zeroed
+// thermostat ramp, every tally, count and stats row zeroed
 int lle_launch_begin(LaunchCtl* ctl, unsigned int sstep0, unsigned int k0,
                      unsigned int k1, int limit, int do_drift, float t0,
                      float t_slope, void* stream) {
@@ -675,29 +814,57 @@ int lle_launch_begin(LaunchCtl* ctl, unsigned int sstep0, unsigned int k0,
   return (int)cudaGetLastError();
 }
 
-// step s of a controlled launch, in place on the static planes, in the
-// chain's order: kick + drift + halo, stencil (energies when sa.energy),
-// springs (pa.E > 0), Langevin + final kick + monitor.  la.gamma2 is the
-// run's g2base; the key, counter base and ramp come from the block
+// the next step of a controlled launch, run eagerly (an energy launch)
 int lle_step_ctl(StepPlanes p, StencilArgs sa, SpringArgs pa,
-                 LangevinArgs la, int step, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int cap = sa.cap, P = sa.P;
-  kick_drift_launch(p.gx, p.gv, p.gf, p.bid, p.interior, p.halo_cols,
-                    p.halo_src, p.halo_shift, p.gx, p.gv, cap, P, p.H, sa.n,
-                    p.kick, p.dt, p.ctl, step, s);
-  const cudaError_t err = stencil_launch(p.gx, p.bid, p.hn, p.pid,
-                                         p.interior, p.gf, p.fpart, p.ipart,
-                                         sa, p.ctl, step, s);
+                 LangevinArgs la, void* stream) {
+  return (int)step_ctl_launch(p, sa, pa, la, 0, (cudaStream_t)stream);
+}
+
+// the step loop's graph on the static planes p (every kernel of a step
+// launched once before, so that none loads during the capture): *out its
+// handle, for lle_loop_launch, lle_loop_nodes and lle_loop_destroy.  Any
+// failure returns its error and no graph
+int lle_loop_create(StepPlanes p, StencilArgs sa, SpringArgs pa,
+                    LangevinArgs la, void** out) {
+  *out = nullptr;
+  StepGraph* g = new StepGraph();
+  const cudaError_t err = step_graph_build(g, p, sa, pa, la);
+  if (err != cudaSuccess) {
+    step_graph_destroy(g);
+    return (int)err;
+  }
+  *out = g;
+  return 0;
+}
+
+// a launch of the loop (after lle_launch_begin on the same stream)
+int lle_loop_launch(void* graph, void* stream) {
+  return (int)cudaGraphLaunch(static_cast<StepGraph*>(graph)->exec,
+                              (cudaStream_t)stream);
+}
+
+// the nodes of the loop's body (one step), and how many are kernels
+int lle_loop_nodes(void* graph, int* kernels, int* all) {
+  cudaGraph_t body = static_cast<StepGraph*>(graph)->body;
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(body, nullptr, &n);
   if (err != cudaSuccess) return (int)err;
-  stencil_fold_kernel<<<1, kThreads, 0, s>>>(
-      p.fpart, p.ipart, stencil_blocks(P, 1), sa.energy, p.ctl, step);
-  if (pa.E > 0)
-    springs_kernel<<<blocks_for(pa.E), kThreads, 0, s>>>(
-        p.gx, p.gf, p.exl, p.exr, p.active, p.eb, pa, p.ctl, step);
-  langevin_launch(p.gx, p.gxr, p.gv, p.gf, p.bid, p.interior, p.lgm, p.gf,
-                  p.gv, p.lpart, p.zpart, nullptr, la, p.ctl, step, s);
-  return (int)cudaGetLastError();
+  std::vector<cudaGraphNode_t> nodes(n);
+  err = cudaGraphGetNodes(body, nodes.data(), &n);
+  if (err != cudaSuccess) return (int)err;
+  *kernels = 0;
+  *all = (int)n;
+  for (cudaGraphNode_t node : nodes) {
+    cudaGraphNodeType type;
+    err = cudaGraphNodeGetType(node, &type);
+    if (err != cudaSuccess) return (int)err;
+    *kernels += type == cudaGraphNodeTypeKernel ? 1 : 0;
+  }
+  return 0;
+}
+
+void lle_loop_destroy(void* graph) {
+  step_graph_destroy(static_cast<StepGraph*>(graph));
 }
 
 }  // extern "C"

@@ -22,8 +22,11 @@ tiled_stencil_forces   pallas_kernel.py:59 (K5), body K1
 =====================  ==================================================
 
 ``StepLoop`` launches the step kernels' launch-controlled forms over up to
-LAUNCH_MAX steps as one CUDA graph replay; its count ``step_loop`` counts
-launches, and each step kernel's count grows by the steps it executed.
+LAUNCH_MAX steps as one launch of a CUDA graph whose WHILE conditional
+node runs a step an iteration until the trigger or the limit ends it;
+its count ``step_loop`` counts launches, and each step kernel's count
+grows by the steps it executed (the springs run inside the stencil's
+fold launch there, and count as ``extruder_springs``).
 
 The pair stencils share one block body (``csrc/stencil.cuh``); all but
 ``tiled_stencil_forces`` (``stencil_forces``, ``newton_half_forces``,
@@ -41,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import weakref
 
 import torch
 
@@ -130,12 +134,25 @@ def bind(paths):
     _U = ctypes.c_uint32
     lib.lle_launch_begin.argtypes = [_P, _U, _U, _U, _I, _I, _F, _F, _P]
     lib.lle_step_ctl.argtypes = [StepPlanes, StencilArgs, SpringArgs,
-                                 LangevinArgs, _I, _P]
+                                 LangevinArgs, _P]
     for fn in ("lle_kick_drift_halo", "lle_stencil_forces",
                "lle_extruder_springs", "lle_langevin_kick_monitor",
                "lle_launch_begin", "lle_step_ctl", "lle_ctl_words",
                "lle_ctl_stats"):
         getattr(lib, fn).restype = _I
+    # the step loop's graph (a library built before it, which chip_ab.py
+    # binds for its other kernels, has none)
+    if hasattr(lib, "lle_loop_create"):
+        lib.lle_loop_create.argtypes = [StepPlanes, StencilArgs, SpringArgs,
+                                        LangevinArgs, ctypes.POINTER(_P)]
+        lib.lle_loop_launch.argtypes = [_P, _P]
+        lib.lle_loop_nodes.argtypes = [_P, ctypes.POINTER(_I),
+                                       ctypes.POINTER(_I)]
+        lib.lle_loop_destroy.argtypes = [_P]
+        lib.lle_loop_destroy.restype = None
+        for fn in ("lle_loop_create", "lle_loop_launch", "lle_loop_nodes",
+                   "lle_ctl_iters"):
+            getattr(lib, fn).restype = _I
     blk = ctypes.CDLL(str(paths["blocked"]))
     blk.lle_stencil_max_cap.restype = _I
     blk.lle_newton_half_forces.argtypes = (
@@ -470,15 +487,18 @@ class StepLoop:
     a CUDA graph can hold their addresses: a call copies each input plane
     in unless the static plane already holds it (the same tensor, not
     modified in place since), writes the control block (one small
-    kernel), replays the graph of ``limit`` controlled steps (the graphs
-    of every limit are captured at the first launch; an energy launch,
+    kernel), launches the loop's graph (``launch``; an energy launch,
     ``limit`` 1, runs its kernels eagerly and adds the springs' energy sum
     with PyTorch, as the chain does), copies the planes out and reads the
-    control block: one host
-    sync.  A step after the one whose trigger fired returns at once in
-    each of its kernels.  ``before_read(gx, gv, gf)``, if given, is called
-    on the output planes between the replay and the read, so that the
-    host work it issues overlaps the launch."""
+    control block: one host sync.  The graph, built in ``csrc/step.cu`` at
+    the first launch, is one WHILE conditional node whose body is one
+    controlled step: the step's last kernel sets the condition, so a
+    launch ends at the step whose trigger fired, or at ``limit``, with no
+    dead steps, and one graph serves every limit.  ``iterations``: the
+    last launch's loop iterations, which the call holds to its steps.
+    ``before_read(gx, gv, gf)``, if given, is called on the output planes
+    between the launch and the read, so that the host work it issues
+    overlaps the launch."""
 
     MAX_STEPS = 16
 
@@ -486,7 +506,8 @@ class StepLoop:
         self.L = L
         self.buf = None
         self.held = {}      # static plane name -> (source, its version)
-        self.graphs = {}    # limit -> CUDAGraph
+        self.graph = None   # the library's StepGraph handle
+        self.iterations = 0
 
     def _alloc(self, gx, exl_slot, lgm):
         L, lib = self.L, _lib()
@@ -518,6 +539,7 @@ class StepLoop:
             ctl=torch.zeros(lib.lle_ctl_words(), **i32))
         self.buf = b
         self.stats_at = lib.lle_ctl_stats()
+        self.iters_at = lib.lle_ctl_iters()
         g = L.g
         ptr = {k: (None if v is None else _ptr(v)) for k, v in b.items()}
         self.planes = StepPlanes(
@@ -540,31 +562,39 @@ class StepLoop:
 
     def nbytes(self):
         """Bytes of the static planes and buffers (0 before the first
-        launch): the graphs' kernels allocate nothing."""
+        launch): the graph's kernels allocate nothing."""
         return sum(v.numel() * v.element_size()
                    for v in (self.buf or {}).values() if v is not None)
 
-    def _steps(self, nsteps, energy):
-        lib = _lib()
-        for s in range(nsteps):
-            _raise("step_loop", lib.lle_step_ctl(
-                self.planes, self.args[energy], self.spring, self.lan, s,
-                _stream()))
+    def _step(self, energy):
+        """The launch's next step, run eagerly."""
+        _raise("step_loop", _lib().lle_step_ctl(
+            self.planes, self.args[energy], self.spring, self.lan,
+            _stream()))
 
-    def _capture(self):
-        """The graphs of every limit, at the first launch: a capture syncs
-        the card and collects garbage (~30 ms), so none is left for a
-        later launch to pay."""
+    def _build(self):
+        """The loop's graph, at the first launch.  Raises if it does not
+        build: there is no other form of the loop on the card."""
+        lib = _lib()
         # every kernel launched once outside the capture (each returns at
         # once at limit 0), so that none loads there
         self._begin(0, (0, 0), 0, True, 0.0, 0.0)
-        self._steps(1, False)
+        self._step(False)
         torch.cuda.synchronize()
-        for limit in range(1, self.MAX_STEPS + 1):
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self._steps(limit, False)
-            self.graphs[limit] = graph
+        handle = _P()
+        _raise("step_loop graph", lib.lle_loop_create(
+            self.planes, self.args[False], self.spring, self.lan,
+            ctypes.byref(handle)))
+        self.graph = handle
+        # the graph goes with the loop; at exit the process frees it
+        weakref.finalize(self, lib.lle_loop_destroy, handle).atexit = False
+
+    def body_nodes(self):
+        """(kernel nodes, all nodes) of the graph's body, one step."""
+        kernels, nodes = _I(), _I()
+        _raise("step_loop nodes", _lib().lle_loop_nodes(
+            self.graph, ctypes.byref(kernels), ctypes.byref(nodes)))
+        return kernels.value, nodes.value
 
     def _begin(self, sstep, key_words, limit, do_drift, t0, t_slope):
         k0, k1 = key_words
@@ -572,6 +602,13 @@ class StepLoop:
             _ptr(self.buf["ctl"]), int(sstep) & 0xFFFFFFFF, int(k0),
             int(k1), int(limit), int(bool(do_drift)), t0, t_slope,
             _stream()))
+
+    def launch(self, sstep, do_drift, key_words, t0, t_slope, limit):
+        """The control block written and the graph launched on the static
+        planes as they stand, on the current stream: no staging, no
+        read."""
+        self._begin(sstep, key_words, limit, do_drift, t0, t_slope)
+        _raise("step_loop", _lib().lle_loop_launch(self.graph, _stream()))
 
     def _stage(self, name, src, dtype, shape):
         held = self.held.get(name)
@@ -594,8 +631,8 @@ class StepLoop:
             raise ValueError(f"step_loop: limit {limit} (energy {energy})")
         if self.buf is None:
             self._alloc(gx, exl_slot, lgm)
-            # before staging: the capture's warm-up writes the control block
-            self._capture()
+            # before staging: the warm-up writes the control block
+            self._build()
         if (lgm is None) != (self.buf["lgm"] is None):
             raise ValueError("step_loop: a Langevin group plane in one "
                              "launch and none in another")
@@ -618,14 +655,14 @@ class StepLoop:
             self._stage("exl_slot", exl_slot, torch.int32, (E,))
             self._stage("exr_slot", exr_slot, torch.int32, (E,))
             self._stage("active", active, torch.bool, (E,))
-        self._begin(sstep, key_words, limit, do_drift, t0, t_slope)
         if energy:
-            self._steps(1, True)
+            self._begin(sstep, key_words, limit, do_drift, t0, t_slope)
+            self._step(True)
             if self.L.S is not None:
                 st = b["ctl"].view(torch.float32)[self.stats_at:]
                 st[1:2] += 2.0 * b["eb"].sum()
         else:
-            self.graphs[limit].replay()
+            self.launch(sstep, do_drift, key_words, t0, t_slope, limit)
         out = tuple(b[k].clone() for k in ("gx", "gv", "gf"))
         for name, t in zip(("gx", "gv", "gf"), out):
             self.held[name] = (t, t._version)
@@ -636,9 +673,11 @@ class StepLoop:
         stats = host.view(torch.float32)[self.stats_at:
                                          self.stats_at + 8].double()
         done = int(stats[7])
-        if done < 1:
+        self.iterations = int(host[self.iters_at])
+        if done < 1 or self.iterations != done:
             raise RuntimeError(f"step_loop: a launch of limit {limit} ran "
-                               f"no step")
+                               f"{done} steps in {self.iterations} loop "
+                               f"iterations")
         LAUNCHES["step_loop"] += 1
         LAUNCHES["kick_drift_halo"] += done - (0 if do_drift else 1)
         LAUNCHES["stencil_forces"] += done

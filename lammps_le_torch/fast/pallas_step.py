@@ -6,8 +6,8 @@ One launch runs up to ``limit`` whole steps: kick + drift + halo, the full
 monitor.  It stops after the step whose per-bead look-ahead trigger fires,
 advances the threefry counter by 4 a step, ramps the thermostat target as
 ``t0 + s * t_slope`` and returns the reference's 8 stats rows.  On the card
-it is ``kernels.StepLoop`` (the kernels' launch-controlled forms in one
-CUDA graph replay); in ``interpret`` mode, and on CPU tensors, it is
+it is ``kernels.StepLoop`` (the kernels' launch-controlled forms, one step
+an iteration of one CUDA graph's WHILE conditional node); in ``interpret`` mode, and on CPU tensors, it is
 ``kernels_ref.step_loop``, the chain's plain step functions in the chain's
 order.  The reference's loop carries its own Newton-half stencil; the port's
 carries the full stencil of its chain, so that both modes step the same

@@ -585,9 +585,9 @@ def _one_step_chain(call, fs, tail, n):
 @pytest.mark.cuda
 def test_step_loop_every_limit(dev):
     """Each limit 1-16: a launch runs min(limit, trigger) steps, bit for
-    bit the one-step launches' run (one graph per limit), and reports the
-    plain loop's stats rows; at 16 its planes are the plain loop's within
-    the stencil's summation order (x 1e-4)."""
+    bit the one-step launches' run (one conditional graph for every
+    limit), and reports the plain loop's stats rows; at 16 its planes are
+    the plain loop's within the stencil's summation order (x 1e-4)."""
     fs, real, plain, tail = _loop(dev)
     ones = _one_step_chain(real, fs, tail, 16)
     fired = next((s + 1 for s, o in enumerate(ones) if o[3][6]), 17)
@@ -628,3 +628,26 @@ def test_step_loop_stops_at_the_trigger(dev):
     _, _, _, sp = plain(fs.gx, fs.gv, fs.gf, *tail, fs.step + 1, True,
                         (5, 6), 1.0, 0.0, 16)
     assert torch.equal(sp[5:], st[5:])
+
+
+@pytest.mark.cuda
+def test_step_loop_ends_at_the_trigger(dev):
+    """A 16-step launch that the trigger stops after d steps is a d-step
+    launch from the same state, planes bit for bit and stats rows equal,
+    and each ran d iterations of the graph's conditional node (no dead
+    steps); the graph's body is one step of 5 kernel nodes (zero off)."""
+    fs, real, plain, tail = _loop(dev)
+    slot = int(fs.slot_of[1000])
+    P = fs.bid.shape[1]
+    fs.gv[:, slot // P, slot % P] = torch.tensor([6.0, 0.0, 0.0])
+    head = (fs.gx, fs.gv, fs.gf) + tail + (fs.step + 1, True, (5, 6), 1.0,
+                                            0.0)
+    *p16, s16 = real(*head, 16)
+    d = int(s16[7])
+    assert 1 < d < 16 and s16[6] == 1.0
+    assert real.loop.iterations == d
+    *p_d, s_d = real(*head, d)
+    assert real.loop.iterations == d
+    assert all(torch.equal(a, b) for a, b in zip(p16, p_d))
+    assert torch.equal(s16, s_d)
+    assert real.loop.body_nodes()[0] == 5

@@ -93,6 +93,32 @@ def test_step_loop_stops_where_the_trigger_fires():
     assert torch.equal(f1, gf)
 
 
+def test_stopped_launch_is_the_launch_of_its_steps():
+    """The property K2's conditional graph rests on: a launch of limit 16
+    that the look-ahead trigger stops after d steps is a launch of limit
+    d from the same state, planes bit for bit and stats rows 2-7 equal
+    (the plain loop, on the melt with a fast bead)."""
+    system, _ = melt_arrays()
+    sim = Simulation(system=system, dt=0.005, ex_btype=2,
+                     fixes=(tf.NVE(), tf.Langevin(1.0, 1.0, 10.0, seed=9)))
+    fs = fast_start(sim)
+    slot = int(fs.slot_of[250])
+    cap, P = fs.bid.shape
+    fs.gv[:, slot // P, slot % P] = torch.tensor([6.0, 0.0, 0.0])
+    g = GridConsts.build(system, fast_maps(system), "cpu")
+    call = make_step_kernel(system, fast_maps(system), 2, dt=0.005,
+                            langevin=sim.fixes[1], g=g, interpret=True)
+    args = (fs.gx, fs.gv, fs.gf, fs.gx_ref, fs.bid, fs.hn, fs.pid,
+            fs.exl_slot, fs.exr_slot, fs.ex_left >= 0, None, fs.step + 1,
+            True, (7, 9), 1.0, 0.0)
+    *planes16, st16 = call(*args, LAUNCH_MAX)
+    d = int(st16[7])
+    assert 1 < d < LAUNCH_MAX and st16[6] == 1.0
+    *planes_d, st_d = call(*args, d)
+    assert all(torch.equal(a, b) for a, b in zip(planes16, planes_d))
+    assert torch.equal(st16[2:], st_d[2:])
+
+
 def test_segment_contract():
     """make_fast_segment returns (segment, step_core) and run_fast (State,
     rows), a positional thermo_every a row a step; a positional
