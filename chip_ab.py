@@ -6,28 +6,31 @@ between processes, so only one process compares):
     python3 chip_ab.py kernels DIR [DIR ...] [--rounds N]
     python3 chip_ab.py steps CHECKOUT [--rounds N]
 
-``kernels``: the pair stencils K1 (``stencil_forces``, in both
-reciprocal forms) and K5 (``tiled_stencil_forces``) and the Langevin
-kernel K2d+e without zero and with zero over path 5's group on path 1's
-settled 100k planes, K3
-(``newton_half_forces``) and the Langevin kernel on config 6's
-(``kernel_cases``), through the package's wrappers on the libraries
-built from its own lammps_le_torch/csrc and from each DIR (a copy of
-that directory with other sources), with the package's nvcc flags.  Per
-case and tree: the median and quartiles over the rounds of the device
-ms a call (CUDA events around 20 back-to-back calls a round, queued
-behind a sleep kernel), the largest difference of the first output
-(forces) from the package's own kernels, and whether every output was
-bitwise the package's in every round; first, per DIR, whether the SASS
-of K1's and K3/K4's block-body instances is the package's
-(``same_sass``).  Then K2's step loop on path 1's settled planes (as if
-just rebuilt): a launch of limit 16, which the trigger stops after d
-steps, and a launch of limit d (live steps only), through the step loop
-of the package and of each DIR's package (DIR/.. when it holds one,
-copied to build/ab and imported under another name, building its own
-libraries); per round and tree the device ms of one launch (its control
-kernel and graph, ``chip_smoke.loop_launch_ms``), and whether its planes
-are the package's bit for bit.
+``kernels``: each DIR is the csrc directory of another copy of the
+package (DIR/.. holds its fast/kernels.py): that package is copied to
+build/ab, imported as lammps_le_torch_tree<i>, and runs every case
+through its own wrappers on the libraries it builds from its own
+sources, so trees whose C entry points differ (the replica count the
+chain kernels' entry points took with the replica axis) compare all the
+same; a DIR without a package around it is refused.  The cases
+(``kernel_cases``), one run's planes each, through each tree's wrappers:
+on path 1's settled 100k planes the pair stencils K1 (``stencil_forces``,
+in both reciprocal forms) and K5 (``tiled_stencil_forces``), K2a
+(``kick_drift_halo``), K2c (``extruder_springs``) and the Langevin
+kernel K2d+e without zero and with zero over path 5's group; on config
+6's K3 (``newton_half_forces``), K2a, K2c, the Langevin kernel and a
+rebuild's placement (``place.place``, plain torch).  Per case and tree:
+the median and quartiles over the rounds of the device ms a call (CUDA
+events around 20 back-to-back calls a round, queued behind a sleep
+kernel), the largest difference of the first output from the package's,
+and whether every output was bitwise the package's in every round;
+first, per DIR, whether the SASS of K1's and K3/K4's block-body
+instances is the package's (``same_sass``).  Then K2's step loop on path
+1's settled planes (as if just rebuilt): a launch of limit 16, which the
+trigger stops after d steps, and a launch of limit d (live steps only),
+through each tree's step loop; per round and tree the device ms of one
+launch (its control kernel and graph, ``chip_smoke.loop_launch_ms``),
+and whether its planes are the package's bit for bit.
 
 ``steps``: path 1 (1,500 steps after a 40-step warm-up, the step loop in
 auto mode) and config 6 (600 steps after 20) from the same settled
@@ -74,81 +77,95 @@ def settled(dev):
     return path1, chip_smoke.settle_config6(data6, system6, dev)
 
 
-def build_trees(dirs):
-    """The step, blocked and tiled libraries of each source tree, built at
-    once: [{name: path}]."""
-    from lammps_le_torch.csrc.build import NVCC_FLAGS, nvcc
-
-    out, procs = [], []
-    for i, d in enumerate(dirs):
-        dst = AB_DIR / f"tree{i}"
-        dst.mkdir(parents=True, exist_ok=True)
-        libs = {}
-        for name in ("step", "blocked", "tiled"):
-            libs[name] = dst / f"lib{name}.so"
-            procs.append((d / f"{name}.cu", subprocess.Popen(
-                [nvcc(), *NVCC_FLAGS, "-o", str(libs[name]),
-                 str(d / f"{name}.cu")], stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True)))
-        out.append(libs)
-    for src, proc in procs:
-        _, err = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc {src} failed:\n{err}")
-    return out
-
-
-def kernel_cases(states, dev):
-    """[(label, call)] of the kernels ``kernels`` times, each call through
-    the package's wrapper (on whichever libraries kernels._LIBS holds)
-    returning its output tensors: on path 1's settled 100k planes the
-    stencils K1 and K5 and the Langevin kernel without zero and group and
-    with zero over path 5's group (beads 1-90,000); on config 6's K3 and
-    the Langevin kernel without zero.  Stencils without energies (a
-    production step's form).  ``states``: ``settled``'s."""
+def kernel_inputs(states, dev):
+    """{size: the one-run inputs of ``kernel_cases``} from ``settled``'s
+    states, built once on the package and shared by every tree: the
+    Simulation, the FastState, the grid constants and maps, path 5's
+    group plane (100k) and the beads a rebuild places (config 6)."""
     import numpy as np
     import torch
 
-    from lammps_le_torch.fast import kernels as K
-    from lammps_le_torch.fast.consts import StencilConsts
-    from lammps_le_torch.fast.engine import _lgm_plane, to_fast
+    from lammps_le_torch.fast.engine import _lgm_plane, extract_beads, to_fast
     from lammps_le_torch.fast.maps import fast_maps
     from lammps_le_torch.fast.place import GridConsts
 
-    cases = []
+    out = {}
     for size, (sim, state) in zip(("100k", "config 6"), states):
         system = sim.system
         maps = fast_maps(system)
-        g = GridConsts.build(system, maps, dev)
         fs = to_fast(state, sim)
-        C, n = StencilConsts(system), system.n
+        member = np.zeros(system.n, bool)
+        member[:chip_smoke.N_CHAIN] = True
+        out[size] = dict(
+            sim=sim, fs=fs, maps=maps,
+            g=GridConsts.build(system, maps, dev),
+            lgm=_lgm_plane(member, fs.slot_of, maps, torch.float32),
+            beads=extract_beads(fs, maps))
+    return out
+
+
+def kernel_cases(inputs, pkg):
+    """[(label, call)] of the kernels ``kernels`` times, each call through
+    package ``pkg``'s wrappers (and its placement) returning its output
+    tensors; ``inputs``: ``kernel_inputs``'.  Stencils without energies
+    (a production step's form)."""
+    K = importlib.import_module(pkg.__name__ + ".fast.kernels")
+    consts = importlib.import_module(pkg.__name__ + ".fast.consts")
+    place = importlib.import_module(pkg.__name__ + ".fast.place")
+
+    def exact(fn):
+        # the pair stencils' IEEE reciprocal for the call
+        keep = K.APPROX_RCP
+        K.APPROX_RCP = False
+        try:
+            return fn()
+        finally:
+            K.APPROX_RCP = keep
+
+    cases = []
+    for size, d in inputs.items():
+        sim, fs, g, maps = d["sim"], d["fs"], d["g"], d["maps"]
+        system = sim.system
+        C, n = consts.StencilConsts(system), system.n
+        S = consts.SpringConsts(system, sim.ex_btype)
+        kick = 0.5 * sim.dt / float(system.masses[0])
         st = (fs.gx, fs.bid, fs.hn, fs.pid, g.interior)
         lan = (fs.gx, fs.gx_ref, fs.gv, fs.gf, fs.bid, g.interior,
-               (123456789, 987654321), fs.step, -0.1, 0.7, 0.003, sim.dt,
+               (123456789, 987654321), fs.step, -0.1, 0.7, kick, sim.dt,
                0.3, 0.2, n, True)
+        kdh = (fs.gx, fs.gv, fs.gf, fs.bid, g.interior, g.halo_cols,
+               g.halo_src, g.halo_shift, n, kick, sim.dt)
+        spr = (fs.gx, fs.gf.clone(), fs.exl_slot, fs.exr_slot,
+               fs.ex_left >= 0, S)
+        common = [
+            (f"K2a {size}", lambda kdh=kdh: K.kick_drift_halo(*kdh)),
+            # in place on a scratch copy of the forces: its energies
+            (f"K2c {size}", lambda spr=spr: (K.extruder_springs(*spr),)),
+            (f"K2d+e {size}", lambda lan=lan: K.langevin_kick_monitor(
+                *lan))]
         if size == "100k":
-            member = np.zeros(n, bool)
-            member[:chip_smoke.N_CHAIN] = True
-            lgm = _lgm_plane(member, fs.slot_of, maps, torch.float32)
             cases += [
                 ("K1 100k", lambda st=st, C=C, n=n, maps=maps:
                  K.stencil_forces(*st, C, n, maps.strides, False)),
                 ("K1 IEEE 100k", lambda st=st, C=C, n=n, maps=maps:
-                 chip_smoke.exact_form(lambda: K.stencil_forces(
-                     *st, C, n, maps.strides, False))),
+                 exact(lambda: K.stencil_forces(*st, C, n, maps.strides,
+                                                False))),
                 ("K5 100k", lambda st=st, C=C, n=n, maps=maps:
                  K.tiled_stencil_forces(*st, C, n, maps.strides, False)),
-                ("K2d+e 100k", lambda lan=lan:
-                 K.langevin_kick_monitor(*lan)),
-                ("K2d+e zero+group 100k", lambda lan=lan, lgm=lgm:
+                *common,
+                ("K2d+e zero+group 100k", lambda lan=lan, lgm=d["lgm"]:
                  K.langevin_kick_monitor(*lan, lgm, True))]
         else:
+            x, v, f = d["beads"]
             cases += [
                 ("K3 config 6", lambda st=st, g=g, C=C, n=n, maps=maps:
                  K.newton_half_forces(*st, g.faces, C, n, maps.strides,
                                       maps.fold_shifts, False)),
-                ("K2d+e config 6", lambda lan=lan:
-                 K.langevin_kick_monitor(*lan))]
+                *common,
+                ("place config 6", lambda system=system, maps=maps, g=g,
+                 x=x, v=v, f=f, fs=fs: place.place(
+                     system, maps, g, x, v, f, fs.ex_left, fs.ex_right,
+                     fs.img))]
     return cases
 
 
@@ -196,20 +213,18 @@ class _Replay:
         self.loop.graphs[limit].replay()
 
 
-def loop_packages(dirs):
-    """[(tree index, package)] of the trees whose step loop ``kernels``
-    times: the package for tree 0, and for each other DIR whose parent is
-    a package (DIR/../fast/kernels.py), that package copied to build/ab
-    and imported as lammps_le_torch_tree<i>."""
+def tree_packages(dirs):
+    """[(tree index, package)]: the package for tree 0, and for each other
+    DIR the package around it (DIR/..), copied to build/ab and imported
+    as lammps_le_torch_tree<i>; a DIR without one is refused."""
     import lammps_le_torch
 
     out = [(0, lammps_le_torch)]
     for i, d in enumerate(dirs[1:], 1):
         src = Path(d).resolve().parent
         if not (src / "fast" / "kernels.py").exists():
-            print(f"{d}: no package around it, no step-loop cases",
-                  flush=True)
-            continue
+            raise SystemExit(f"{d}: not the csrc directory of a copy of the "
+                             f"package (no {src / 'fast' / 'kernels.py'})")
         name = f"lammps_le_torch_tree{i}"
         shutil.rmtree(AB_DIR / name, ignore_errors=True)
         shutil.copytree(src, AB_DIR / name, ignore=shutil.ignore_patterns(
@@ -245,8 +260,7 @@ def loop_runs(pkgs, sim, state, dev):
         g = place.GridConsts.build(sim.system, maps, dev)
         real = ps.make_step_kernel(sim.system, maps, sim.ex_btype,
                                    dt=sim.dt, langevin=lf, g=g)
-        # the package's libraries built (and loaded) outside the timing
-        importlib.import_module(pkg.__name__ + ".fast.kernels")._lib()
+        # the package's libraries built (and loaded) before: ``kernels``
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         steps.add(int(real(*args, *head, 16)[3][7]))
@@ -287,22 +301,23 @@ def time_loops(runs, d, rounds):
 def kernels(args, dev):
     import torch
 
-    from lammps_le_torch.fast import kernels as K
-
     dirs = [ROOT / "lammps_le_torch" / "csrc"] + [Path(d) for d in args.dirs]
-    built = build_trees(dirs)
-    trees = [K.bind(paths) for paths in built]
+    pkgs = tree_packages(dirs)
+    built = [importlib.import_module(pkg.__name__ + ".csrc.build").build()
+             for _, pkg in pkgs]
+    for _, pkg in pkgs:
+        importlib.import_module(pkg.__name__ + ".fast.kernels")._lib()
     for d, paths in zip(dirs[1:], built[1:]):
         print(f"{d}: stencil instances with the package's SASS: "
               f"{same_sass(built[0], paths)}", flush=True)
     states = settled(dev)
-    cases = kernel_cases(states, dev)
-    K._LIBS = trees[0]
-    K._LAN_SCRATCH.clear()
-    ref = [fn() for _, fn in cases]
-    times = [[[] for _ in cases] for _ in trees]
-    diffs = [[0.0] * len(cases) for _ in trees]
-    same = [[True] * len(cases) for _ in trees]
+    inputs = kernel_inputs(states, dev)
+    trees = [kernel_cases(inputs, pkg) for _, pkg in pkgs]
+    labels = [label for label, _ in trees[0]]
+    ref = [fn() for _, fn in trees[0]]
+    times = [[[] for _ in labels] for _ in trees]
+    diffs = [[0.0] * len(labels) for _ in trees]
+    same = [[True] * len(labels) for _ in trees]
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     for r in range(args.rounds):
@@ -310,11 +325,7 @@ def kernels(args, dev):
         if r % 2:
             order.reverse()
         for t in order:
-            # each tree's Langevin kernel places its ticket words after
-            # its own partials: fresh zeroed scratch for every tree
-            K._LIBS = trees[t]
-            K._LAN_SCRATCH.clear()
-            for c, (_, fn) in enumerate(cases):
+            for c, (_, fn) in enumerate(trees[t]):
                 for _ in range(3):
                     fn()
                 torch.cuda.synchronize()
@@ -327,24 +338,26 @@ def kernels(args, dev):
                 stop.record()
                 torch.cuda.synchronize()
                 times[t][c].append(start.elapsed_time(stop) / 20)
-                diffs[t][c] = float((out[0] - ref[c][0]).abs().max())
+                diffs[t][c] = float((out[0].double()
+                                     - ref[c][0].double()).abs().max())
                 same[t][c] &= all(torch.equal(a, b)
                                   for a, b in zip(out, ref[c]))
-    K._LIBS = None
-    for c, (label, _) in enumerate(cases):
+    for c, label in enumerate(labels):
         for t, d in enumerate(dirs):
             m, lo, hi = quartiles(times[t][c])
             print(f"{label} {d}: device {m:.4f} ms a call (IQR {lo:.4f}-"
                   f"{hi:.4f} over {args.rounds} rounds); max|out0 - "
                   f"out0_pkg| {diffs[t][c]:.3g}, every output equal to the "
                   f"package's {same[t][c]}", flush=True)
-    # K2's step loop: the package's on tree 0's libraries, the others'
-    # on their own
-    K._LIBS = trees[0]
-    K._LAN_SCRATCH.clear()
-    runs, d = loop_runs(loop_packages(dirs), *states[0], dev)
+        for t, d in enumerate(dirs[1:], 1):
+            wins = sum(a < b for a, b in zip(times[0][c], times[t][c]))
+            ratio = quartiles(times[0][c])[0] / quartiles(times[t][c])[0]
+            print(f"{label}: package / {d} {ratio:.4f} in device time, the "
+                  f"package faster in {wins} of {args.rounds} rounds",
+                  flush=True)
+    # K2's step loop, each tree's on its own libraries
+    runs, d = loop_runs(pkgs, *states[0], dev)
     times, same_loop = time_loops(runs, d, args.rounds)
-    K._LIBS = None
     for lim, label in ((16, f"stopped after {d} steps"),
                        (d, "live steps only")):
         for t in runs:

@@ -3,7 +3,7 @@
 
 The instructions one IEEE reciprocal issues, read from the built
 library's SASS, and the card's SM count and clock set the operation
-bounds of every kernel.  It drives the port's five paths through its
+bounds of every kernel.  It drives the port's six paths through its
 user entry points:
 
 1. bench.py's production LE configuration (bench.py:398-486): a
@@ -17,17 +17,30 @@ user entry points:
    repeat;
 2. config 6 (benchmarks/configs.py:269-362): a 1,000,000-bead chromosome
    past the whole-plane gate, where the engine takes the Newton-half
-   stencil, with 5,000 seeded extruders and 600 measured steps;
+   stencil, with 5,000 seeded extruders and 600 measured steps, then
+   two replicas of its end for 40 steps (``run_fast_replicas``);
 3. the 100k configuration's 1,500 measured steps, from the same settled
    state, on the sharded slab stencil (make_sharded_segment) at sp=2 with
    both slabs on the card;
 4. the same on the tiled full stencil (make_pallas_kernel as kernel_fn);
 5. the 100k configuration anew with its Langevin fix on the group of
-   beads 1-90,000 with ``zero yes`` (the last tenth runs NVE).
+   beads 1-90,000 with ``zero yes`` (the last tenth runs NVE);
+6. bench.py's replica sweep (``--sweep``, bench.py:517-583) from path 1's
+   settled state: R = 1, 4 and 8 replicas (``run_fast_replicas``' start,
+   keys folded with 100 + i) on the replica-batched non-reactive chain,
+   rebuild every 4 steps, 40 warm-up and 1,500 measured steps in chunks
+   of 250; every replica healthy (one whose flags include a cell
+   overflow: healthy through the step before its run alone first
+   overflows, where a numpy count of that rebuild's positions must find a
+   cell past cap), replica 0 bit for bit the same at every R, each kernel
+   one launch a step for all replicas.
 
 After each it holds that path's hand-written CUDA kernels against their
 plain PyTorch versions at the shapes the run gave them and times both
-(one record per path and kernel, K2's step loop against its plain loop
+(path 6 and config 6's replicas: each chain kernel batched over the R = 8
+run's planes, and K3 over two config-6 plane sets, also against its
+one-run launches on each replica, bit for bit, and timed against them;
+one record per path and kernel, K2's step loop against its plain loop
 among them, with its launch stopped by the trigger against the launch
 of its steps and its graph's nodes a step; paths 3, 4 and 5 record their stencil or their Langevin
 kernel, the other kernels having run at path 1's shapes),
@@ -124,6 +137,24 @@ SOURCES = {"newton_half_forces": "blocked.cu", "window_forces": "blocked.cu",
 # path 5: the thermostat's group, beads 1-90,000 of 100,000 (group chain
 # id 1:90000); the last tenth of the chromosome runs NVE
 N_CHAIN = 90_000
+# path 6, bench.py's --sweep (bench.py:517-583): replica counts, the
+# static rebuild cadence, measured steps a chunk, the replica keys' first
+# seed; steps whose host syncs are counted; config 6's replicas and steps
+SWEEP, SWEEP_EVERY, SWEEP_CHUNK, SWEEP_SEED = (1, 4, 8), 4, 250, 100
+SYNC_STEPS = 50
+C6_REPLICAS, C6_REPLICA_STEPS = 2, 40
+# what replica 0 of path 6 must end with bit for bit at every R
+REPLICA_WITNESS = ("gx", "gv", "gf", "gx_ref", "bid", "hn", "pid", "slot_of",
+                   "exl_slot", "exr_slot", "ex_left", "ex_right", "types",
+                   "img", "flags", "epair", "ebond", "n_moves", "n_loads",
+                   "n_unloads", "n_clamps", "last_event")
+# the TPU kernel each chain kernel replaces (its records, one-run and batched)
+REPLACES = {
+    "kick_drift_halo": "lammps_le_tpu/fast/pallas_step.py:731",
+    "stencil_forces": "lammps_le_tpu/fast/pallas_step.py:249",
+    "extruder_springs": "lammps_le_tpu/fast/pallas_step.py:776",
+    "langevin_kick_monitor": "lammps_le_tpu/fast/pallas_step.py:932",
+    "newton_half_forces": "lammps_le_tpu/fast/blocked_kernel.py:90"}
 
 
 def fail(msg):
@@ -282,14 +313,27 @@ def measured_segment(sim, state, dev, warm, measure, profile_steps,
     return fs, wall, rebuilds, launches, loops
 
 
-def drive(system, data, dev, groups=None):
-    """bench.py's thermalize / settle phases on the port.  Returns the
-    production Simulation and the settled State that its measured phase
-    starts from.  With ``groups`` (path 5) the production Langevin fix
-    thermostats the group ``chain`` with ``zero yes``."""
+def bench_replica(state, i):
+    """bench.py's replica ``i`` of a settled State: its key folded with
+    SWEEP_SEED + i (bench.py:551-556)."""
     import torch
 
     from lammps_le_torch import rng
+
+    return state.replace(key=torch.tensor(
+        rng.fold_in(state.key.tolist(), SWEEP_SEED + i), dtype=torch.int64,
+        device=state.key.device))
+
+
+def drive(system, data, dev, groups=None, replica=0):
+    """bench.py's thermalize / settle phases on the port.  Returns the
+    production Simulation and the settled State that its measured phase
+    starts from: bench.py's replica ``replica`` (its R = 1 run's, 0), or
+    with ``replica`` None the settled State itself.  With ``groups``
+    (path 5) the production Langevin fix thermostats the group ``chain``
+    with ``zero yes``."""
+    import torch
+
     from lammps_le_torch.fixes import NVE, Langevin
     from lammps_le_torch.integrate import Simulation
     from lammps_le_torch.state import init_state
@@ -308,22 +352,8 @@ def drive(system, data, dev, groups=None):
     settle = Simulation(system=system, dt=0.002, fixes=sim.fixes,
                         ex_btype=2)
     state = timed_run("settle", settle, state, SETTLE, groups)
-    # bench.py's R=1 replica: key folded with replica seed 100
-    return sim, state.replace(
-        flags=torch.zeros_like(state.flags),
-        key=torch.tensor(rng.fold_in(state.key.tolist(), 100),
-                         dtype=torch.int64, device=dev))
-
-
-def drive_config6(data, system, dev, profile_steps=0):
-    """configs.py:300-331 on the port (``settle_config6``), then 20
-    warm-up and 600 measured steps with energy_every 100.  The
-    reference's 100-step launches only worked around a TPU worker crash
-    (configs.py:333-336): the port runs the 600 steps as one segment.
-    Returns (Simulation,) + what ``measured_segment`` returns."""
-    sim, state = settle_config6(data, system, dev)
-    return (sim,) + measured_segment(sim, state, dev, C6["warm"],
-                                     C6["measure"], profile_steps)
+    state = state.replace(flags=torch.zeros_like(state.flags))
+    return sim, state if replica is None else bench_replica(state, replica)
 
 
 def settle_config6(data, system, dev):
@@ -601,6 +631,11 @@ def max_cell_count(fs, system):
     from lammps_le_torch.fast.maps import fast_maps
     from lammps_le_torch.ops.cells import cell_coords, wrap_positions
 
+    if fs.replicas:
+        from lammps_le_torch.fast import replica
+
+        return max(max_cell_count(replica(fs, r), system)
+                   for r in range(fs.replicas))
     x, _ = wrap_positions(extract_beads(fs, fast_maps(system))[0], system,
                           fs.img)
     c3 = cell_coords(x, system)
@@ -634,9 +669,10 @@ def profile_window(segment, fs, system, steps, b0, bend):
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:16]:
         print(f"  {e.self_device_time_total / steps:9.2f} us/step  "
               f"{e.count:6d}x  {e.key[:70]}", flush=True)
+    flags = fs.flags.tolist()  # a list of each replica's
     print(f"profile: the profiled copy ends at step {fs.step} with flags "
-          f"{int(fs.flags):#x}, at most {max_cell_count(fs, system)}"
-          f" beads in a cell", flush=True)
+          f"{[hex(f) for f in flags] if fs.replicas else hex(flags)}, at "
+          f"most {max_cell_count(fs, system)} beads in a cell", flush=True)
     return busy_us / steps / 1e3
 
 
@@ -761,7 +797,7 @@ def kernel_phases(fs, sim, g):
     err = max(float((gx_k - gx_r).abs().max()),
               float((gv_k - gv_r).abs().max()))
     recs["kick_drift_halo"] = dict(
-        replaces="lammps_le_tpu/fast/pallas_step.py:731", max_abs_err=err,
+        replaces=REPLACES["kick_drift_halo"], max_abs_err=err,
         tol="bitwise",
         # x, v, f, bid in, x, v out per slot; the halo list; 18 operations
         # a slot, 3 a halo copy
@@ -789,7 +825,7 @@ def kernel_phases(fs, sim, g):
         fail(f"extruder_springs energy {ek} vs {er}")
     scratch = fs.gf.clone()
     recs["extruder_springs"] = dict(
-        replaces="lammps_le_tpu/fast/pallas_step.py:776", max_abs_err=err,
+        replaces=REPLACES["extruder_springs"], max_abs_err=err,
         tol=f"{F_REL}*max|f|={F_REL * max(fmax, 1.0):.3g}",
         n_active=int(active.sum()),
         # per slot: two anchor slots and the active bit in, the energy
@@ -824,7 +860,7 @@ def kernel_phases(fs, sim, g):
         fail(f"langevin_kick_monitor error {err}, ints {in_k.tolist()} vs "
              f"{in_r.tolist()}")
     recs["langevin_kick_monitor"] = dict(
-        replaces="lammps_le_tpu/fast/pallas_step.py:932", max_abs_err=err,
+        replaces=REPLACES["langevin_kick_monitor"], max_abs_err=err,
         tol="noise bitwise; f, v 3e-5*max|f|",
         bound=langevin_bound(fs.bid, g.interior, n),
         t=timings(lambda: K.langevin_kick_monitor(*lm_args), 50),
@@ -1107,7 +1143,7 @@ def stencil_phase(fs, sim, g):
                         (gf_k, en_k, in_k), (gf_r, en_r, in_r),
                         F_REL * max(fmax, 1.0))
     return dict(
-        replaces="lammps_le_tpu/fast/pallas_step.py:249", max_abs_err=err,
+        replaces=REPLACES["stencil_forces"], max_abs_err=err,
         tol=f"{F_REL}*max|f|={F_REL * max(fmax, 1.0):.3g}",
         energies=en_k.tolist(), energies_plain=en_r.tolist(),
         bound=stencil_bound("stencil_forces", fs, g, maps, st_args[5], n),
@@ -1179,7 +1215,7 @@ def newton_phase(fs, sim, g):
                         lambda: K.newton_half_forces(*args), k1,
                         (gf_r, en_r, in_r), tol)
     return dict(
-        replaces="lammps_le_tpu/fast/blocked_kernel.py:90", max_abs_err=err,
+        replaces=REPLACES["newton_half_forces"], max_abs_err=err,
         tol=f"{F_REL}*max|f|={tol:.3g}; bitwise run to run", t_exact=t_exact,
         bound=stencil_bound("newton_half_forces", fs, g, maps, C, n),
         bound_full=stencil_bound("stencil_forces", fs, g, maps, C, n),
@@ -1449,7 +1485,7 @@ def zero_group_phase(fs, sim, g):
     if not same:
         fail("zero changed forces or velocities outside the group")
     return dict(
-        replaces="lammps_le_tpu/fast/pallas_step.py:932", max_abs_err=err,
+        replaces=REPLACES["langevin_kick_monitor"], max_abs_err=err,
         tol=f"{F_REL}*max|f|={tol:.3g}; bitwise run to run; group sum of "
         f"the random force <= {sum_tol:.3g}; outside the group bitwise the "
         f"zero-off call's",
@@ -1815,6 +1851,428 @@ def small_end_to_end(dev, steps=40, stencil="stencil_forces"):
              f"{nl} step-loop launches)")
 
 
+def sweep_sim(sim):
+    """bench.py's sweep Simulation (bench.py:521-527): the production one
+    with the static cadence SWEEP_EVERY."""
+    from lammps_le_torch.integrate import Simulation
+
+    system = sim.system
+    system = system.replace(neighbor=dataclasses.replace(
+        system.neighbor, rebuild_every=SWEEP_EVERY))
+    return Simulation(system=system, dt=sim.dt,
+                      energy_every=sim.energy_every, fixes=sim.fixes,
+                      ex_btype=sim.ex_btype)
+
+
+def replica_health(fs, system, overflowed=False):
+    """What fails bench.py's health check (bench.py:602-610) in one run's
+    FastState: every bead on an interior slot, no error-class flag, FENE
+    clamps <= 20 per move, T in (0.5, 2.0); with ``overflowed`` (its
+    flags include FLAG_CELL_OVERFLOW, which drops a bead from the grid)
+    only the clamps and T.  Returns [what failed]."""
+    import torch
+
+    from lammps_le_torch.fast import thermo_row_fast
+    from lammps_le_torch.fast.maps import fast_maps
+    from lammps_le_torch.state import FLAG_FENE_CLAMP
+
+    temp = float(thermo_row_fast(fs, system).temp)
+    flags, moves, clamps = (int(t) for t in (fs.flags, fs.n_moves,
+                                             fs.n_clamps))
+    out = []
+    if not overflowed:
+        interior = torch.as_tensor(fast_maps(system).interior,
+                                   device=fs.gx.device)
+        placed = int(((fs.bid < system.n) & interior).sum())
+        if placed != system.n:
+            out.append(f"{placed} of {system.n} beads on the grid")
+        if flags & ~FLAG_FENE_CLAMP:
+            out.append(f"error-class flags {flags:#x}")
+    if clamps > 20 * max(moves, 1):
+        out.append(f"{clamps} FENE clamp events for {moves} moves")
+    if not 0.5 < temp < 2.0:
+        out.append(f"temperature {temp}")
+    return out
+
+
+def check_replicas(label, fs, system, wall, rebuilds, launches, measure,
+                   want):
+    """Print a replica-batched window's throughput and each replica's
+    health (finite planes of the path's shape, ``replica_health``); fail
+    unless each kernel launched ``want[name]`` times for all replicas
+    and every replica is healthy, a replica whose flags include
+    FLAG_CELL_OVERFLOW (a cell past cap at a rebuild) held to its clamps
+    and T only here: ``overflow_witness`` then holds it to the rest.
+    Returns (steps a second, the replicas whose flags include
+    FLAG_CELL_OVERFLOW)."""
+    import torch
+
+    from lammps_le_torch.fast import replica, thermo_row_fast
+    from lammps_le_torch.state import FLAG_CELL_OVERFLOW
+
+    R = fs.replicas
+    temps = thermo_row_fast(fs, system).temp.tolist()
+    flags, moves, clamps = (t.tolist() for t in (fs.flags, fs.n_moves,
+                                                 fs.n_clamps))
+    sps = measure / wall
+    fl = 0
+    for f in flags:
+        fl |= f
+    print(f"{label}: {measure} steps in {wall:.3f} s: {sps:.2f} steps/s, "
+          f"{sps * system.n * R:.6g} bead*steps/s over the {R} replicas "
+          f"({card_line()}); rebuilds {rebuilds}; mean T "
+          f"{sum(temps) / R:.4f}; flags (or) {fl:#x}; moves {sum(moves)}, "
+          f"clamps {sum(clamps)}; per replica T {[round(t, 4) for t in temps]}"
+          f", moves {moves}, clamps {clamps}", flush=True)
+    print(f"{label}: kernel launches in the {measure} measured steps "
+          f"{launches}, {sum(launches.values()) / measure:.4f} a step",
+          flush=True)
+    if tuple(fs.gx.shape) != (R, 3) + GRID or not bool(
+            torch.isfinite(fs.gx).all() and torch.isfinite(fs.gv).all()):
+        fail(f"{label}: planes of shape {tuple(fs.gx.shape)} or not finite")
+    overflowed = [r for r in range(R) if flags[r] & FLAG_CELL_OVERFLOW]
+    for r in range(R):
+        bad = replica_health(replica(fs, r), system, r in overflowed)
+        if bad:
+            fail(f"{label} replica {r}: " + "; ".join(bad))
+    if sum(moves) <= 0:
+        fail(f"{label}: no extrusion move in the run")
+    if launches != want:
+        fail(f"{label}: kernel launches {launches} (want {want})")
+    return sps, overflowed
+
+
+def numpy_cell_counts(x, system):
+    """Beads a cell of the configuration's nx x ny x nz grid at positions
+    ``x`` ((N, 3), any image), counted with numpy in f64: each coordinate
+    wrapped into the box and binned by its fraction of it (the grid's
+    rule, engine.py's placement not used)."""
+    nb = system.neighbor
+    dims = np.array([nb.nx, nb.ny, nb.nz])
+    lo = np.asarray(system.box_lo, np.float64)
+    frac = (np.asarray(x, np.float64) - lo) / np.asarray(system.box_size,
+                                                          np.float64)
+    frac -= np.floor(frac)
+    cell = np.minimum((frac * dims).astype(np.int64), dims - 1)
+    return np.bincount(np.ravel_multi_index(cell.T, dims),
+                       minlength=int(dims.prod()))
+
+
+def overflow_witness(label, segment, sim, settled, fs, r, b0, bend):
+    """Replica ``r`` of path 6's state ``fs``, whose flags include
+    FLAG_CELL_OVERFLOW, run again alone on the one-run chain (its key
+    folded with SWEEP_SEED + r) a step a call, the flags read after each,
+    until the first step whose flags hold the overflow, then on to
+    ``fs.step``.  Fails unless the run is healthy (``replica_health``)
+    through the step before it, that step is a due rebuild of the static
+    schedule, the positions that rebuild binned (the state before the
+    step after its kick and drift, K2a; LE events move no bead) put more
+    than cap beads in a cell by ``numpy_cell_counts``, and the run ends
+    bit for bit as the replica did."""
+    import torch
+
+    from lammps_le_torch import rng
+    from lammps_le_torch.fast import kernels as K, replica, to_fast
+    from lammps_le_torch.fast.engine import extract_beads, rebuild_schedule
+    from lammps_le_torch.fast.maps import fast_maps
+    from lammps_le_torch.fast.place import GridConsts
+    from lammps_le_torch.state import FLAG_CELL_OVERFLOW
+
+    system = sim.system
+    maps = fast_maps(system)
+    one = to_fast(settled, sim)
+    one = dataclasses.replace(one, key_words=rng.fold_in(
+        one.key_words, SWEEP_SEED + r))
+    s = b0
+    while True:
+        before = dataclasses.replace(one, **{
+            f.name: getattr(one, f.name).clone()
+            for f in dataclasses.fields(one)
+            if isinstance(getattr(one, f.name), torch.Tensor)})
+        segment(one, s, 1, b0, bend)
+        s += 1
+        if int(one.flags) & FLAG_CELL_OVERFLOW:
+            break
+        if s == fs.step:
+            fail(f"{label} replica {r}: its one-run chain never overflows")
+    segment(one, s, fs.step - s, b0, bend)
+    g = GridConsts.build(system, maps, one.gx.device)
+    kick = 0.5 * sim.dt * system.units.ftm2v / float(system.masses[0])
+    gx, _ = K.kick_drift_halo(before.gx, before.gv, before.gf, before.bid,
+                              g.interior, g.halo_cols, g.halo_src,
+                              g.halo_shift, system.n, kick, sim.dt)
+    x = extract_beads(dataclasses.replace(before, gx=gx), maps)[0]
+    counts = numpy_cell_counts(x.cpu().numpy(), system)
+    due = rebuild_schedule(sim, reactive=False)(s)
+    bad = replica_health(before, system)
+    mine = replica(fs, r)
+    same = [k for k in REPLICA_WITNESS
+            if not torch.equal(getattr(one, k), getattr(mine, k))]
+    print(f"{label} replica {r}: flags {int(mine.flags):#x}; its one-run "
+          f"chain with the same key first overflows at step {s} (a due "
+          f"rebuild {due}), healthy through step {s - 1} "
+          f"({'; '.join(bad) or 'yes'}); that rebuild's positions binned "
+          f"by numpy: fullest cell {int(counts.max())} beads, "
+          f"{int((counts > maps.cap).sum())} cells past cap {maps.cap}; "
+          f"the run ends "
+          + ("bit for bit as the replica" if not same
+             else f"differently in {same}"), flush=True)
+    if bad or not due or counts.max() <= maps.cap or same:
+        fail(f"{label} replica {r}: its overflow is not witnessed (due "
+             f"{due}, health before {bad}, fullest cell "
+             f"{int(counts.max())}, differs in {same})")
+
+
+def replica_sweep(sim, settled, dev, profile_steps):
+    """Path 6, bench.py's --sweep (bench.py:517-583) from path 1's settled
+    State: for each R of SWEEP, R replicas (keys folded with SWEEP_SEED +
+    i, ``run_fast_replicas``) on the non-reactive chain with the static
+    cadence SWEEP_EVERY, 40 warm-up steps, then MEASURE steps in chunks of
+    SWEEP_CHUNK, each ending in a host read as bench.py's does; the launch
+    counts zeroed just before the measured steps and read just after.
+    Host syncs a step over SYNC_STEPS more steps on a copy and, with
+    ``profile_steps``, the device busy share.  Replica 0 must end bit for
+    bit the same at every R, and a replica that overflows a cell (cap 9 is
+    the configuration's limit) is held to ``overflow_witness``.  Returns
+    (the R = max(SWEEP) FastState, its window's launches, {R: steps/s})."""
+    import torch
+
+    from lammps_le_torch.fast import (kernels as K, make_fast_segment,
+                                      replica, run_fast_replicas)
+
+    sim_x = sweep_sim(sim)
+    system = sim_x.system
+    segment, _ = make_fast_segment(sim_x, pallas=False, reactive=False,
+                                   device=dev)
+    sps, first, fs = {}, None, None
+    for R in SWEEP:
+        del fs
+        torch.cuda.empty_cache()
+        fs = run_fast_replicas(sim_x, settled, R, 0, seed=SWEEP_SEED)
+        b0 = fs.step
+        bend = b0 + WARM + MEASURE
+        segment(fs, b0, WARM, b0, bend)
+        torch.cuda.synchronize()
+        rebuilds0 = fs.n_rebuilds
+        K.reset_launches()
+        t0 = time.perf_counter()
+        done = 0
+        while done < MEASURE:
+            this = min(SWEEP_CHUNK, MEASURE - done)
+            segment(fs, b0 + WARM + done, this, b0, bend)
+            fs.flags.cpu()  # bench.py's device_get of each chunk
+            done += this
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        sps[R], overflowed = check_replicas(
+            f"replicas R={R}", fs, system, wall, fs.n_rebuilds - rebuilds0,
+            launches, MEASURE, path_launches(launches, "stencil_forces"))
+        for r in overflowed:
+            overflow_witness(f"replicas R={R}", segment, sim_x, settled, fs,
+                             r, b0, bend)
+        if profile_steps:
+            dev_ms = profile_window(segment, dataclasses.replace(fs),
+                                    system, profile_steps, b0, bend)
+            print(f"replicas R={R}: device busy at the measured rate: "
+                  f"{dev_ms:.4f} ms a step x {sps[R]:.2f} steps/s = "
+                  f"{100 * dev_ms * sps[R] / 1e3:.1f}%", flush=True)
+        count_syncs(segment, dataclasses.replace(fs), SYNC_STEPS, b0, bend)
+        zero = replica(fs, 0)
+        if first is None:
+            first = {k: getattr(zero, k).clone() for k in REPLICA_WITNESS}
+        else:
+            same = [k for k in REPLICA_WITNESS
+                    if not torch.equal(first[k], getattr(zero, k))]
+            verdict = "bitwise the same" if not same else f"differs in {same}"
+            print(f"replica 0 at R={R} against R={SWEEP[0]}: {verdict}",
+                  flush=True)
+            if same:
+                fail(f"replica 0 at R={R} differs from R={SWEEP[0]} in {same}")
+    print(f"path 6 ({card_line()}): " + ", ".join(
+        f"R={R} {v:.2f} steps/s, {v * system.n * R:.6g} bead*steps/s"
+        for R, v in sps.items()), flush=True)
+    return fs, launches, sps
+
+
+def batched_records(runs, sim, g, one_bound, names):
+    """Each chain kernel of ``names`` at R = len(runs) on those runs'
+    planes (one run's FastStates, each replica's distinct), stacked: one
+    batched launch against the R one-run launches (bitwise) and against
+    the plain version (forces at the tolerance the one-run form is held
+    to, a stencil's energies, flags and clamps too), timed against the R
+    one-run launches; the bound the R one-run bounds
+    (``one_bound(name, run)``).  Returns per-kernel records (no launch
+    counts)."""
+    import torch
+
+    from lammps_le_torch.fast import kernels as K
+    from lammps_le_torch.fast import kernels_ref as R
+    from lammps_le_torch.fast.consts import SpringConsts, StencilConsts
+    from lammps_le_torch.fast.maps import fast_maps
+
+    system = sim.system
+    maps = fast_maps(system)
+    n, nrep = system.n, len(runs)
+    kick = 0.5 * sim.dt / float(system.masses[0])
+    C, S = StencilConsts(system), SpringConsts(system, sim.ex_btype)
+    keys = [(123456789 + r, 987654321 + 7 * r) for r in range(nrep)]
+    words = torch.as_tensor(np.array(keys, np.uint32).view(np.int32),
+                            device=runs[0].gx.device)
+    step = runs[0].step
+
+    def stacked(*fields):
+        return tuple(torch.stack([getattr(f, k) for f in runs])
+                     for k in fields)
+
+    cases = {
+        "stencil_forces": lambda M: (
+            lambda gx, bid, hn, pid: M.stencil_forces(
+                gx, bid, hn, pid, g.interior, C, n, maps.strides, True),
+            stacked("gx", "bid", "hn", "pid"), None),
+        "newton_half_forces": lambda M: (
+            lambda gx, bid, hn, pid: M.newton_half_forces(
+                gx, bid, hn, pid, g.interior, g.faces, C, n, maps.strides,
+                maps.fold_shifts, True),
+            stacked("gx", "bid", "hn", "pid"), None),
+        "kick_drift_halo": lambda M: (
+            lambda gx, gv, gf, bid: M.kick_drift_halo(
+                gx, gv, gf, bid, g.interior, g.halo_cols, g.halo_src,
+                g.halo_shift, n, kick, sim.dt),
+            stacked("gx", "gv", "gf", "bid"), None),
+        # in place on the forces: each check on its own copy of them, the
+        # timed calls on one scratch copy (``scratch``)
+        "extruder_springs": lambda M: (
+            lambda gx, gf, exl, exr, act: (gf, M.extruder_springs(
+                gx, gf, exl, exr, act, S)),
+            stacked("gx", "gf", "exl_slot", "exr_slot")
+            + (stacked("ex_left")[0] >= 0,), None),
+        "langevin_kick_monitor": lambda M: (
+            lambda gx, gxr, gv, gf, bid, key: M.langevin_kick_monitor(
+                gx, gxr, gv, gf, bid, g.interior, key, step, -0.1, 0.7,
+                kick, sim.dt, 0.3, 0.2, n, True),
+            stacked("gx", "gx_ref", "gv", "gf", "bid"), (words, keys)),
+    }
+    recs = {}
+    for name in names:
+        call, batched, key = cases[name](K)
+        plain = cases[name](R)[0]
+        extra = (key[0],) if key else ()
+        inplace = name == "extruder_springs"
+        stencil = name in ("stencil_forces", "newton_half_forces")
+
+        def fresh(args, inplace=inplace):
+            # the forces a spring pass adds to: a copy for each check
+            return (args[0], args[1].clone()) + args[2:] if inplace else args
+
+        def one_run(r, call=call, batched=batched, key=key, fresh=fresh):
+            return call(*fresh(tuple(t[r] for t in batched)),
+                        *((key[1][r],) if key else ()))
+
+        out = call(*fresh(batched), *extra)
+        ref_out = plain(*fresh(batched), *extra)
+        bitwise = all(torch.equal(a[r], b) for r in range(nrep)
+                      for a, b in zip(out, one_run(r)))
+        scratch = fresh(batched)
+        fmax = float(ref_out[0].abs().max())
+        err = float((out[0] - ref_out[0]).abs().max())
+        tol = 0.0 if name == "kick_drift_halo" else F_REL * max(fmax, 1.0)
+        ints_ok = (name not in ("stencil_forces", "newton_half_forces",
+                                "langevin_kick_monitor")
+                   or torch.equal(out[-1], ref_out[-1]))
+        de = (out[1].double() - ref_out[1].double()).abs()
+        e_ok = not stencil or bool(torch.all(
+            de <= E_ABS + E_REL * ref_out[1].double().abs()))
+        print(f"{name} at R={nrep} ({tuple(batched[0].shape)}): one launch "
+              f"against {nrep} one-run launches bitwise {bitwise}; against "
+              f"its plain version max_abs_err {err:.3g} (tol {tol:.3g}), "
+              f"ints equal {ints_ok}"
+              + (f", energies {out[1].tolist()} vs {ref_out[1].tolist()}"
+                 if stencil else ""), flush=True)
+        if not bitwise:
+            fail(f"{name} at R={nrep} differs from its one-run launches")
+        if not err <= tol or not ints_ok or not e_ok:
+            fail(f"{name} at R={nrep} vs its plain version: {err} (tol "
+                 f"{tol}), ints equal {ints_ok}, energies {e_ok}")
+        bounds = [one_bound(name, run) for run in runs]
+        recs[name] = dict(
+            replaces=REPLACES[name], max_abs_err=err,
+            tol=("bitwise" if tol == 0.0 else f"{F_REL}*max|f|={tol:.3g}")
+            + f"; bitwise {nrep} one-run launches",
+            bound=(sum(b[0] for b in bounds), bounds[0][1]),
+            t=timings(lambda: call(*scratch, *extra), 20),
+            t_one=timings(lambda: [call(*(t[r] for t in scratch), *(
+                (key[1][r],) if key else ())) for r in range(nrep)], 20),
+            t_plain=timings(lambda: plain(*scratch, *extra), 2, 1))
+    return recs
+
+
+def one_run_bound(sim, g):
+    """``one_bound(name, fs)`` for batched_records: the bound of kernel
+    ``name``'s one-run call on one replica's planes, as the one-run
+    records count it (kernel_phases, stencil_phase)."""
+    from lammps_le_torch.fast.consts import StencilConsts
+    from lammps_le_torch.fast.maps import fast_maps
+
+    system = sim.system
+    maps = fast_maps(system)
+    n, cap, P = system.n, maps.cap, maps.P
+    H = int(g.halo_cols.shape[0])
+
+    def one_bound(name, fs):
+        if name == "kick_drift_halo":
+            return bound(cap * P * (36 + 4 + 24) + P + H * 20,
+                         cap * P * 18 + cap * H * 3)
+        if name == "extruder_springs":
+            act = int((fs.ex_left >= 0).sum())
+            return bound(fs.exl_slot.shape[0] * 13 + act * 2 * 36, act * 36,
+                         divs=act * 4)
+        if name == "langevin_kick_monitor":
+            return langevin_bound(fs.bid, g.interior, n)
+        return stencil_bound(name, fs, g, maps, StencilConsts(system), n)
+
+    return one_bound
+
+
+def config6_replicas(sim, fs, dev):
+    """Config 6's replicas: C6_REPLICAS replicas of the state ``fs`` (keys
+    folded with SWEEP_SEED + i) for C6_REPLICA_STEPS steps of the batched
+    non-reactive chain (``run_fast_replicas``, the Newton-half stencil) at
+    the sweep's static cadence (``sweep_sim``), the launch counts zeroed
+    just before and read just after; each replica healthy.  Returns (the
+    replicas' FastState, the launches)."""
+    import torch
+
+    from lammps_le_torch.fast import (from_fast, kernels as K,
+                                      run_fast_replicas, thermo_row_fast)
+    from lammps_le_torch.state import FLAG_FENE_CLAMP
+
+    state = from_fast(fs, sim.system)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out = run_fast_replicas(sweep_sim(sim), state, C6_REPLICAS,
+                            C6_REPLICA_STEPS, seed=SWEEP_SEED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    # to_fast evaluates the forces once more
+    want = path_launches(launches, "newton_half_forces", C6_REPLICA_STEPS)
+    want["newton_half_forces"] = want["extruder_springs"] = (
+        C6_REPLICA_STEPS + 1)
+    temps = thermo_row_fast(out, sim.system).temp.tolist()
+    flags = out.flags.tolist()
+    print(f"config 6 replicas R={C6_REPLICAS}: {C6_REPLICA_STEPS} steps "
+          f"from the window's end in {wall:.3f} s (its to_fast included; "
+          f"{card_line()}); T {temps}, flags {[hex(f) for f in flags]}, "
+          f"rebuilds {out.n_rebuilds}; launches {launches}", flush=True)
+    if launches != want or any(f & ~FLAG_FENE_CLAMP for f in flags) or not (
+            all(0.5 < t < 2.0 for t in temps)
+            and bool(torch.isfinite(out.gx).all())):
+        fail(f"config 6 replicas: launches {launches} (want {want}), flags "
+             f"{flags}, T {temps}")
+    return out, launches
+
+
 def print_kernel(path, name, r):
     print(f"kernel {name} on the {path} path: {r['launches']} launches; "
           f"device {r['t'][0]:.4f} ms ({r['t'][2]}; plain "
@@ -1823,7 +2281,9 @@ def print_kernel(path, name, r):
           + (f"; library {r['t_lib'][0]:.4f} ms, {r['t_lib'][2]}"
              if "t_lib" in r else "")
           + (f"; IEEE reciprocal form {r['t_exact'][0]:.4f} ms, "
-             f"{r['t_exact'][2]}" if "t_exact" in r else "") + "); wall per "
+             f"{r['t_exact'][2]}" if "t_exact" in r else "")
+          + (f"; its one-run launches on each replica {r['t_one'][0]:.4f} "
+             f"ms, {r['t_one'][2]}" if "t_one" in r else "") + "); wall per "
           f"back-to-back call {r['t'][1]:.4f} ms (plain "
           f"{r['t_plain'][1]:.4f} ms); max_abs_err {r['max_abs_err']:.3g} "
           f"({r['tol']})", flush=True)
@@ -1868,7 +2328,7 @@ def main(argv=None):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from lammps_le_torch.csrc.build import build
-    from lammps_le_torch.fast import make_fast_segment
+    from lammps_le_torch.fast import make_fast_segment, replica, to_fast
     from lammps_le_torch.fast.engine import whole_planes_fit
     from lammps_le_torch.fast.maps import fast_maps
     from lammps_le_torch.fast.pallas_kernel import make_pallas_kernel
@@ -1904,7 +2364,8 @@ def main(argv=None):
     print(f"{system.n} beads, grid {system.neighbor.nx}x{system.neighbor.ny}"
           f"x{system.neighbor.nz}, cap {system.neighbor.cell_cap}",
           flush=True)
-    sim, start = drive(system, data, dev)
+    sim, settled = drive(system, data, dev, replica=None)
+    start = bench_replica(settled, 0)
     segment, _ = make_fast_segment(sim, device=dev)
     if getattr(segment, "loop", None) is None:
         fail("path 1 did not take K2's step loop in auto mode")
@@ -1971,6 +2432,19 @@ def main(argv=None):
     del fs, start
     torch.cuda.empty_cache()
 
+    # path 6, replicas: bench.py's --sweep from the same settled state,
+    # then each chain kernel batched over the R = 8 run's planes
+    fs, launches, sweep = replica_sweep(sim, settled, dev, args.profile)
+    for R, v in sweep.items():
+        sps[f"100k replicas R={R} (a replica)"] = v
+    recs += path_records(f"100k replicas R={fs.replicas}", batched_records(
+        [replica(fs, r) for r in range(fs.replicas)], sweep_sim(sim), g,
+        one_run_bound(sim, g), ("stencil_forces", "kick_drift_halo",
+                                "extruder_springs", "langevin_kick_monitor")),
+        launches)
+    del fs, settled
+    torch.cuda.empty_cache()
+
     # path 5, fix langevin zero + group: the production Langevin fix on
     # the group chain (beads 1-90,000) with zero yes, all phases anew
     member = np.zeros(system.n, bool)
@@ -2015,8 +2489,9 @@ def main(argv=None):
         fail(f"config 6 grid ({maps.cap}, {maps.P}), want {C6['grid']} past "
              f"the whole-plane gate")
     torch.cuda.reset_peak_memory_stats()
-    sim, fs, wall, rebuilds, launches, _ = drive_config6(data, system, dev,
-                                                         args.profile)
+    sim, settled6 = settle_config6(data, system, dev)
+    fs, wall, rebuilds, launches, _ = measured_segment(
+        sim, settled6, dev, C6["warm"], C6["measure"], args.profile)
     check_run("config 6", fs, system, wall, rebuilds, launches,
               C6["measure"], C6["grid"],
               path_launches(launches, "newton_half_forces", C6["measure"]))
@@ -2027,6 +2502,13 @@ def main(argv=None):
     recs += path_records("config6", dict(
         newton_half_forces=newton_phase(fs, sim, g),
         **kernel_phases(fs, sim, g)), launches)
+    # config 6's replicas: C6_REPLICAS replicas of the window's end on the
+    # batched chain, and K3 batched over the settled and the end planes
+    fs6, launches6 = config6_replicas(sim, fs, dev)
+    recs += path_records(f"config6 replicas R={C6_REPLICAS}", batched_records(
+        [to_fast(settled6, sim), fs], sim, g, one_run_bound(sim, g),
+        ("newton_half_forces",)), launches6)
+    del fs6, settled6
     if args.overrun:
         overrun(sim, fs, dev, args.overrun)
     del fs, g

@@ -31,6 +31,13 @@
 // (common.cuh): energies, flags and clamps.  It allocates nothing: no
 // reaction planes, no gather.
 //
+// Replicas: R replicas' planes stacked on a leading axis run in one
+// launch of each pass: the stencil's grid has a replica dimension
+// (blockIdx.z, stencil.cuh), the fold one per replica (blockIdx.z) over
+// the image codes, which the replicas share (one fold_code_kernel), and
+// the finishing pass one block a replica.  Replica r is bitwise one
+// launch on its planes.
+//
 // window_forces <- lammps_le_tpu/parallel/shard_step.py:55 _window_call
 // (K4), whose body is the same offset loop over each slab's window
 // [M | C | M] of the sharded stencil.  The same block runs over S windows
@@ -95,9 +102,9 @@ __global__ void fold_code_kernel(const uint8_t* __restrict__ interior,
   code[c] = (uint8_t)v;
 }
 
-// one thread a slot (blockIdx.y its row): an interior slot with images
-// adds the reactions set aside on its images (x outermost, then y, then
-// z; low before high)
+// one thread a slot (blockIdx.y its row, blockIdx.z its replica): an
+// interior slot with images adds the reactions set aside on its images
+// (x outermost, then y, then z; low before high)
 __global__ void fold_kernel(float* __restrict__ gf,
                             const float* __restrict__ ghost,
                             const uint8_t* __restrict__ code, FoldArgs f,
@@ -107,6 +114,8 @@ __global__ void fold_kernel(float* __restrict__ gf,
   if (c >= P) return;
   const int v = code[c];
   if (v == 0) return;
+  gf += 3 * capP * blockIdx.z;
+  ghost += 3 * capP * blockIdx.z;
   const long row = (long)blockIdx.y * P, t = row + c;
   float sum[3] = {gf[t], gf[capP + t], gf[2 * capP + t]};
   for (int ix = 0; ix < 3; ++ix) {
@@ -159,26 +168,28 @@ int lle_window_blocks(int period, int nwin) {
   return stencil_blocks(period, nwin);
 }
 
-// ghost: a plane like gf, scratch for the ghost columns' reactions;
-// code: P bytes of scratch for the fold's image codes
+// R replicas' planes stacked on a leading axis.  ghost: planes like gf,
+// scratch for the ghost columns' reactions; code: P bytes of scratch for
+// the fold's image codes; fpart / ipart: each replica's
+// lle_window_blocks(P, 1) partials; en, out: 2 a replica
 int lle_newton_half_forces(const float* gx, const int* bid, const uint8_t* hn,
                            const int* pid, const uint8_t* interior,
                            const uint8_t* faces, float* gf, float* ghost,
                            uint8_t* code, float* fpart, int* ipart,
                            float* en, long long* out, StencilArgs a,
-                           FoldArgs f, void* stream) {
+                           FoldArgs f, int R, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t err =
       launch_stencil<newton_half_kernel<true>, newton_half_kernel<false>>(
-          a, true, stencil_grid(a.P, 1), s, gx, bid, hn, pid, interior, gf,
-          ghost, fpart, ipart, a, a.P);
+          a, true, stencil_grid(a.P, 1, R), s, gx, bid, hn, pid, interior,
+          gf, ghost, fpart, ipart, a, a.P);
   if (err != cudaSuccess) return (int)err;
   fold_code_kernel<<<blocks_for(a.P), kThreads, 0, s>>>(interior, faces, f,
                                                          a.P, code);
-  fold_kernel<<<dim3(blocks_for(a.P), a.cap), kThreads, 0, s>>>(
+  fold_kernel<<<dim3(blocks_for(a.P), a.cap, R), kThreads, 0, s>>>(
       gf, ghost, code, f, a.cap, a.P);
   // ~11,000 block partials at config 6: a full block reduces them
-  stencil_finish_kernel<<<1, 1024, 0, s>>>(
+  stencil_finish_kernel<<<R, 1024, 0, s>>>(
       fpart, ipart, stencil_blocks(a.P, 1), en, out);
   return (int)cudaGetLastError();
 }

@@ -146,14 +146,20 @@ __device__ __forceinline__ bool reach_bad(const StencilSums& s) {
 }
 
 // energies halved (engine.py:759,766); FLAG_BOND_REACH, and
-// FLAG_FENE_CLAMP when a clamp fired
+// FLAG_FENE_CLAMP when a clamp fired.  One block a replica, each over its
+// replica's nblocks partials into its en (2) and out (2)
 __global__ void stencil_finish_kernel(const float* __restrict__ fpart,
                                       const int* __restrict__ ipart,
                                       int nblocks, float* __restrict__ en,
                                       long long* __restrict__ out) {
   __shared__ float shf[32];
   __shared__ int shi[32];
-  const StencilSums s = reduce_tallies(fpart, ipart, nblocks, shf, shi);
+  const long r = blockIdx.x;
+  const StencilSums s = reduce_tallies(fpart + 2 * r * nblocks,
+                                       ipart + 3 * r * nblocks, nblocks,
+                                       shf, shi);
+  en += 2 * r;
+  out += 2 * r;
   if (threadIdx.x == 0) {
     en[0] = 0.5f * s.e_lj;
     en[1] = 0.5f * s.e_b;

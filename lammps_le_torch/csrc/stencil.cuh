@@ -97,8 +97,10 @@ inline int stencil_smem(int cap, bool half) {
          + kGroup * kSpan;          // column masks
 }
 
-inline dim3 stencil_grid(int period, int nwin) {
-  return dim3((period + kTile - 1) / kTile, nwin);
+// blocks over the columns of each of nwin periods of each of R replicas
+// (blockIdx.z: stencil_tile)
+inline dim3 stencil_grid(int period, int nwin, int R = 1) {
+  return dim3((period + kTile - 1) / kTile, nwin, R);
 }
 
 inline int stencil_blocks(int period, int nwin) {
@@ -186,13 +188,13 @@ __device__ void tile_tallies(PairTally t, int nlink, float* fpart,
 }
 
 // One block of the stencil: columns [w0, w0 + kTile) of period
-// blockIdx.y (columns base .. base + period - 1 of the planes, the j
-// column of offset d being (w + d) mod period; kTiled: w + d, empty
-// outside [0, period)).  kHalf: the Newton-half stencil, whose every
-// occupied slot is an item and keeps the reactions it takes, ghost
-// columns included (else a full one, whose items are the i side's
-// slots).  colok: the i side's columns (interior, or a
-// window's own interior).  gf gets every slot of the block's columns,
+// blockIdx.y of replica blockIdx.z (columns base .. base + period - 1 of
+// the replica's planes, the j column of offset d being (w + d) mod
+// period; kTiled: w + d, empty outside [0, period)).  kHalf: the
+// Newton-half stencil, whose every occupied slot is an item and keeps
+// the reactions it takes, ghost columns included (else a full one, whose
+// items are the i side's slots).  colok: the i side's columns (interior,
+// or a window's own interior).  gf gets every slot of the block's columns,
 // but with ghost non-null a column off the i side's gets zeros in gf and
 // its reactions in ghost (K3, whose fold then reads them there); fpart /
 // ipart the block's tallies (tile_tallies).
@@ -209,6 +211,17 @@ __device__ __forceinline__ void stencil_tile(
   __shared__ unsigned int s_own;  // bit t: column w0 + t is on the i side
   const int cap = a.cap, P = a.P, n = a.n;
   const long capP = (long)cap * P;
+  // replica blockIdx.z: its planes, forces and tally partials lie at its
+  // stride; the argument block and colok are shared
+  const long rz = blockIdx.z, nblk = (long)gridDim.x * gridDim.y;
+  gx += rz * 3 * capP;
+  bid += rz * capP;
+  hn += rz * capP;
+  pid += rz * capP;
+  gf += rz * 3 * capP;
+  if (ghost != nullptr) ghost += rz * 3 * capP;
+  fpart += rz * 2 * nblk;
+  ipart += rz * 3 * nblk;
   const int base = blockIdx.y * period, w0 = blockIdx.x * kTile;
   const int nst = kGroup * cap * kSpan, items = kTile * cap;
   // the layout stencil_smem sizes: staged slots [kGroup][cap][kSpan],

@@ -32,6 +32,18 @@
 // order, with no float atomics, and the Langevin pass's last block sets
 // the loop's condition.  A null LaunchCtl is the one-step chain: the
 // arguments' own key, counter base and gamma2.
+//
+// Replicas: the chain's kernels (kick_drift_halo, the stencil, the
+// springs, the Langevin pass) take R replicas' planes stacked on a
+// leading axis, in one launch each.  A grid dimension runs over the
+// replicas (blockIdx.y; the stencil's blockIdx.z), each replica's planes,
+// partials, ticket words and outputs lie at its stride, and every
+// constant (the argument blocks, interior, halo maps) is shared but the
+// Langevin key, read per replica.  A replica's blocks do exactly what one
+// unbatched launch's blocks do on its planes, and each finishing pass
+// reduces its replica's partials in the same fixed order: replica r of a
+// launch is bitwise one launch on its planes.  The step loop is one
+// replica (R = 1).
 
 #include <cstddef>
 #include <vector>
@@ -61,6 +73,9 @@ struct LangevinArgs {
   int group;    // a (cap, P) 0/1 group plane weighs the Langevin force
   int zero;     // the random force's group mean is subtracted first
   float inv_n;  // 1/n in f32: zero's count without a group
+  // the chain's replicas' key words, (R, 2), in place of k0, k1; null:
+  // k0, k1 (one replica, and the step loop)
+  const unsigned int* keys;
 };
 
 // a multi-step launch's controls and results (K2's scalar SMEM inputs and
@@ -149,7 +164,8 @@ __global__ void launch_begin_kernel(LaunchCtl* ctl, unsigned int sstep0,
 // interior source column — the six masked rolls of the TPU kernel exist
 // because a TPU lane gather is slow; here a gather is a plain load.
 
-// gx_out / gv_out may be gx / gv (each slot reads its own values first)
+// gx_out / gv_out may be gx / gv (each slot reads its own values first);
+// replica blockIdx.y
 __global__ void kick_drift_kernel(const float* gx, const float* gv,
                                   const float* __restrict__ gf,
                                   const int* __restrict__ bid,
@@ -160,6 +176,13 @@ __global__ void kick_drift_kernel(const float* gx, const float* gv,
   const long capP = (long)cap * P;
   const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= capP || drift_off(ctl)) return;
+  const long rp = 3 * capP * blockIdx.y;
+  gx += rp;
+  gv += rp;
+  gf += rp;
+  gx_out += rp;
+  gv_out += rp;
+  bid += capP * blockIdx.y;
   const int c = (int)(t % P);
   const float vf = (interior[c] && bid[t] < n) ? 1.f : 0.f;
   for (int k = 0; k < 3; ++k) {
@@ -176,6 +199,7 @@ __global__ void halo_kernel(float* __restrict__ gx, const int* halo_cols,
   const long capP = (long)cap * P;
   const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (long)H * cap || drift_off(ctl)) return;
+  gx += 3 * capP * blockIdx.y;  // replica blockIdx.y
   const int r = (int)(t / H), h = (int)(t % H);
   const long dst = (long)r * P + halo_cols[h];
   const long src = (long)r * P + halo_src[h];
@@ -209,9 +233,9 @@ __global__ void __launch_bounds__(kTileThreads)
 cudaError_t stencil_launch(const float* gx, const int* bid, const uint8_t* hn,
                            const int* pid, const uint8_t* interior, float* gf,
                            float* fpart, int* ipart, const StencilArgs& a,
-                           const LaunchCtl* ctl, cudaStream_t s) {
+                           int R, const LaunchCtl* ctl, cudaStream_t s) {
   return launch_stencil<stencil_kernel<true>, stencil_kernel<false>>(
-      a, false, stencil_grid(a.P, 1), s, gx, bid, hn, pid, interior, gf,
+      a, false, stencil_grid(a.P, 1, R), s, gx, bid, hn, pid, interior, gf,
       fpart, ipart, a, ctl);
 }
 
@@ -276,14 +300,16 @@ __device__ __forceinline__ void spring_slot(const float* __restrict__ gx,
   eb_out[e] = eb;
 }
 
+// replica blockIdx.y: its planes and its E slots
 __global__ void springs_kernel(const float* __restrict__ gx,
                                float* __restrict__ gf,
                                const int* __restrict__ exl,
                                const int* __restrict__ exr,
                                const uint8_t* __restrict__ active,
                                float* __restrict__ eb_out, SpringArgs a) {
-  spring_slot(gx, gf, exl, exr, active, eb_out, a,
-              blockIdx.x * blockDim.x + threadIdx.x);
+  const long rp = 3L * a.cap * a.P * blockIdx.y, re = (long)a.E * blockIdx.y;
+  spring_slot(gx + rp, gf + rp, exl + re, exr + re, active + re, eb_out + re,
+              a, blockIdx.x * blockDim.x + threadIdx.x);
 }
 
 // the controlled step's stencil finishing pass and springs, one launch
@@ -394,6 +420,11 @@ __device__ unsigned int threefry_x0(unsigned int k0, unsigned int k1,
 // argument block then carries g2base in gamma2), s = step_of(ctl)
 __device__ __forceinline__ LangevinArgs step_args(LangevinArgs a,
                                                   const LaunchCtl* ctl) {
+  if (ctl == nullptr && a.keys != nullptr) {
+    // the chain's replica blockIdx.y: its key words
+    a.k0 = a.keys[2 * blockIdx.y];
+    a.k1 = a.keys[2 * blockIdx.y + 1];
+  }
   if (ctl != nullptr) {
     const int s = ctl->steps_done;
     a.k0 = ctl->k0;
@@ -446,6 +477,10 @@ __global__ void __launch_bounds__(kSumThreads)
   if (step_off(ctl)) return;
   const LangevinArgs a = step_args(a0, ctl);
   const int capP = a.cap * a.P;
+  // replica blockIdx.y: its planes, and its partials, means and ticket
+  bid += (long)capP * blockIdx.y;
+  if (a.group) lgm += (long)capP * blockIdx.y;
+  zpart += (4L * gridDim.x + 4) * blockIdx.y;
   const int t0 = blockIdx.x * kSumThreads * kSumSlots + threadIdx.x;
   // a thread's slots t0 + j * kSumThreads: every load first, then the
   // members' words
@@ -550,15 +585,17 @@ __device__ void langevin_finish(const float* part, int nblocks,
 }
 
 // gf_out / gv_out may be gf / gv (each slot reads its own values first).
-// part: 3 partials a block (m1, m2, max look-ahead), the ticket word
+// part: 3 partials a block (m1, m2, max look-ahead), the ticket word;
+// mean: zero's means (zero's pass's buffer, its replicas mstride apart).
+// Replica blockIdx.y: its planes, partials, ticket word, means and out
 __global__ void __launch_bounds__(kLanThreads)
     langevin_kernel(const float* __restrict__ gx,
                     const float* __restrict__ gxr, const float* gv,
                     const float* gf, const int* __restrict__ bid,
                     const uint8_t* __restrict__ interior,
                     const float* __restrict__ lgm,
-                    const float* __restrict__ mean, float* gf_out,
-                    float* gv_out, float* part,
+                    const float* __restrict__ mean, long mstride,
+                    float* gf_out, float* gv_out, float* part,
                     long long* __restrict__ out, LangevinArgs a0,
                     LaunchCtl* ctl, cudaGraphConditionalHandle cond) {
   __shared__ float sh[32];
@@ -572,6 +609,20 @@ __global__ void __launch_bounds__(kLanThreads)
   }
   const LangevinArgs a = step_args(a0, ctl);
   const int capP = a.cap * a.P;
+  {
+    const long r = blockIdx.y, rp = 3L * capP * r;
+    gx += rp;
+    gxr += rp;
+    gv += rp;
+    gf += rp;
+    gf_out += rp;
+    gv_out += rp;
+    bid += capP * r;
+    if (a.group) lgm += capP * r;
+    if (mean != nullptr) mean += mstride * r;
+    part += (3L * gridDim.x + 1) * r;
+    if (out != nullptr) out += 2 * r;
+  }
   const int t = blockIdx.x * kLanThreads + threadIdx.x;
   float dsq = 0.f, pred = 0.f;
   if (t < capP) {
@@ -618,38 +669,45 @@ __global__ void __launch_bounds__(kLanThreads)
     langevin_finish(part, gridDim.x, a, out, ctl, cond, s, sh);
 }
 
-// the launches of each kernel pair; ctl null: the chain's one step
+// the launches of each kernel pair over R replicas; ctl null: the
+// chain's one step
 void kick_drift_launch(const float* gx, const float* gv, const float* gf,
                        const int* bid, const uint8_t* interior,
                        const int* halo_cols, const int* halo_src,
                        const float* halo_shift, float* gx_out, float* gv_out,
                        int cap, int P, int H, int n, float kick, float dt,
-                       const LaunchCtl* ctl, cudaStream_t s) {
-  kick_drift_kernel<<<blocks_for((long)cap * P), kThreads, 0, s>>>(
+                       int R, const LaunchCtl* ctl, cudaStream_t s) {
+  kick_drift_kernel<<<dim3(blocks_for((long)cap * P), R), kThreads, 0, s>>>(
       gx, gv, gf, bid, interior, gx_out, gv_out, cap, P, n, kick, dt, ctl);
   if (H > 0)
-    halo_kernel<<<blocks_for((long)H * cap), kThreads, 0, s>>>(
+    halo_kernel<<<dim3(blocks_for((long)H * cap), R), kThreads, 0, s>>>(
         gx_out, halo_cols, halo_src, halo_shift, H, cap, P, ctl);
 }
 
+// part: R replicas' 3 partials a block and ticket word; zpart: their 4
+// partials a block, 3 means and ticket word (zero's pass)
 void langevin_launch(const float* gx, const float* gxr, const float* gv,
                      const float* gf, const int* bid,
                      const uint8_t* interior, const float* lgm,
                      float* gf_out, float* gv_out, float* part, float* zpart,
-                     long long* out, LangevinArgs a, LaunchCtl* ctl,
+                     long long* out, LangevinArgs a, int R, LaunchCtl* ctl,
                      cudaGraphConditionalHandle cond, cudaStream_t s) {
   const int capP = a.cap * a.P;
   const float* mean = nullptr;
+  long mstride = 0;
   if (a.langevin && a.zero) {
     const int nz = (capP + kSumThreads * kSumSlots - 1) /
                    (kSumThreads * kSumSlots);
-    langevin_sum_kernel<<<nz, kSumThreads, 0, s>>>(bid, interior, lgm,
-                                                   zpart, a, ctl);
+    langevin_sum_kernel<<<dim3(nz, R), kSumThreads, 0, s>>>(bid, interior,
+                                                            lgm, zpart, a,
+                                                            ctl);
     mean = zpart + 4 * nz;
+    mstride = 4L * nz + 4;
   }
-  langevin_kernel<<<(capP + kLanThreads - 1) / kLanThreads, kLanThreads, 0,
-                    s>>>(gx, gxr, gv, gf, bid, interior, lgm, mean, gf_out,
-                         gv_out, part, out, a, ctl, cond);
+  langevin_kernel<<<dim3((capP + kLanThreads - 1) / kLanThreads, R),
+                    kLanThreads, 0, s>>>(gx, gxr, gv, gf, bid, interior, lgm,
+                                         mean, mstride, gf_out, gv_out, part,
+                                         out, a, ctl, cond);
 }
 
 // one controlled step, in place on the static planes, in the chain's
@@ -664,17 +722,17 @@ cudaError_t step_ctl_launch(const StepPlanes& p, const StencilArgs& sa,
   const int cap = sa.cap, P = sa.P;
   kick_drift_launch(p.gx, p.gv, p.gf, p.bid, p.interior, p.halo_cols,
                     p.halo_src, p.halo_shift, p.gx, p.gv, cap, P, p.H, sa.n,
-                    p.kick, p.dt, p.ctl, s);
+                    p.kick, p.dt, 1, p.ctl, s);
   const cudaError_t err = stencil_launch(p.gx, p.bid, p.hn, p.pid,
                                          p.interior, p.gf, p.fpart, p.ipart,
-                                         sa, p.ctl, s);
+                                         sa, 1, p.ctl, s);
   if (err != cudaSuccess) return err;
   fold_springs_kernel<<<1 + (pa.E > 0 ? blocks_for(pa.E) : 0), kThreads, 0,
                         s>>>(p.fpart, p.ipart, stencil_blocks(P, 1),
                              sa.energy, p.gx, p.gf, p.exl, p.exr, p.active,
                              p.eb, pa, p.ctl);
   langevin_launch(p.gx, p.gxr, p.gv, p.gf, p.bid, p.interior, p.lgm, p.gf,
-                  p.gv, p.lpart, p.zpart, nullptr, la, p.ctl, cond, s);
+                  p.gv, p.lpart, p.zpart, nullptr, la, 1, p.ctl, cond, s);
   return cudaGetLastError();
 }
 
@@ -740,14 +798,16 @@ void step_graph_destroy(StepGraph* g) {
 
 extern "C" {
 
+// each entry point of a chain kernel takes R replicas' planes stacked on
+// a leading axis (R = 1: one run's)
 int lle_kick_drift_halo(const float* gx, const float* gv, const float* gf,
                         const int* bid, const uint8_t* interior,
                         const int* halo_cols, const int* halo_src,
                         const float* halo_shift, float* gx_out,
                         float* gv_out, int cap, int P, int H, int n,
-                        float kick, float dt, void* stream) {
+                        float kick, float dt, int R, void* stream) {
   kick_drift_launch(gx, gv, gf, bid, interior, halo_cols, halo_src,
-                    halo_shift, gx_out, gv_out, cap, P, H, n, kick, dt,
+                    halo_shift, gx_out, gv_out, cap, P, H, n, kick, dt, R,
                     nullptr, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
@@ -761,40 +821,45 @@ int lle_blocks(long work) { return blocks_for(work); }
 int lle_stencil_blocks(int P) { return stencil_blocks(P, 1); }
 int lle_stencil_max_cap() { return kMaxCap; }
 
+// fpart / ipart: each replica's lle_stencil_blocks partials; en, out: 2
+// a replica
 int lle_stencil_forces(const float* gx, const int* bid, const uint8_t* hn,
                        const int* pid, const uint8_t* interior, float* gf,
                        float* fpart, int* ipart, float* en, long long* out,
-                       StencilArgs a, void* stream) {
+                       StencilArgs a, int R, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t err = stencil_launch(gx, bid, hn, pid, interior, gf,
-                                         fpart, ipart, a, nullptr, s);
+                                         fpart, ipart, a, R, nullptr, s);
   if (err != cudaSuccess) return (int)err;
-  stencil_finish_kernel<<<1, kThreads, 0, s>>>(
+  stencil_finish_kernel<<<R, kThreads, 0, s>>>(
       fpart, ipart, stencil_blocks(a.P, 1), en, out);
   return (int)cudaGetLastError();
 }
 
 int lle_extruder_springs(const float* gx, float* gf, const int* exl,
                          const int* exr, const uint8_t* active, float* eb,
-                         SpringArgs a, void* stream) {
+                         SpringArgs a, int R, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (a.E > 0)
-    springs_kernel<<<blocks_for(a.E), kThreads, 0, s>>>(gx, gf, exl, exr,
-                                                         active, eb, a);
+    springs_kernel<<<dim3(blocks_for(a.E), R), kThreads, 0, s>>>(
+        gx, gf, exl, exr, active, eb, a);
   return (int)cudaGetLastError();
 }
 
-// part: 3 partials a block and a ticket word; zpart (zero only): 4
-// partials a block, the 3 means and a ticket word.  The ticket words must
-// be 0 at the first launch; every launch leaves them 0
+// part: a replica's 3 partials a block and a ticket word; zpart (zero
+// only): its 4 partials a block, the 3 means and a ticket word; a
+// replica's at its stride, each replica's fitting in the words that
+// lle_blocks(capP) blocks would take.  The ticket words must
+// be 0 at the first launch; every launch leaves them 0.  a.keys: the
+// replicas' key words, or null for a.k0, a.k1 (R = 1)
 int lle_langevin_kick_monitor(const float* gx, const float* gxr,
                               const float* gv, const float* gf,
                               const int* bid, const uint8_t* interior,
                               const float* lgm, float* gf_out, float* gv_out,
                               float* part, float* zpart, long long* out,
-                              LangevinArgs a, void* stream) {
+                              LangevinArgs a, int R, void* stream) {
   langevin_launch(gx, gxr, gv, gf, bid, interior, lgm, gf_out, gv_out, part,
-                  zpart, out, a, nullptr, 0, (cudaStream_t)stream);
+                  zpart, out, a, R, nullptr, 0, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

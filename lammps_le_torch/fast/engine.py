@@ -28,6 +28,15 @@ loop (``pallas_step.py``), which runs up to LAUNCH_MAX steps a launch on
 the card, stopped by the in-launch trigger, with one read a launch; the
 boundary work of a launch's first step (rebuild, LE events) stays on the
 host.  Within the whole-plane gate the card takes the step loop.
+
+``reactive=False`` replaces the skin trigger by a static schedule
+(engine.py:1175-1200): the cadence, each LE event step and every step of
+each extrusion fix's post-event hot window rebuild, after the drift and
+the events, and nothing is read from the card a step.  On that chain a
+FastState may hold R replicas stacked on a leading axis
+(``run_fast_replicas``, the reference's ``jax.vmap``): every gate keys on
+the shared step, each kernel is one launch for all R, placement one sort
+for all, and only the LE events loop over the replicas.
 """
 
 from __future__ import annotations
@@ -53,14 +62,20 @@ from .blocked_kernel import make_blocked_kernel
 from .consts import SpringConsts, StencilConsts
 from .maps import FastMaps, fast_maps
 from .pallas_step import LAUNCH_MAX, make_step_kernel, skin_cuts
-from .place import GridConsts, ex_slots, halo_refresh_int, place
+from .place import (GridConsts, ex_slots, halo_refresh_int, place,
+                    place_replicas)
 
 
 @dataclasses.dataclass
 class FastState:
     """Grid-resident state of one run (engine.py:152).  ``step``,
     ``skin_pend``, ``n_rebuilds`` and ``n_launches`` are host ints: the
-    host drives the step loop."""
+    host drives the step loop.
+
+    R replicas (``stack_fast``): every tensor field gains a leading R axis
+    (planes (R, 3, cap, P) and (R, cap, P), scalars (R,)) and
+    ``key_words`` is a tuple of R word pairs; the host ints stay shared
+    ints, as every replica steps on the same schedule."""
 
     gx: torch.Tensor         # (3, cap, P) positions (halo = shifted copies)
     gv: torch.Tensor         # (3, cap, P) velocities (interior valid)
@@ -93,6 +108,11 @@ class FastState:
     # type, re-placed at every rebuild; None when the thermostat covers
     # all beads (fix langevin <group>, engine.py:262-265)
     lgm: torch.Tensor = None
+
+    @property
+    def replicas(self):
+        """R for a replica-batched state, None for one run's."""
+        return self.bid.shape[0] if self.bid.dim() == 3 else None
 
 
 class ThermoSample(NamedTuple):
@@ -231,21 +251,31 @@ def _ctx(sim, device, kernel_fn=None) -> _Ctx:
 
 def _forces(ctx: _Ctx, gx, bid, hn, pid, exl, exr, active, energy: bool):
     """Stencil + extruder springs.  Returns (gf, energies (2,), ints (2,)
-    = [flag bits, clamps])."""
+    = [flag bits, clamps]); (R, 2) each for R replicas' planes."""
     gf, en, ints = ctx.kernel(ctx.g, gx, bid, hn, pid, energy)
     if ctx.S is not None:
         eb = K.extruder_springs(gx, gf, exl, exr, active, ctx.S)
         if energy:
-            en = en + torch.stack([torch.zeros_like(en[0]), eb.sum()])
+            en = en + torch.stack([torch.zeros_like(en[..., 0]),
+                                   eb.sum(-1)], dim=-1)
     return gf, en, ints
 
 
+def _beads(planes, slot):
+    """(N, 3) values of (3, cap, P) planes at the flat slots (N,) (in
+    range); (R, N, 3) of R replicas' at their (R, N) slots."""
+    if slot.dim() == 1:
+        return planes.reshape(3, -1)[:, slot].T
+    flat = planes.reshape(planes.shape[:2] + (-1,))
+    return torch.gather(flat, 2, slot[:, None, :].expand(
+        -1, 3, -1)).transpose(1, 2)
+
+
 def extract_beads(fs: FastState, maps: FastMaps):
-    """(x, v, f) in bead layout (engine._extract_beads)."""
-    capP = maps.cap * maps.P
-    slot = torch.clamp(fs.slot_of, 0, capP - 1)
-    return tuple(p.reshape(3, capP)[:, slot].T
-                 for p in (fs.gx, fs.gv, fs.gf))
+    """(x, v, f) in bead layout (engine._extract_beads); (R, N, 3) each
+    for R replicas."""
+    slot = torch.clamp(fs.slot_of, 0, maps.cap * maps.P - 1)
+    return tuple(_beads(p, slot) for p in (fs.gx, fs.gv, fs.gf))
 
 
 # ---------------------------------------------------------------------------
@@ -269,13 +299,15 @@ def _lan_member(sim, groups):
 
 
 def _lgm_plane(member, slot_of, maps: FastMaps, dtype):
-    """Scatter (N,) membership to a (cap, P) 0/1 plane
+    """Scatter (..., N) membership to (..., cap, P) 0/1 planes
     (engine._lgm_plane, engine.py:971; rebuild time only)."""
     capP = maps.cap * maps.P
     slot = torch.clamp(slot_of, 0, capP - 1)
-    flat = torch.zeros(capP, dtype=dtype, device=slot_of.device)
-    flat[slot] = torch.as_tensor(member, device=slot_of.device).to(dtype)
-    return flat.reshape(maps.cap, maps.P)
+    lead = tuple(slot.shape[:-1])
+    flat = torch.zeros(lead + (capP,), dtype=dtype, device=slot_of.device)
+    flat.scatter_(-1, slot, torch.as_tensor(
+        member, device=slot_of.device).to(dtype).expand(slot.shape))
+    return flat.reshape(lead + (maps.cap, maps.P))
 
 
 def to_fast(state: State, sim, kernel_fn=None, groups=None) -> FastState:
@@ -306,8 +338,51 @@ def to_fast(state: State, sim, kernel_fn=None, groups=None) -> FastState:
     )
 
 
-def from_fast(fs: FastState, system: System) -> State:
-    """Back to the bead-layout State (engine.from_fast)."""
+def stack_fast(states) -> FastState:
+    """R runs' FastStates as one replica-batched state: each tensor
+    stacked on a leading axis (copies), the key words a tuple of their
+    pairs.  The runs must agree on every other host int (the step, the
+    rebuild and launch counts, a pending rebuild): the batched state
+    holds one of each."""
+    if any(fs.replicas for fs in states):
+        raise ValueError("stack_fast: one run's states")
+    kw = {}
+    for field in dataclasses.fields(FastState):
+        vals = [getattr(fs, field.name) for fs in states]
+        if isinstance(vals[0], torch.Tensor):
+            kw[field.name] = torch.stack(vals)
+        elif field.name == "key_words":
+            kw[field.name] = tuple(tuple(k) for k in vals)
+        elif len(set(vals)) == 1:
+            kw[field.name] = vals[0]
+        else:
+            raise ValueError(f"stack_fast: runs that differ in "
+                             f"{field.name}: {vals}")
+    return FastState(**kw)
+
+
+def replica(fs: FastState, r: int) -> FastState:
+    """Replica ``r`` of a replica-batched state as one run's FastState (its
+    tensors are views of the batched state's)."""
+    if not fs.replicas:
+        raise ValueError("replica: the state holds one run")
+    kw = {}
+    for field in dataclasses.fields(FastState):
+        val = getattr(fs, field.name)
+        if isinstance(val, torch.Tensor) or field.name == "key_words":
+            val = val[r]
+        kw[field.name] = val
+    return FastState(**kw)
+
+
+def from_fast(fs: FastState, system: System, replica_index=None) -> State:
+    """Back to the bead-layout State (engine.from_fast); of replica
+    ``replica_index`` for a replica-batched state."""
+    if fs.replicas:
+        if replica_index is None:
+            raise ValueError("from_fast: name the replica of a "
+                             "replica-batched state")
+        fs = replica(fs, replica_index)
     x, v, f = extract_beads(fs, fast_maps(system))
     return State(
         x=x, v=v, f=f, img=fs.img, type=fs.types, ex_left=fs.ex_left,
@@ -321,19 +396,21 @@ def from_fast(fs: FastState, system: System) -> State:
 
 
 def thermo_row_fast(fs: FastState, system: System) -> ThermoSample:
-    """Thermo straight from the planes (engine.thermo_row_fast)."""
+    """Thermo straight from the planes (engine.thermo_row_fast); for R
+    replicas each value (R,), as ``jax.vmap(thermo_row_fast)`` gives."""
     maps = fast_maps(system)
     mass = float(np.asarray(system.masses).flat[0])
     interior = torch.as_tensor(maps.interior, device=fs.gv.device)
-    valid = (fs.bid < system.n) & interior[None, :]
-    vv = torch.sum(fs.gv * fs.gv, dim=0)
-    ke2 = mass * torch.sum(torch.where(valid, vv, torch.zeros_like(vv)))
+    valid = (fs.bid < system.n) & interior
+    vv = torch.sum(fs.gv * fs.gv, dim=-3)
+    ke2 = mass * torch.sum(torch.where(valid, vv, torch.zeros_like(vv)),
+                           dim=(-2, -1))
     temp = ke2 / ((3.0 * system.n - 3.0) * system.units.boltz)
     ke = 0.5 * ke2
     return ThermoSample(
         step=fs.step, temp=temp, epair=fs.epair, ebond=fs.ebond, ke=ke,
         etotal=ke + fs.epair + fs.ebond,
-        n_extruders=torch.sum(fs.ex_left >= 0))
+        n_extruders=torch.sum(fs.ex_left >= 0, dim=-1))
 
 
 # ---------------------------------------------------------------------------
@@ -364,6 +441,30 @@ def _pallas_step_mode(system: System, pallas, device):
     return mode
 
 
+def rebuild_schedule(sim, reactive: bool = True, hot_window: int = None):
+    """The steps a segment rebuilds on whatever the state, as ``due(sstep)
+    -> bool`` (engine.py:1175-1200): the cadence ``rebuild_every``, each
+    LE event phase and, without the skin trigger (``reactive=False``),
+    each extrusion fix's post-event hot window ``((sstep - phase) %
+    nevery) < w``, ``w`` = ``hot_window`` or min(150, max(nevery // 4,
+    1)): a window after each extrusion event, whose springs snap shut,
+    rebuilds every step, as the trigger would."""
+    K_every = max(int(sim.system.neighbor.rebuild_every), 1)
+    phases = [(f.nevery, f.phase) for f in sim.fixes
+              if isinstance(f, (Extrusion, ExLoad, ExUnload))]
+    hot = [] if reactive else [
+        (f.nevery, f.phase, hot_window if hot_window is not None
+         else min(150, max(f.nevery // 4, 1)))
+        for f in sim.fixes if isinstance(f, Extrusion)]
+
+    def due(sstep: int) -> bool:
+        return (sstep % K_every == 0
+                or any(sstep % nev == ph for nev, ph in phases)
+                or any((sstep - ph) % nev < w for nev, ph, w in hot))
+
+    return due
+
+
 def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
                       reactive: bool = True, hot_window: int = None,
                       kernel_fn=None, *, device="cuda"):
@@ -374,30 +475,39 @@ def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
 
     ``pallas`` (``_pallas_step_mode``): None = auto, False = the chain,
     "real" / "interpret" = K2's step loop on the card / in plain PyTorch.
-    The chain runs the reactive step of the reference's XLA chain
-    (engine.py:1348-1455), one host-driven step at a time, reading the
-    armed skin trigger once a step.  The step loop's ``segment`` batches
-    up to LAUNCH_MAX steps a launch (engine.py:1692-1739), stopping at the
-    next cadence step (LE event phases, the rebuild backstop, energy
-    steps) or where the in-launch trigger fires; the host reads one stats
-    block a launch and counts ``fs.n_launches``.  ``kernel_fn``: a
-    caller's stencil with select_kernel's contract for the chain
-    (engine.py:1130-1132), else select_kernel's; the step loop carries its
-    own stencil and ignores it (engine.py:1458).  ``thermo_every`` raises
-    the energy cadence to its gcd with the thermo cadence
+    The chain runs the step of the reference's XLA chain
+    (engine.py:1348-1455), one host-driven step at a time.  Reactive, it
+    rebuilds before the drift where the cadence, an LE event or the skin
+    trigger armed by the previous step asks, and reads that trigger once
+    a step.  With ``reactive=False`` the schedule is static
+    (engine.py:1175-1200): the cadence, each LE event phase, and each
+    extrusion fix's hot window ``((sstep - phase) % nevery) < w`` (``w`` =
+    ``hot_window``, default min(150, max(nevery // 4, 1))), served after
+    the drift and the events; no trigger is armed or read, so a step
+    reads nothing from the card, and the segment takes a replica-batched
+    FastState (``stack_fast``) as the reference's ``jax.vmap`` of it does.
+
+    The step loop's reactive ``segment`` batches up to LAUNCH_MAX steps a
+    launch (engine.py:1692-1739), stopping at the next cadence step (LE
+    event phases, the rebuild backstop, energy steps) or where the
+    in-launch trigger fires; the host reads one stats block a launch and
+    counts ``fs.n_launches``.  Non-reactive, it runs one-step launches
+    (engine.py:1740-1746) with the static schedule served before each
+    launch's drift, as the reference's ``launch_pallas`` serves it.  The
+    step loop and the reactive chain take one run's state: a
+    replica-batched one raises ValueError.  ``kernel_fn``: a caller's
+    stencil with select_kernel's contract for the chain (engine.py:1130-
+    1132; one run's planes), else select_kernel's; the step loop carries
+    its own stencil and ignores it (engine.py:1458).  ``thermo_every``
+    raises the energy cadence to its gcd with the thermo cadence
     (engine.py:1127-1129).  A Langevin group is the FastState's ``lgm``
     plane (to_fast's ``groups``); ``zero`` subtracts the random force's
     mean over the group each step (engine.py:1422-1435).  ``device``: the
-    run's, the card by default (it raises without one).  ``reactive=False``
-    and hot windows are not ported (ROADMAP Queue 1 item 2)."""
+    run's, the card by default (it raises without one)."""
     if isinstance(thermo_every, bool) or not isinstance(
             thermo_every, (int, np.integer)):
         raise TypeError(f"thermo_every={thermo_every!r} is a step count "
                         f"(the device is keyword-only)")
-    if not reactive or hot_window is not None:
-        raise NotImplementedError(
-            "lammps_le_torch fast engine: reactive=False and hot windows "
-            "are not ported (ROADMAP Queue 1 item 2)")
     mode = _pallas_step_mode(sim.system, pallas, device)
     ctx = _ctx(sim, device, None if mode else kernel_fn)
     system, maps, g = ctx.system, ctx.maps, ctx.g
@@ -427,6 +537,14 @@ def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
             # threefry counter, not the key (engine.py:1393-1403)
             return rng.fold_in(rng.fold_in(key_words, 4 << 20), lf.seed)
 
+    @functools.lru_cache(maxsize=4)
+    def lan_keys(key_words):
+        """The replicas' noise keys as the kernel takes them: (R, 2) int32
+        words on the run's device (zeros without a thermostat)."""
+        words = np.array([lan_words(k) if lf is not None else (0, 0)
+                          for k in key_words], np.uint32)
+        return torch.as_tensor(words.view(np.int32), device=device)
+
     def ramp(sstep, run_begin, run_end):
         """t_start -> t_stop target at ``sstep`` and its slope a step
         (fix_langevin.cpp:97-145), in the run's float type as the
@@ -446,6 +564,7 @@ def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
     event_updates = [(f, fid, makers[type(f)](system, f, device))
                      for fid, f in enumerate(event_fixes)]
     event_phases = [(f.nevery, f.phase) for f in event_fixes]
+    scheduled = rebuild_schedule(sim, reactive, hot_window)
     bad_cut, trig_cut = skin_cuts(system)
 
     def placement(fs: FastState, gx, gv, gf):
@@ -453,15 +572,16 @@ def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
         yet the state's: place()'s outputs but the wrapped positions, and
         the group plane."""
         slot = torch.clamp(fs.slot_of, 0, capP - 1)
-        x, v, f = (p.reshape(3, capP)[:, slot].T for p in (gx, gv, gf))
-        out = place(system, maps, g, x, v, f, fs.ex_left, fs.ex_right,
-                    fs.img)
+        x, v, f = (_beads(p, slot) for p in (gx, gv, gf))
+        out = (place_replicas if fs.replicas else place)(
+            system, maps, g, x, v, f, fs.ex_left, fs.ex_right, fs.img)
         lgm = None
         if fs.lgm is not None:
             # membership is per bead: gathered through the old slots,
             # scattered to the new ones (engine.py:1283-1288)
-            lgm = _lgm_plane(fs.lgm.reshape(-1)[slot], out[6], maps,
-                             gx.dtype)
+            member = torch.gather(fs.lgm.reshape(slot.shape[:-1] + (-1,)),
+                                  -1, slot)
+            lgm = _lgm_plane(member, out[6], maps, gx.dtype)
         return out[:9] + out[10:] + (lgm,)
 
     def commit(fs: FastState, placed):
@@ -477,10 +597,13 @@ def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
     def rebuild(fs: FastState):
         commit(fs, placement(fs, fs.gx, fs.gv, fs.gf))
 
-    def rebuild_due(fs: FastState, sstep: int, event: bool):
-        # rebuilds due by cadence, LE-event phase or the armed skin
-        # trigger are served BEFORE the drift (engine.py:1349-1360)
-        return sstep % K_every == 0 or event or bool(fs.skin_pend)
+    def is_event(sstep: int):
+        return any(sstep % nev == ph for nev, ph in event_phases)
+
+    def rebuild_due(fs: FastState, sstep: int):
+        # the schedule, or (reactive) the armed skin trigger
+        # (engine.py:1193-1200)
+        return scheduled(sstep) or (reactive and bool(fs.skin_pend))
 
     def retable(fs: FastState, left, right):
         """Partner plane + anchor slots after an extruder-table edit."""
@@ -491,8 +614,22 @@ def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
         fs.pid = halo_refresh_int(pid[:capP].reshape(1, cap, P), g)[0]
         fs.exl_slot, fs.exr_slot = ex_slots(fs.slot_of, left, right)
 
+    # the fields LE events write (apply_events, retable)
+    event_fields = ("ex_left", "ex_right", "types", "pid", "exl_slot",
+                    "exr_slot", "flags", "n_moves", "n_loads", "n_unloads",
+                    "last_event")
+
     def apply_events(fs: FastState, sstep: int):
-        """LE fixes in bead layout (engine.py:1205-1245)."""
+        """LE fixes in bead layout (engine.py:1205-1245); for R replicas
+        on each replica in turn, each with its own key."""
+        if fs.replicas:
+            views = [replica(fs, r) for r in range(fs.replicas)]
+            for view in views:
+                apply_events(view, sstep)
+            for name in event_fields:
+                setattr(fs, name, torch.stack([getattr(view, name)
+                                               for view in views]))
+            return
         for f, fid, update in event_updates:
             if sstep % f.nevery != f.phase:
                 continue
@@ -522,12 +659,19 @@ def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
             fs.last_event = last
             retable(fs, l, r)
 
-    def is_event(sstep: int):
-        return any(sstep % nev == ph for nev, ph in event_phases)
+    def one_run(fs: FastState, what: str):
+        if fs.replicas:
+            raise ValueError(f"{what} takes one run's FastState, not "
+                             f"{fs.replicas} replicas (the non-reactive "
+                             f"chain takes them)")
 
     def step(fs: FastState, sstep: int, run_begin: int, run_end: int):
+        if reactive or kernel_fn is not None:
+            one_run(fs, "the reactive chain" if reactive
+                    else "a caller's stencil (kernel_fn)")
         event = is_event(sstep)
-        if rebuild_due(fs, sstep, event):
+        if reactive and rebuild_due(fs, sstep):
+            # served BEFORE the drift (engine.py:1349-1360)
             rebuild(fs)
         fs.gx, fs.gv = K.kick_drift_halo(
             fs.gx, fs.gv, fs.gf, fs.bid, g.interior, g.halo_cols,
@@ -535,33 +679,38 @@ def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
         fs.step = sstep
         if event:
             apply_events(fs, sstep)
+        # reactive: the post-event rebuild; static: every due step, after
+        # the drift and the events (engine.py:1374-1382)
+        if event if reactive else rebuild_due(fs, sstep):
             rebuild(fs)
 
         energy = sstep % energy_every == 0
         gf, en, ints = _forces(ctx, fs.gx, fs.bid, fs.hn, fs.pid,
                                fs.exl_slot, fs.exr_slot, fs.ex_left >= 0,
                                energy)
-        fs.flags = fs.flags | ints[0]
-        fs.n_clamps = fs.n_clamps + ints[1]
+        fs.flags = fs.flags | ints[..., 0]
+        fs.n_clamps = fs.n_clamps + ints[..., 1]
         if energy:
-            fs.epair, fs.ebond = en[0], en[1]
-            fs.flags = fs.flags | (~torch.all(torch.isfinite(en))).to(
+            fs.epair, fs.ebond = en[..., 0], en[..., 1]
+            fs.flags = fs.flags | (~torch.all(torch.isfinite(en), dim=-1)).to(
                 torch.int64) * FLAG_NON_FINITE
 
         gamma1 = gamma2 = 0.0
-        lan_key = (0, 0)
+        lan_key = lan_keys(fs.key_words) if fs.replicas else (0, 0)
         if lf is not None:
             gamma1 = -mass / lf.damp / units.ftm2v
-            lan_key = lan_words(fs.key_words)
+            if not fs.replicas:
+                lan_key = lan_words(fs.key_words)
             t_target, _ = ramp(sstep, run_begin, run_end)
             gamma2 = float(np_dtype(g2base) * np.sqrt(t_target))
         fs.gf, fs.gv, mon = K.langevin_kick_monitor(
             fs.gx, fs.gx_ref, fs.gv, gf, fs.bid, g.interior, lan_key, sstep,
             gamma1, gamma2, kick, dt, bad_cut,
             trig_cut, n, lf is not None, fs.lgm, lan_zero)
-        fs.flags = fs.flags | mon[0]
-        # the one host read of the step: the armed trigger
-        fs.skin_pend = int(mon[1])
+        fs.flags = fs.flags | mon[..., 0]
+        if reactive:
+            # the one host read of the step: the armed trigger
+            fs.skin_pend = int(mon[1])
         return fs
 
     if not mode:
@@ -593,8 +742,9 @@ def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
         host's issue of the placement overlaps the launch; the next launch
         commits it (``placed``) only where its rebuild is due, so the run
         is the chain's.  Returns (d, that placement or None)."""
+        one_run(fs, "K2's step loop")
         event = is_event(sstep)
-        if rebuild_due(fs, sstep, event):
+        if rebuild_due(fs, sstep):
             if placed is None:
                 rebuild(fs)
             else:
@@ -627,9 +777,10 @@ def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
               | (FLAG_SKIN_VIOLATION if st[5] > 0 else 0))
         fs.n_clamps = fs.n_clamps + clamps
         fs.step = sstep + d - 1
-        # the in-launch monitor re-arms the trigger (stats row 6); the
-        # next launch serves it
-        fs.skin_pend = int(st[6] > 0)
+        if reactive:
+            # the in-launch monitor re-arms the trigger (stats row 6); the
+            # next launch serves it (engine.py:1658-1661)
+            fs.skin_pend = int(st[6] > 0)
         if energy:
             el, eb = 0.5 * st[0], 0.5 * st[1]
             en = torch.tensor([el, eb], dtype=fs.gx.dtype).to(
@@ -640,6 +791,21 @@ def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
         if fl:
             fs.flags = fs.flags | fl
         return d, (nxt[0] if nxt else None)
+
+    def step_pallas(fs: FastState, sstep: int, run_begin: int, run_end: int):
+        launch_pallas(fs, sstep, 1, run_begin, run_end)
+        return fs
+
+    if not reactive:
+        # one-step launches on the static schedule (engine.py:1740-1746)
+        def segment(fs: FastState, step0: int, length: int, run_begin: int,
+                    run_end: int):
+            for i in range(length):
+                step_pallas(fs, step0 + i + 1, run_begin, run_end)
+            return fs
+
+        segment.loop = getattr(core, "loop", None)
+        return segment, step_pallas
 
     # the next step of each cadence bounds a launch (engine.py:1706-1711)
     cadences = event_phases + [(K_every, 0), (energy_every, 0)]
@@ -659,10 +825,6 @@ def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
                                       placed, done + lim < length)
             done += d
             fs.n_launches += 1
-        return fs
-
-    def step_pallas(fs: FastState, sstep: int, run_begin: int, run_end: int):
-        launch_pallas(fs, sstep, 1, run_begin, run_end)
         return fs
 
     segment.loop = getattr(core, "loop", None)
@@ -732,3 +894,29 @@ def run_fast(sim, state: State, nsteps: int, thermo_every: int = 0,
                 and step_abs % boundary_every == 0:
             boundary_callback(from_fast(fs, system))
     return from_fast(fs, system), rows
+
+
+def run_fast_replicas(sim, state: State, n_replicas: int, nsteps: int,
+                      seed: int = 1234, max_segment: int = 2000):
+    """A replica ensemble on the fast engine (engine.run_fast_replicas,
+    engine.py:1810-1843): ``n_replicas`` trajectories from the same
+    State, replica i's key folded with ``seed + i`` (the reference's
+    multi-partition Universe, each partition the same deck with another
+    seed), ``nsteps`` steps of the non-reactive chain
+    (``make_fast_segment(pallas=False, reactive=False)``) in segments of
+    at most ``max_segment``, on the state's device.  Every gate keys on
+    the shared step and each kernel is one launch for all replicas.
+    Returns the replica-batched FastState."""
+    segment, _ = make_fast_segment(sim, pallas=False, reactive=False,
+                                   device=state.x.device)
+    fs = to_fast(state, sim)
+    fs = stack_fast([dataclasses.replace(
+        fs, key_words=rng.fold_in(fs.key_words, seed + i))
+        for i in range(n_replicas)])
+    begin = fs.step
+    done = 0
+    while done < nsteps:
+        chunk = min(max_segment, nsteps - done)
+        segment(fs, begin + done, chunk, begin, begin + nsteps)
+        done += chunk
+    return fs

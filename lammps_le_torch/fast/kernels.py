@@ -21,6 +21,15 @@ window_forces          parallel/shard_step.py:55 (K4), body K1
 tiled_stencil_forces   pallas_kernel.py:59 (K5), body K1
 =====================  ==================================================
 
+Replicas: ``kick_drift_halo``, ``stencil_forces``, ``newton_half_forces``,
+``extruder_springs`` and ``langevin_kick_monitor`` also take R runs'
+tensors stacked on a leading axis (planes (R, 3, cap, P) and (R, cap, P),
+anchor slots (R, E), Langevin key words an (R, 2) int32 tensor of their
+bits) and return their outputs with that axis ((R, 2) energies and ints),
+in one launch of each kernel for all R (each counted once): replica r is
+bitwise the call on its own tensors.  The unbatched call is the same
+launch at R = 1.  The other kernels take one run.
+
 ``StepLoop`` launches the step kernels' launch-controlled forms over up to
 LAUNCH_MAX steps as one launch of a CUDA graph whose WHILE conditional
 node runs a step an iteration until the trigger or the limit ends it;
@@ -93,7 +102,7 @@ class LangevinArgs(ctypes.Structure):
                                      "bad_cut", "trig_cut")]
                 + [(k, _I) for k in ("langevin", "cap", "P", "n", "group",
                                      "zero")]
-                + [("inv_n", _F)])
+                + [("inv_n", _F), ("keys", _P)])
 
 
 class StepPlanes(ctypes.Structure):
@@ -126,11 +135,11 @@ def bind(paths):
     lib.lle_stencil_blocks.restype = _I
     lib.lle_stencil_max_cap.restype = _I
     lib.lle_kick_drift_halo.argtypes = (
-        [_P] * 10 + [_I] * 4 + [_F, _F, _P])
-    lib.lle_stencil_forces.argtypes = [_P] * 10 + [StencilArgs, _P]
-    lib.lle_extruder_springs.argtypes = [_P] * 6 + [SpringArgs, _P]
+        [_P] * 10 + [_I] * 4 + [_F, _F, _I, _P])
+    lib.lle_stencil_forces.argtypes = [_P] * 10 + [StencilArgs, _I, _P]
+    lib.lle_extruder_springs.argtypes = [_P] * 6 + [SpringArgs, _I, _P]
     lib.lle_langevin_kick_monitor.argtypes = (
-        [_P] * 12 + [LangevinArgs, _P])
+        [_P] * 12 + [LangevinArgs, _I, _P])
     _U = ctypes.c_uint32
     lib.lle_launch_begin.argtypes = [_P, _U, _U, _U, _I, _I, _F, _F, _P]
     lib.lle_step_ctl.argtypes = [StepPlanes, StencilArgs, SpringArgs,
@@ -156,7 +165,7 @@ def bind(paths):
     blk = ctypes.CDLL(str(paths["blocked"]))
     blk.lle_stencil_max_cap.restype = _I
     blk.lle_newton_half_forces.argtypes = (
-        [_P] * 13 + [StencilArgs, FoldArgs, _P])
+        [_P] * 13 + [StencilArgs, FoldArgs, _I, _P])
     blk.lle_newton_half_forces.restype = _I
     blk.lle_window_forces.argtypes = (
         [_P] * 9 + [StencilArgs, _I, _I, _P])
@@ -205,11 +214,23 @@ def _raise(name, err):
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
-def _planes(gx, bid):
-    cap, P = bid.shape
-    _check("gx", gx, torch.float32, (3, cap, P))
-    _check("bid", bid, torch.int32, (cap, P))
-    return cap, P
+def _planes(gx, bid, batch=False):
+    """(lead, cap, P) of checked planes: ``lead`` () for one run's
+    (3, cap, P) and (cap, P) planes, or (R,) for R replicas' stacked on a
+    leading axis where the kernel takes them (``batch``)."""
+    lead = tuple(bid.shape[:-2])
+    if len(lead) > int(batch) or bid.dim() < 2:
+        raise ValueError(f"planes of shape {tuple(bid.shape)}: want (cap, P)"
+                         + (" or (R, cap, P)" if batch else ""))
+    cap, P = bid.shape[-2:]
+    _check("gx", gx, torch.float32, lead + (3, cap, P))
+    _check("bid", bid, torch.int32, lead + (cap, P))
+    return lead, cap, P
+
+
+def _reps(lead):
+    """The replicas of a launch: R, or 1 for one run's planes."""
+    return lead[0] if lead else 1
 
 
 def kick_drift_halo(gx, gv, gf, bid, interior, halo_cols, halo_src,
@@ -219,7 +240,7 @@ def kick_drift_halo(gx, gv, gf, bid, interior, halo_cols, halo_src,
     if _on_cpu(gx):
         return ref.kick_drift_halo(gx, gv, gf, bid, interior, halo_cols,
                                    halo_src, halo_shift, n, kick, dt)
-    cap, P = _planes(gx, bid)
+    lead, cap, P = _planes(gx, bid, batch=True)
     H = halo_cols.shape[0]
     _check("gv", gv, torch.float32, gx.shape)
     _check("gf", gf, torch.float32, gx.shape)
@@ -232,7 +253,7 @@ def kick_drift_halo(gx, gv, gf, bid, interior, halo_cols, halo_src,
     err = _lib().lle_kick_drift_halo(
         _ptr(gx), _ptr(gv), _ptr(gf), _ptr(bid), _ptr(interior),
         _ptr(halo_cols), _ptr(halo_src), _ptr(halo_shift), _ptr(gx_out),
-        _ptr(gv_out), cap, P, H, n, kick, dt, _stream())
+        _ptr(gv_out), cap, P, H, n, kick, dt, _reps(lead), _stream())
     _raise("kick_drift_halo", err)
     LAUNCHES["kick_drift_halo"] += 1
     return gx_out, gv_out
@@ -251,22 +272,23 @@ def _stencil_args(C, n, strides, energy, cap, P):
         (_I * 27)(*deltas))
 
 
-def _stencil_outputs(gx, nblk):
-    """gf, per-block tally partials, energies (2,), ints (2,)."""
-    dev = gx.device
+def _stencil_outputs(gx, nblk, lead=()):
+    """gf, each replica's per-block tally partials, energies lead + (2,),
+    ints lead + (2,)."""
+    dev, R = gx.device, _reps(lead)
     return (torch.empty_like(gx),
-            torch.empty(2 * nblk, dtype=torch.float32, device=dev),
-            torch.empty(3 * nblk, dtype=torch.int32, device=dev),
-            torch.empty(2, dtype=torch.float32, device=dev),
-            torch.empty(2, dtype=torch.int64, device=dev))
+            torch.empty(2 * nblk * R, dtype=torch.float32, device=dev),
+            torch.empty(3 * nblk * R, dtype=torch.int32, device=dev),
+            torch.empty(lead + (2,), dtype=torch.float32, device=dev),
+            torch.empty(lead + (2,), dtype=torch.int64, device=dev))
 
 
-def _stencil_inputs(gx, bid, hn, pid, interior):
-    cap, P = _planes(gx, bid)
-    _check("hn", hn, torch.bool, (cap, P))
-    _check("pid", pid, torch.int32, (cap, P))
+def _stencil_inputs(gx, bid, hn, pid, interior, batch=False):
+    lead, cap, P = _planes(gx, bid, batch)
+    _check("hn", hn, torch.bool, lead + (cap, P))
+    _check("pid", pid, torch.int32, lead + (cap, P))
     _check("interior", interior, torch.bool, (P,))
-    return cap, P
+    return lead, cap, P
 
 
 def _check_cap(name, cap, max_cap):
@@ -282,15 +304,16 @@ def stencil_forces(gx, bid, hn, pid, interior, C, n: int, strides,
     if _on_cpu(gx):
         return ref.stencil_forces(gx, bid, hn, pid, interior, C, n, strides,
                                   energy)
-    cap, P = _stencil_inputs(gx, bid, hn, pid, interior)
+    lead, cap, P = _stencil_inputs(gx, bid, hn, pid, interior, batch=True)
     lib = _lib()
     _check_cap("stencil_forces", cap, lib.lle_stencil_max_cap())
-    gf, fpart, ipart, en, ints = _stencil_outputs(gx,
-                                                  lib.lle_stencil_blocks(P))
+    gf, fpart, ipart, en, ints = _stencil_outputs(
+        gx, lib.lle_stencil_blocks(P), lead)
     a = _stencil_args(C, n, strides, energy, cap, P)
     err = lib.lle_stencil_forces(
         _ptr(gx), _ptr(bid), _ptr(hn), _ptr(pid), _ptr(interior), _ptr(gf),
-        _ptr(fpart), _ptr(ipart), _ptr(en), _ptr(ints), a, _stream())
+        _ptr(fpart), _ptr(ipart), _ptr(en), _ptr(ints), a, _reps(lead),
+        _stream())
     _raise("stencil_forces", err)
     LAUNCHES["stencil_forces"] += 1
     return gf, en, ints
@@ -304,12 +327,12 @@ def newton_half_forces(gx, bid, hn, pid, interior, faces, C, n: int,
     if _on_cpu(gx):
         return ref.newton_half_forces(gx, bid, hn, pid, interior, faces, C,
                                       n, strides, fold_shifts, energy)
-    cap, P = _stencil_inputs(gx, bid, hn, pid, interior)
+    lead, cap, P = _stencil_inputs(gx, bid, hn, pid, interior, batch=True)
     _check("faces", faces, torch.bool, (6, P))
     blk = _lib("blocked")
     _check_cap("newton_half_forces", cap, blk.lle_stencil_max_cap())
     gf, fpart, ipart, en, ints = _stencil_outputs(
-        gx, blk.lle_window_blocks(P, 1))
+        gx, blk.lle_window_blocks(P, 1), lead)
     # scratch: the ghost columns' reactions, the fold's image codes
     ghost = torch.empty_like(gx)
     code = torch.empty(P, dtype=torch.uint8, device=gx.device)
@@ -320,7 +343,7 @@ def newton_half_forces(gx, bid, hn, pid, interior, faces, C, n: int,
     err = blk.lle_newton_half_forces(
         _ptr(gx), _ptr(bid), _ptr(hn), _ptr(pid), _ptr(interior),
         _ptr(faces), _ptr(gf), _ptr(ghost), _ptr(code), _ptr(fpart),
-        _ptr(ipart), _ptr(en), _ptr(ints), a, f, _stream())
+        _ptr(ipart), _ptr(en), _ptr(ints), a, f, _reps(lead), _stream())
     _raise("newton_half_forces", err)
     LAUNCHES["newton_half_forces"] += 1
     return gf, en, ints
@@ -336,7 +359,7 @@ def window_forces(xw, bidw, hnw, pidw, ownint, C, n: int, period: int,
     if _on_cpu(xw):
         return ref.window_forces(xw, bidw, hnw, pidw, ownint, C, n, period,
                                  strides, energy)
-    cap, Q = _stencil_inputs(xw, bidw, hnw, pidw, ownint)
+    _, cap, Q = _stencil_inputs(xw, bidw, hnw, pidw, ownint)
     sx, sy, sz = strides
     if Q % period or sx + sy + sz >= period:
         raise ValueError(f"window_forces: {Q} columns are not windows of "
@@ -367,7 +390,7 @@ def tiled_stencil_forces(gx, bid, hn, pid, interior, C, n: int, strides,
     if _on_cpu(gx):
         return ref.tiled_stencil_forces(gx, bid, hn, pid, interior, C, n,
                                         strides, energy)
-    cap, P = _stencil_inputs(gx, bid, hn, pid, interior)
+    _, cap, P = _stencil_inputs(gx, bid, hn, pid, interior)
     tld = _lib("tiled")
     _check_cap("tiled_stencil_forces", cap, tld.lle_tiled_max_cap())
     gf, fpart, ipart, en, ints = _stencil_outputs(gx,
@@ -393,18 +416,22 @@ def extruder_springs(gx, gf, exl_slot, exr_slot, active, S):
     per-spring energies (E,)."""
     if _on_cpu(gx):
         return ref.extruder_springs(gx, gf, exl_slot, exr_slot, active, S)
-    cap, P = gx.shape[1:]
-    E = exl_slot.shape[0]
-    _check("gx", gx, torch.float32, (3, cap, P))
-    _check("gf", gf, torch.float32, (3, cap, P))
-    _check("exl_slot", exl_slot, torch.int32, (E,))
-    _check("exr_slot", exr_slot, torch.int32, (E,))
-    _check("active", active, torch.bool, (E,))
-    eb = torch.empty(E, dtype=torch.float32, device=gx.device)
+    lead = tuple(exl_slot.shape[:-1])
+    if len(lead) > 1 or gx.dim() != len(lead) + 3:
+        raise ValueError(f"extruder_springs: planes {tuple(gx.shape)} with "
+                         f"anchor slots {tuple(exl_slot.shape)}")
+    cap, P = gx.shape[-2:]
+    E = exl_slot.shape[-1]
+    _check("gx", gx, torch.float32, lead + (3, cap, P))
+    _check("gf", gf, torch.float32, lead + (3, cap, P))
+    _check("exl_slot", exl_slot, torch.int32, lead + (E,))
+    _check("exr_slot", exr_slot, torch.int32, lead + (E,))
+    _check("active", active, torch.bool, lead + (E,))
+    eb = torch.empty(lead + (E,), dtype=torch.float32, device=gx.device)
     a = _spring_args(S, E, cap, P)
     err = _lib().lle_extruder_springs(
         _ptr(gx), _ptr(gf), _ptr(exl_slot), _ptr(exr_slot), _ptr(active),
-        _ptr(eb), a, _stream())
+        _ptr(eb), a, _reps(lead), _stream())
     _raise("extruder_springs", err)
     LAUNCHES["extruder_springs"] += 1
     return eb
@@ -413,22 +440,25 @@ def extruder_springs(gx, gf, exl_slot, exr_slot, active, S):
 _LAN_SCRATCH = {}
 
 
-def _langevin_buffers(nblk, dev):
+def _langevin_buffers(nblk, dev, R=1):
     """The Langevin kernel's zeroed work buffers for up to ``nblk``
-    blocks (``lle_blocks``): (part: 3 partials a block and a ticket word,
-    zpart: zero's 4 partials a block, its 3 means and a ticket word).  A
-    ticket word must be 0 at a launch, and every launch leaves it 0."""
-    return (torch.zeros(3 * nblk + 1, dtype=torch.float32, device=dev),
-            torch.zeros(4 * nblk + 4, dtype=torch.float32, device=dev))
+    blocks (``lle_blocks``) of each of R replicas: (part: 3 partials a
+    block and a ticket word, zpart: zero's 4 partials a block, its 3
+    means and a ticket word; a replica's at its stride).  A ticket word
+    must be 0 at a launch, and every launch leaves it 0."""
+    return (torch.zeros(R * (3 * nblk + 1), dtype=torch.float32,
+                        device=dev),
+            torch.zeros(R * (4 * nblk + 4), dtype=torch.float32,
+                        device=dev))
 
 
-def _langevin_scratch(dev, nblk):
-    """_langevin_buffers kept per device, stream and size, so that a
-    call allocates and zeroes nothing: launches on one stream run in
-    order, and each leaves the ticket words 0 for the next."""
-    key = (dev, torch.cuda.current_stream(dev).cuda_stream, nblk)
+def _langevin_scratch(dev, nblk, R=1):
+    """_langevin_buffers kept per device, stream, size and replicas, so
+    that a call allocates and zeroes nothing: launches on one stream run
+    in order, and each leaves the ticket words 0 for the next."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream, nblk, R)
     if key not in _LAN_SCRATCH:
-        _LAN_SCRATCH[key] = _langevin_buffers(nblk, dev)
+        _LAN_SCRATCH[key] = _langevin_buffers(nblk, dev, R)
     return _LAN_SCRATCH[key]
 
 
@@ -443,33 +473,41 @@ def langevin_kick_monitor(gx, gx_ref, gv, gf, bid, interior, key_words,
     gv, ints (2,) int64 = [skin flag bits, look-ahead trigger]).  One
     launch, two with ``zero`` (a pass for the group means first); each
     pass's last block reduces its block partials in a fixed order, with
-    no float atomics (bitwise the same run to run)."""
+    no float atomics (bitwise the same run to run).  ``key_words``: the
+    pair (k0, k1), or for R replicas' planes an (R, 2) int32 tensor of
+    each replica's words' bits on their device."""
     if _on_cpu(gx):
         return ref.langevin_kick_monitor(
             gx, gx_ref, gv, gf, bid, interior, key_words, sstep, gamma1,
             gamma2, kick, dt, bad_cut, trig_cut, n, langevin, lgm, zero)
-    cap, P = _planes(gx, bid)
+    lead, cap, P = _planes(gx, bid, batch=True)
     for name, t in (("gx_ref", gx_ref), ("gv", gv), ("gf", gf)):
         _check(name, t, torch.float32, gx.shape)
     _check("interior", interior, torch.bool, (P,))
     if lgm is not None:
-        _check("lgm", lgm, torch.float32, (cap, P))
+        _check("lgm", lgm, torch.float32, lead + (cap, P))
+    keys, k0, k1 = None, 0, 0
+    if lead:
+        keys = key_words
+        _check("key_words", keys, torch.int32, lead + (2,))
+    else:
+        k0, k1 = key_words
     lib = _lib()
     nblk = lib.lle_blocks(cap * P)
     gf_out = torch.empty_like(gf)
     gv_out = torch.empty_like(gv)
-    part, zpart = _langevin_scratch(gx.device, nblk)
+    part, zpart = _langevin_scratch(gx.device, nblk, _reps(lead))
     zero = bool(zero and langevin)
-    ints = torch.empty(2, dtype=torch.int64, device=gx.device)
-    k0, k1 = key_words
+    ints = torch.empty(lead + (2,), dtype=torch.int64, device=gx.device)
     a = LangevinArgs(int(k0), int(k1), (int(sstep) * 4) & 0xFFFFFFFF,
                      gamma1, gamma2, kick, dt, bad_cut, trig_cut,
                      int(langevin), cap, P, n, int(lgm is not None),
-                     int(zero), 1.0 / n)
+                     int(zero), 1.0 / n, None if keys is None else _ptr(keys))
     err = lib.lle_langevin_kick_monitor(
         _ptr(gx), _ptr(gx_ref), _ptr(gv), _ptr(gf), _ptr(bid),
         _ptr(interior), None if lgm is None else _ptr(lgm), _ptr(gf_out),
-        _ptr(gv_out), _ptr(part), _ptr(zpart), _ptr(ints), a, _stream())
+        _ptr(gv_out), _ptr(part), _ptr(zpart), _ptr(ints), a, _reps(lead),
+        _stream())
     _raise("langevin_kick_monitor", err)
     LAUNCHES["langevin_kick_monitor"] += 1
     return gf_out, gv_out, ints

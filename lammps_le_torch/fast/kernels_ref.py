@@ -9,6 +9,11 @@ sharded slab stencil's window call (parallel/shard_step.py:55) and the
 tiled full stencil (pallas_kernel.py:59), with exact division, in any
 float type.  On CPU tensors the wrappers in ``kernels.py`` run these; on
 the card ``chip_smoke.py`` holds each CUDA kernel against them.
+
+``kick_drift_halo``, ``stencil_forces``, ``newton_half_forces``,
+``extruder_springs`` and ``langevin_kick_monitor`` take the wrappers'
+replica-batched shapes too (a leading R axis; ``per_replica``): replica r
+is the function on its own tensors.
 """
 
 from __future__ import annotations
@@ -25,6 +30,17 @@ from ..state import (FLAG_BOND_REACH, FLAG_FENE_CLAMP,
 _FAR = -1.0e4  # sentinel coordinate of empty slots (engine.py:72)
 
 
+def per_replica(fn, batched, shared):
+    """``fn(*batched[r], *shared)`` for each replica r of the tensors in
+    ``batched`` (each with a leading R axis), its outputs stacked on a
+    leading axis: a tuple of them, or one."""
+    outs = [fn(*(t[r] for t in batched), *shared)
+            for r in range(batched[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
 def valid_mask(bid: torch.Tensor, interior: torch.Tensor, n: int):
     """(cap, P) bool: a real bead in an interior (non-halo) column."""
     return (bid < n) & interior[None, :]
@@ -35,6 +51,9 @@ def kick_drift_halo(gx, gv, gf, bid, interior, halo_cols, halo_src,
     """Half kick + drift of the valid slots (fix_nve.cpp:64-103), then the
     halo columns refreshed from their interior sources (forward_comm,
     comm_brick.cpp:452).  ``halo_shift`` is (3, H).  Returns (gx, gv)."""
+    if bid.dim() == 3:
+        return per_replica(kick_drift_halo, (gx, gv, gf, bid), (
+            interior, halo_cols, halo_src, halo_shift, n, kick, dt))
     valid = valid_mask(bid, interior, n).to(gx.dtype)
     gv = gv + kick * gf * valid
     gx = gx + dt * gv * valid
@@ -144,6 +163,9 @@ def stencil_forces(gx, bid, hn, pid, interior, C, n: int, strides,
     Returns (gf (3, cap, P), energies (2,) = [e_lj, e_b] (each pair seen
     from both sides, so halved), ints (2,) int64 = [flag bits, FENE clamp
     events])."""
+    if bid.dim() == 3:
+        return per_replica(stencil_forces, (gx, bid, hn, pid),
+                           (interior, C, n, strides, energy))
     dtype = gx.dtype
     cap, P = bid.shape
     sx, sy, sz = strides
@@ -198,6 +220,9 @@ def newton_half_forces(gx, bid, hn, pid, interior, faces, C, n: int,
     then fold onto the interior cells they image, z -> y -> x
     (blocked_kernel.py:261-269, comm_brick.cpp:519 reverse_comm), leaving
     ghost columns zero.  Returns what ``stencil_forces`` returns."""
+    if bid.dim() == 3:
+        return per_replica(newton_half_forces, (gx, bid, hn, pid), (
+            interior, faces, C, n, strides, fold_shifts, energy))
     valid = valid_mask(bid, interior, n)
     f, e_lj, e_b, nb_found, n_clamp = _half_offset_loop(
         gx, bid, hn, pid, valid, C, n, strides, energy,
@@ -376,6 +401,10 @@ def extruder_springs(gx, gf, exl_slot, exr_slot, active, S):
     +-force to the anchors' slots of ``gf`` IN PLACE.  Inactive springs
     and anchors outside the grid (overflowed beads, slot >= cap*P) are
     skipped.  Returns the per-spring energies (E,) (0 where skipped)."""
+    if exl_slot.dim() == 2:
+        # each replica's forces in place in its view of gf
+        return per_replica(extruder_springs,
+                           (gx, gf, exl_slot, exr_slot, active), (S,))
     dtype = gx.dtype
     capP = gx.shape[1] * gx.shape[2]
     sl = exl_slot.long()
@@ -434,7 +463,17 @@ def langevin_kick_monitor(gx, gx_ref, gv, gf, bid, interior, key_words,
     is set when the two largest displacements since the rebuild sum past
     ``bad_cut`` (the pairwise coverage bound), ``trig`` when a bead's
     predicted next displacement |d| + dt*|v + kick*f| passes ``trig_cut``.
+    For R replicas' planes ``key_words`` is an (R, 2) tensor of each
+    replica's words (their bits, int32 as the wrapper takes them).
     """
+    if bid.dim() == 3:
+        outs = [langevin_kick_monitor(
+            gx[r], gx_ref[r], gv[r], gf[r], bid[r], interior,
+            (k0 & 0xFFFFFFFF, k1 & 0xFFFFFFFF), sstep, gamma1, gamma2, kick,
+            dt, bad_cut, trig_cut, n, langevin,
+            None if lgm is None else lgm[r], zero)
+            for r, (k0, k1) in enumerate(key_words.tolist())]
+        return tuple(torch.stack(o) for o in zip(*outs))
     valid = valid_mask(bid, interior, n)
     vf = valid.to(gx.dtype)[None]
     if langevin:

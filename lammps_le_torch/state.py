@@ -95,16 +95,16 @@ def extruder_partner(ex_left: torch.Tensor, ex_right: torch.Tensor,
                      n: int) -> torch.Tensor:
     """Per-bead extruder partner index, or -1 (state.py:127): one scatter
     per side into an (N+1,) buffer whose last entry takes the inactive
-    slots' writes and is dropped."""
+    slots' writes and is dropped.  Any leading (replica) axes."""
     active = ex_left >= 0
     safe_l = torch.where(active, ex_left, n)
     safe_r = torch.where(active, ex_right, n)
     none = torch.full_like(ex_left, -1)
-    partner = torch.full((n + 1,), -1, dtype=ex_left.dtype,
-                         device=ex_left.device)
-    partner[safe_l] = torch.where(active, ex_right, none)
-    partner[safe_r] = torch.where(active, ex_left, none)
-    return partner[:n]
+    partner = torch.full(ex_left.shape[:-1] + (n + 1,), -1,
+                         dtype=ex_left.dtype, device=ex_left.device)
+    partner.scatter_(-1, safe_l, torch.where(active, ex_right, none))
+    partner.scatter_(-1, safe_r, torch.where(active, ex_left, none))
+    return partner[..., :n]
 
 
 def state_from_arrays(d: dict, device="cuda") -> State:

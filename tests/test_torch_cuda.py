@@ -651,3 +651,96 @@ def test_step_loop_ends_at_the_trigger(dev):
     assert all(torch.equal(a, b) for a, b in zip(p16, p_d))
     assert torch.equal(s16, s_d)
     assert real.loop.body_nodes()[0] == 5
+
+
+def _replica_planes(dev, R=3):
+    """R distinct replicas' planes of _system, stacked (each placed as
+    _planes places one, its positions moved by its own noise)."""
+    system, _ = _system()
+    maps = fast_maps(system)
+    g = GridConsts.build(system, maps, dev)
+    runs = []
+    for r in range(R):
+        x = _planes_x() + np.random.default_rng(10 + r).normal(
+            scale=0.01, size=(system.n, 3))
+        runs.append(_place(system, maps, g, x, dev))
+    p = tuple(torch.stack(t) for t in zip(*runs))
+    active = torch.arange(system.max_extruders, device=dev) < 20
+    return system, maps, g, p, active.expand(R, -1).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [
+    "stencil_forces", "newton_half_forces", "kick_drift_halo",
+    "extruder_springs", "langevin_kick_monitor", "langevin_zero_group"])
+def test_batched_kernels_are_one_run_launches(dev, kernel):
+    """Each chain kernel on R = 3 replicas' planes, in one launch, against
+    three one-run launches on each replica's planes: bit for bit."""
+    system, maps, g, p, active = _replica_planes(dev)
+    n, C = system.n, StencilConsts(system)
+    R3 = p[0].shape[0]
+    if kernel == "stencil_forces":
+        def call(gx, bid, hn, pid):
+            return K.stencil_forces(gx, bid, hn, pid, g.interior, C, n,
+                                    maps.strides, True)
+        batched, per = (p[0], p[3], p[4], p[5]), None
+    elif kernel == "newton_half_forces":
+        def call(gx, bid, hn, pid):
+            return K.newton_half_forces(gx, bid, hn, pid, g.interior,
+                                        g.faces, C, n, maps.strides,
+                                        maps.fold_shifts, True)
+        batched, per = (p[0], p[3], p[4], p[5]), None
+    elif kernel == "kick_drift_halo":
+        def call(gx, gv, gf, bid):
+            return K.kick_drift_halo(gx, gv, gf, bid, g.interior,
+                                     g.halo_cols, g.halo_src, g.halo_shift,
+                                     n, 0.003, 0.006)
+        batched, per = (p[0], p[1], p[2], p[3]), None
+    elif kernel == "extruder_springs":
+        S = SpringConsts(system, 2)
+
+        def call(gx, gf, exl, exr, act):
+            gf = gf.clone()
+            return gf, K.extruder_springs(gx, gf, exl, exr, act, S)
+        batched, per = (p[0], p[2], p[7], p[8], active), None
+    else:
+        zg = kernel == "langevin_zero_group"
+        lgm = (p[3] < 0.9 * n).to(torch.float32) if zg else None
+        keys = [(7 + r, 9 * r + 1) for r in range(R3)]
+
+        def call(gx, gxr, gv, gf, bid, lgm, key):
+            return K.langevin_kick_monitor(
+                gx, gxr, gv, gf, bid, g.interior, key, 33, -0.1, 0.7, 0.003,
+                0.006, 0.02, 0.01, n, True, lgm, zg)
+        batched = (p[0], p[0] + 0.01, p[1], p[2], p[3], lgm)
+        words = np.array(keys, np.uint32).view(np.int32)
+        per = (torch.as_tensor(words, device=dev), keys)
+    name = "langevin_kick_monitor" if "langevin" in kernel else kernel
+    K.reset_launches()
+    out = call(*batched, *(per[:1] if per else ()))
+    assert K.LAUNCHES[name] == 1
+    for r in range(R3):
+        one = call(*(None if t is None else t[r] for t in batched),
+                   *((per[1][r],) if per else ()))
+        for a, b in zip(out, one):
+            assert torch.equal(a[r], b)
+    assert not torch.equal(out[0][0], out[0][1])
+
+
+@pytest.mark.cuda
+def test_replica_zero_is_the_same_at_every_r(dev):
+    """run_fast_replicas for 20 steps with every LE fix at R = 1 and R = 3
+    from the same state: replica 0 bit for bit the same (its key does not
+    depend on R); the kernels launched once a step for all replicas."""
+    from lammps_le_torch.fast import replica, run_fast_replicas
+
+    sim, st = _warm_run(dev, chip_smoke.le_fixes(5, 7, 0.3), 4)
+    runs = {}
+    for R3 in (1, 3):
+        K.reset_launches()
+        runs[R3] = run_fast_replicas(sim, st, R3, 20, seed=100)
+        assert K.LAUNCHES["stencil_forces"] == 20 + 1
+        assert K.LAUNCHES["langevin_kick_monitor"] == 20
+    _same_run(replica(runs[1], 0), replica(runs[3], 0))
+    assert int(runs[3].n_moves[0]) > 0
+    assert not torch.equal(runs[3].gx[0], runs[3].gx[1])

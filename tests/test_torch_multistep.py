@@ -14,7 +14,8 @@ import pytest
 import torch
 
 import lammps_le_torch.fixes as tf
-from lammps_le_torch.fast import from_fast, make_fast_segment, run_fast
+from lammps_le_torch.fast import (from_fast, make_fast_segment, run_fast,
+                                  stack_fast)
 from lammps_le_torch.fast.maps import fast_maps
 from lammps_le_torch.fast.pallas_step import LAUNCH_MAX, make_step_kernel
 from lammps_le_torch.fast.place import GridConsts
@@ -122,9 +123,11 @@ def test_stopped_launch_is_the_launch_of_its_steps():
 def test_segment_contract():
     """make_fast_segment returns (segment, step_core) and run_fast (State,
     rows), a positional thermo_every a row a step; a positional
-    thermo_every does not reach make_fast_segment's device; reactive=False and hot windows
-    raise; the thermo cadence lowers the energy cadence to their gcd;
-    pallas='real' needs the card, and its call CUDA tensors."""
+    thermo_every does not reach make_fast_segment's device; reactive=False
+    and hot windows build a segment, and a replica-batched state in a
+    reactive segment or the step loop raises; the thermo cadence lowers
+    the energy cadence to their gcd; pallas='real' needs the card, and
+    its call CUDA tensors."""
     system, _ = melt_arrays()
     sim = _sims(system, 4)[1]
     segment, step_core = make_fast_segment(sim, device="cpu")
@@ -138,10 +141,25 @@ def test_segment_contract():
     assert [r.step for r in rows] == [b + 2, b + 3, b + 4]
     with pytest.raises(TypeError):
         make_fast_segment(sim, "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        make_fast_segment(sim, reactive=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        make_fast_segment(sim, hot_window=8, device="cpu")
+    for kw in (dict(reactive=False), dict(reactive=False, hot_window=8),
+               dict(hot_window=8)):
+        seg, core = make_fast_segment(sim, device="cpu", **kw)
+        assert callable(seg) and callable(core)
+    pair = stack_fast([fast_start(sim), fast_start(sim)])
+    # one host int a batched state: runs that differ in one do not stack
+    with pytest.raises(ValueError, match="n_rebuilds"):
+        stack_fast([fast_start(sim), dataclasses.replace(fast_start(sim),
+                                                         n_rebuilds=1)])
+    with pytest.raises(ValueError, match="one run"):
+        stack_fast([pair, pair])
+    for pallas in (False, "interpret"):
+        seg, _ = make_fast_segment(sim, pallas=pallas, device="cpu")
+        with pytest.raises(ValueError, match="one run"):
+            seg(pair, b, 1, b, b + 1)
+    seg, _ = make_fast_segment(sim, pallas="interpret", reactive=False,
+                               device="cpu")
+    with pytest.raises(ValueError, match="one run"):
+        seg(pair, b, 1, b, b + 1)
     with pytest.raises(ValueError):
         make_fast_segment(sim, pallas="real", device="cpu")
     g = GridConsts.build(system, fast_maps(system), "cpu")

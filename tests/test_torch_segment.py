@@ -30,7 +30,8 @@ import lammps_le_tpu.fixes as jf
 import lammps_le_torch.fixes as tf
 from lammps_le_torch import rng
 from lammps_le_torch.fast import (fast_block_reason, from_fast,
-                                  make_fast_segment, run_fast, to_fast)
+                                  make_fast_segment, run_fast,
+                                  run_fast_replicas, to_fast)
 from lammps_le_torch.fast.blocked_kernel import make_blocked_kernel
 from lammps_le_torch.fast.maps import fast_maps
 from lammps_le_torch.fast.pallas_kernel import make_pallas_kernel
@@ -225,14 +226,18 @@ def test_block_reason_raises(change):
 
 
 @pytest.mark.parametrize("entry", ["init_state", "state_from_arrays",
-                                   "uniform"])
+                                   "uniform", "run_fast_replicas"])
 def test_entry_points_default_to_the_card(entry):
     """Called without a device, the entry points run on the card, and
-    without one they raise instead of running on the CPU."""
+    without one they raise instead of running on the CPU (run_fast_
+    replicas runs where its state lies: a state made without a device)."""
     system, d = melt_arrays()
+    sim = _sims(system, 4)[1]
     call = {"init_state": lambda: init_state(system, d["x"]).x,
             "state_from_arrays": lambda: state_from_arrays(d).x,
-            "uniform": lambda: rng.uniform((1, 2), 8)}[entry]
+            "uniform": lambda: rng.uniform((1, 2), 8),
+            "run_fast_replicas": lambda: run_fast_replicas(
+                sim, state_from_arrays(d), 2, 1).gx}[entry]
     if torch.cuda.is_available():
         assert call().device.type == "cuda"
     else:
@@ -244,10 +249,12 @@ _NO_JAX = r"""
 import sys
 sys.modules["jax"] = sys.modules["flax"] = None
 import numpy as np, torch
+torch.set_num_threads(1)  # as torch_parity pins the test workers
 from lammps_le_torch.io.data import system_from_data
 from lammps_le_torch.scene import serpentine
 from lammps_le_torch.system import BOND_FENE, BOND_HARMONIC, BondParams, PairLJCut
-from lammps_le_torch.fast import from_fast, run_fast, to_fast
+from lammps_le_torch.fast import (from_fast, run_fast, run_fast_replicas,
+                                  thermo_row_fast, to_fast)
 from lammps_le_torch.fast.blocked_kernel import make_blocked_kernel
 from lammps_le_torch.fast.engine import select_kernel
 from lammps_le_torch.fast.maps import fast_maps
@@ -290,6 +297,9 @@ fs = to_fast(st, sim, seg.kernel_fn)
 seg(fs, 4, 2, 4, 6)
 st = from_fast(fs, system)
 assert int(st.step) == 6 and bool(torch.isfinite(st.x).all())
+fr = run_fast_replicas(sim, st, 2, 2)
+assert fr.replicas == 2 and fr.step == 8 and bool(torch.isfinite(fr.gx).all())
+assert tuple(thermo_row_fast(fr, system).temp.shape) == (2,)
 assert not any(m.split(".")[0] in ("jax", "flax", "lammps_le_tpu")
                and sys.modules[m] for m in list(sys.modules))
 print("ok", int(st.n_moves))

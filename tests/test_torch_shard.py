@@ -13,6 +13,7 @@ gives the reference's verdicts.  The engine run on it is pinned in
 tests/test_torch_segment.py, the CUDA kernel in tests/test_torch_cuda.py.
 """
 
+import dataclasses
 import functools
 from unittest import mock
 
@@ -24,15 +25,20 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
+import lammps_le_torch.fixes as tf
+from lammps_le_torch import rng
 from lammps_le_torch.fast import kernels as K
 from lammps_le_torch.fast import kernels_ref as R
+from lammps_le_torch.fast import make_fast_segment, replica, stack_fast
 from lammps_le_torch.fast.consts import StencilConsts
 from lammps_le_torch.integrate import Simulation
 from lammps_le_torch.parallel import shard_step as ss
-from lammps_le_torch.parallel.spatial import make_sharded_segment
+from lammps_le_torch.parallel.spatial import (
+    make_replicated_sharded_segment, make_sharded_segment)
 from lammps_le_tpu.fast import engine as ref
 from lammps_le_tpu.parallel import shard_step as jss
 from test_torch_blocked import _grid
+from torch_parity import assert_same_run, fast_start, le_fixes, melt_arrays
 
 
 def _mesh(sp):
@@ -171,13 +177,63 @@ def test_sp_hint_known_reference_fault():
             ss.shardable(system, maps, ["cpu"] * 2)
 
 
+def _le_sim():
+    system, _ = melt_arrays()
+    return Simulation(system=system, dt=0.005, energy_every=4,
+                      fixes=le_fixes(tf), ex_btype=2)
+
+
+def _run(segment, fs, nsteps=3):
+    b = fs.step
+    return segment(fs, b, nsteps, b, b + nsteps)
+
+
 def test_sharded_segment_refuses_what_it_does_not_cover():
-    """Where the slab stencil is refused the reference falls back to its
-    reactive=False chain, which is not ported: the port raises with the
-    reason, as make_sharded_kernel does."""
+    """Where the slab stencil is refused (melt32 at sp=8: its chunk is
+    narrower than the margin) make_sharded_segment falls back to the
+    unsharded chain with the static schedule, as the reference does
+    (spatial.py:97-107): bit for bit make_fast_segment(pallas=False,
+    reactive=False), its shard_reason the refusal; make_sharded_kernel
+    itself still raises with the reason."""
     system, maps = _grid()[:2]
-    sim = Simulation(system=system, dt=0.005, ex_btype=2)
+    sim = _le_sim()
+    seg = make_sharded_segment(sim, ["cpu"] * 8)
+    assert "margin 73" in seg.shard_reason and seg.kernel_fn is None
+    want, _ = make_fast_segment(sim, pallas=False, reactive=False,
+                                device="cpu")
+    assert_same_run(_run(seg, fast_start(sim)), _run(want, fast_start(sim)))
+    assert make_sharded_segment(sim, ["cpu"] * 2).shard_reason is None
     with pytest.raises(ValueError, match="margin 73"):
-        make_sharded_segment(sim, ["cpu"] * 8)
+        ss.make_sharded_kernel(system, maps, 2, ["cpu"] * 8)
     with pytest.raises(ValueError, match="not divisible"):
         ss.make_sharded_kernel(system, maps, 2, ["cpu"] * 3)
+
+
+@pytest.mark.parametrize("sp", [2, 8])
+def test_replicated_sharded_segment(sp):
+    """make_replicated_sharded_segment on two replicas: at sp=2 each
+    replica (a one-run FastState) runs the reactive slab segment in turn,
+    bit for bit make_sharded_segment on it alone; at sp=8 (refused) the
+    replica-batched state runs the non-reactive chain, bit for bit
+    make_fast_segment(pallas=False, reactive=False); shard_reason as the
+    reference sets it (spatial.py:203, 226)."""
+    sim = _le_sim()
+    start = fast_start(sim)
+    pair = [dataclasses.replace(start, key_words=rng.fold_in(
+        start.key_words, i)) for i in range(2)]
+    seg = make_replicated_sharded_segment(sim, ["cpu"] * sp)
+    if sp == 8:
+        assert "margin 73" in seg.shard_reason
+        got = _run(seg, stack_fast(pair))
+        want, _ = make_fast_segment(sim, pallas=False, reactive=False,
+                                    device="cpu")
+        assert_same_run(got, _run(want, stack_fast(pair)))
+        assert not torch.equal(replica(got, 0).gx, replica(got, 1).gx)
+        return
+    assert seg.shard_reason is None
+    b = start.step
+    got = seg([dataclasses.replace(p) for p in pair], b, 3, b, b + 3)
+    one = make_sharded_segment(sim, ["cpu"] * sp)
+    for run, p in zip(got, pair):
+        assert_same_run(run, _run(one, p))
+    assert not torch.equal(got[0].gx, got[1].gx)
