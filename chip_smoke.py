@@ -3,8 +3,8 @@
 
 The instructions one IEEE reciprocal issues, read from the built
 library's SASS, and the card's SM count and clock set the operation
-bounds of every kernel.  It drives the port's six paths through its
-user entry points:
+bounds of every kernel.  It drives the fast engine on six paths
+through the port's user entry points:
 
 1. bench.py's production LE configuration (bench.py:398-486): a
    100,000-bead serpentine chromosome on the grid-resident fast engine,
@@ -53,8 +53,22 @@ printing flags and the fullest cell.  Then it runs the two microprobes
 shapes: P1, the IEEE reciprocal against ``rcp.approx`` in a
 division-bound chain and the latter's error, and P2, an f32 elementwise
 chain against packed bf16, each kernel held against its plain version.
-Last it runs a small system end to end on the card and on the CPU, on
-the full and Newton-half stencils, to compare the two.
+Then it runs a small system end to end on the card and on the CPU, on
+the full and Newton-half stencils, to compare the two.  Last, path 7,
+the general path (``integrate.run``: velocity-Verlet with every fix
+option, plain PyTorch, no kernel of its own): benchmarks/configs.py's
+configs 1 (the generated 32k FENE melt, rebuild every 4), 2 (1k chain +
+extrusion), 3 (10k turnover) and 5 (the 100k chromosome, cap 14, a
+rebuild every step, all three LE fixes) built as configs.py builds them,
+configs 1-3 at their --quick lengths and config 5 at its full ones, each
+held healthy (config 5's extruders heat it past T 2: its T is held to
+the fast engine's from the same warm state; config 1 starts from
+overlapping random walks: held finite); config 2's 40 steps from its
+warm state twice on the card (bit for bit) and on the CPU (integer
+fields bit for bit, positions within 1e-3); config 5's profile (device
+busy share, top kernels and operations) and host syncs a step, which
+must be 0.  After path 1 it holds the general path's ``setup`` on path
+1's settled state against the fast engine's forces.
 
     python3 chip_smoke.py [--profile STEPS] [--overrun STEPS]
 
@@ -148,6 +162,29 @@ REPLICA_WITNESS = ("gx", "gv", "gf", "gx_ref", "bid", "hn", "pid", "slot_of",
                    "exl_slot", "exr_slot", "ex_left", "ex_right", "types",
                    "img", "flags", "epair", "ebond", "n_moves", "n_loads",
                    "n_unloads", "n_clamps", "last_event")
+# path 7, the general path (integrate.run): benchmarks/configs.py's
+# configs 1, 2, 3 and 5 (configs.py:86-197, 252-266) as its _chain_system
+# and _extrusion_run build them; configs 1-3 at their --quick measured
+# lengths, config 5 at its full ones.  Fields: beads (chains x length for
+# the generated melt), the Simulation's dt and extra fixes, rebuild
+# cadence, cell cap, seeded extruders, thermalize / warm / measured steps.
+GENERAL = {
+    1: dict(name="1_chain32k_generated", chains=320, length=100, dt=0.012,
+            rebuild_every=4, thermalize=0, warm=50, measure=200, n_ex=0),
+    2: dict(name="2_1k_extrusion_only", chains=1, length=1000, dt=0.006,
+            rebuild_every=1, thermalize=300, warm=50, measure=300, n_ex=10),
+    3: dict(name="3_10k_turnover", chains=1, length=10_000, dt=0.006,
+            rebuild_every=1, thermalize=300, warm=50, measure=300,
+            n_ex=100),
+    5: dict(name="5_mach2022_100k", chains=1, length=100_000, dt=0.006,
+            rebuild_every=1, cell_cap=14, thermalize=300, warm=50,
+            measure=2000, n_ex=500),
+}
+# config 2's card checks: steps from the warm state (an extrusion event at
+# its first, step 351); f32 positions card against CPU
+GEN_CHECK_STEPS, GEN_X_TOL = 40, 1e-3
+# config 5's profiled steps (at least; --profile raises it)
+GEN_PROFILE_STEPS = 20
 # the TPU kernel each chain kernel replaces (its records, one-run and batched)
 REPLACES = {
     "kick_drift_halo": "lammps_le_tpu/fast/pallas_step.py:731",
@@ -196,22 +233,8 @@ def config6_system():
     """configs.py:269-300 (_chain_system): serpentine of 1M beads, LJ 1.12
     shifted, FENE (30, 1.5, 1, 1) + harmonic (10, 1.1) extruder bonds,
     skin 0.5, rebuild_every 40, 8192 extruder slots, cap 9, f32."""
-    from lammps_le_torch.io.data import system_from_data
-    from lammps_le_torch.scene import serpentine
-    from lammps_le_torch.system import (BOND_FENE, BOND_HARMONIC,
-                                        BondParams, PairLJCut)
-
-    data = serpentine(C6["beads"], seed=12345, n_atom_types=4,
-                      n_bond_types=2, barrier_fraction=0.0)
-    ones = np.ones((4, 4))
-    pair = PairLJCut(epsilon=ones, sigma=ones, cutoff=1.12 * ones,
-                     shift=True)
-    bonds = BondParams(
-        style=np.array([BOND_FENE, BOND_HARMONIC]),
-        coeffs=np.array([[30.0, 1.5, 1.0, 1.0], [10.0, 1.1, 0.0, 0.0]]))
-    system, _ = system_from_data(
-        data, pair=pair, bonds=bonds, dtype="float32", ex_btype=2,
-        max_extruders=8192, skin=0.5, rebuild_every=40, cell_cap=9)
+    system, data = general_system(1, C6["beads"], skin=0.5, rebuild_every=40,
+                                  max_extruders=8192, cell_cap=9)
     return data, system
 
 
@@ -2313,6 +2336,360 @@ def path_records(path, phases, launches):
     return out
 
 
+# ---------------------------------------------------------------------------
+# path 7: the general path
+
+
+def general_system(n_chains, chain_len, generator="serpentine", n_types=4,
+                   **kw):
+    """configs.py:56-83 (_chain_system) on the port: a generated FENE melt
+    (``fene_melt``) or a serpentine chain of 4 types without barriers,
+    seed 12345; LJ 1.12 shifted, FENE (30, 1.5, 1, 1) + harmonic (10, 1.1)
+    extruder bonds, f32; ``kw`` to system_from_data."""
+    from lammps_le_torch.io.data import system_from_data
+    from lammps_le_torch.scene import fene_melt, serpentine
+    from lammps_le_torch.system import (BOND_FENE, BOND_HARMONIC,
+                                        BondParams, PairLJCut)
+
+    if generator == "melt":
+        data = fene_melt(n_chains, chain_len, seed=12345,
+                         n_atom_types=n_types, n_bond_types=2)
+    else:
+        data = serpentine(chain_len, seed=12345, n_atom_types=n_types,
+                          n_bond_types=2, barrier_fraction=0.0)
+    ones = np.ones((n_types, n_types))
+    pair = PairLJCut(epsilon=ones, sigma=ones, cutoff=1.12 * ones,
+                     shift=True)
+    bonds = BondParams(
+        style=np.array([BOND_FENE, BOND_HARMONIC]),
+        coeffs=np.array([[30.0, 1.5, 1.0, 1.0], [10.0, 1.1, 0.0, 0.0]]))
+    system, _ = system_from_data(data, pair=pair, bonds=bonds,
+                                 dtype="float32", ex_btype=2, **kw)
+    return system, data
+
+
+def general_config(cfg, spec):
+    """(system, data, Simulation, thermalizing Simulation or None, init
+    seed) of config ``cfg`` (configs.py:86-197, 252-266)."""
+    from lammps_le_torch.fixes import (NVE, ExLoad, ExUnload, Extrusion,
+                                       Langevin)
+    from lammps_le_torch.integrate import Simulation
+
+    lan = (NVE(), Langevin(t_start=1.0, t_stop=1.0, damp=10.0, seed=904297))
+    if cfg == 1:
+        system, data = general_system(spec["chains"], spec["length"],
+                                      generator="melt", n_types=1,
+                                      rebuild_every=spec["rebuild_every"])
+        return (system, data, Simulation(system=system, dt=spec["dt"],
+                                         fixes=lan), None, 1)
+    n = spec["length"]
+    system, data = general_system(
+        1, n, rebuild_every=spec["rebuild_every"], skin=0.25,
+        max_extruders=max(64, n // 3),
+        **({"cell_cap": spec["cell_cap"]} if "cell_cap" in spec else {}))
+    le = dict(btype=2, neutral_type=1, ctcf_left=2, ctcf_right=3)
+    load = dict(iatomtype=1, jatomtype=1, cutoff=1.12, btype=2,
+                fraction=0.001, seed=684474, imaxbond=1, inewtype=1,
+                jmaxbond=1, jnewtype=1)
+    unload = dict(btype=2, cutoff=0.5, fraction=0.001, seed=456456)
+    fixes = {
+        2: (Extrusion(nevery=50, through_prob=1.0, **le),),
+        3: (ExLoad(nevery=50, **load), ExUnload(nevery=50, **unload)),
+        5: (Extrusion(nevery=100, through_prob=0.5, ctcf_left_right=4, **le),
+            ExLoad(nevery=100, **load), ExUnload(nevery=100, **unload)),
+    }[cfg]
+    sim = Simulation(system=system, dt=spec["dt"], fixes=lan + fixes,
+                     ex_btype=2)
+    warm = Simulation(system=system, dt=0.003, ex_btype=2, fixes=(
+        NVE(), Langevin(t_start=1.0, t_stop=1.0, damp=1.0, seed=7)))
+    return system, data, sim, warm, 3
+
+
+def sync(dev):
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def state_on(state, dev):
+    """A copy of a general-path State on ``dev``, without its neighbour
+    structure (``run``'s setup builds it anew)."""
+    import torch
+
+    return dataclasses.replace(state, nbr=None, **{
+        f.name: getattr(state, f.name).to(dev)
+        for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)})
+
+
+GEN_INTS = ("ex_left", "ex_right", "type", "img", "n_moves", "n_loads",
+            "n_unloads", "last_event", "flags", "step")
+
+
+def general_card_checks(sim, start, dev):
+    """Config 2's GEN_CHECK_STEPS steps from the same warm state through
+    ``run``: twice on the card, which must agree bit for bit (the
+    fixed-order scatters), and on the CPU, whose integer fields must be
+    the card's and positions within GEN_X_TOL."""
+    import torch
+
+    from lammps_le_torch.integrate import run
+
+    outs = [run(sim, state_on(start, d), GEN_CHECK_STEPS)[0]
+            for d in (dev, dev, "cpu")]
+    a, b, c = outs
+    same = all(torch.equal(getattr(a, k), getattr(b, k))
+               for k in GEN_INTS + ("x", "v", "f", "epair", "ebond"))
+    ints = all(torch.equal(getattr(a, k).cpu(), getattr(c, k))
+               for k in GEN_INTS)
+    dx = float((a.x.cpu() - c.x).abs().max())
+    moves = int(a.n_moves) - int(start.n_moves)
+    print(f"general path, config 2, {GEN_CHECK_STEPS} steps from the warm "
+          f"state: card twice bitwise {same}; card vs CPU integer fields "
+          f"equal {ints}, max|dx| {dx:.3g} (tolerance {GEN_X_TOL}); moves "
+          f"{moves}", flush=True)
+    if not (same and ints and dx < GEN_X_TOL and moves > 0):
+        fail("general path: config 2's card checks")
+
+
+def general_vs_fast(system, settled):
+    """``setup`` of an NVE-only Simulation on path 1's settled state (the
+    general path's grid: wrap, build_grid, the Newton-half
+    grid_pair_force) against ``from_fast(to_fast(...))`` (the fast
+    engine's full stencil K1): max|df| within F_REL_STENCILS x max|f|,
+    energies within E_ABS + E_REL.  A bead past the bound must be
+    explained as in ROADMAP Queue 3 item 1: a pair within f32 rounding of
+    the LJ cut, whose force at the cut the two stencil forms apply to one
+    bead or to both, and |df| at most those pairs' force at the cut."""
+    import torch
+
+    from lammps_le_torch.fast import from_fast, to_fast
+    from lammps_le_torch.fixes import NVE
+    from lammps_le_torch.integrate import Simulation, setup
+    from lammps_le_torch.ops.cells import minimum_image
+
+    sim = Simulation(system=system, dt=0.006, fixes=(NVE(),), ex_btype=2)
+    g = setup(sim, settled)
+    fast = from_fast(to_fast(settled, sim), system)
+    scale = float(g.f.abs().max())
+    df = (g.f - fast.f).abs().max(dim=1).values
+    bound = F_REL_STENCILS * scale
+    past = torch.nonzero(df > bound).flatten().tolist()
+    rc = float(system.pair.cutoff[0, 0])
+    r6 = rc ** -6
+    f_cut = abs(r6 * (48.0 * r6 - 24.0) / rc)
+    unexplained = []
+    for i in past:
+        d = minimum_image(g.x - g.x[i], system.box_size)
+        rsq = (d * d).sum(1)
+        near = int(((rsq - rc * rc).abs() < 1e-5 * rc * rc).sum())
+        if near == 0 or float(df[i]) > near * f_cut * 1.01 + bound:
+            unexplained.append((i, float(df[i]), near))
+    de = [abs(float(g.epair) - float(fast.epair)),
+          abs(float(g.ebond) - float(fast.ebond))]
+    etol = [E_ABS + E_REL * abs(float(fast.epair)),
+            E_ABS + E_REL * abs(float(fast.ebond))]
+    print(f"general path setup vs the fast engine on path 1's settled "
+          f"state ({system.n} beads): max|df| {float(df.max()):.4g} "
+          f"({float(df.max()) / scale:.3g} of max|f| {scale:.4g}; bound "
+          f"{F_REL_STENCILS} of it); {len(past)} beads past it, "
+          f"{len(past) - len(unexplained)} explained by pairs at the LJ cut "
+          f"(force there {f_cut:.4g}); |de| pair {de[0]:.4g} bond "
+          f"{de[1]:.4g}; flags {int(g.flags):#x} / {int(fast.flags):#x}",
+          flush=True)
+    if unexplained or de[0] > etol[0] or de[1] > etol[1]:
+        fail(f"general path setup vs fast engine: unexplained "
+             f"{unexplained[:5]}, |de| {de} (tolerance {etol})")
+
+
+def general_profile(sim, state, steps, card):
+    """``steps`` more steps of a general-path run under torch.profiler:
+    the device busy share, the top kernels and the top operations by
+    device time.  Returns the device ms a step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lammps_le_torch.integrate import make_step
+
+    step = make_step(sim, device=state.x.device)
+    s0 = int(state.step)
+    words = tuple(state.key.tolist())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(1, steps + 1):
+            state = step(state, s0 + i, words)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs = prof.key_averages()
+    kern = [e for e in evs if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    print(f"general path profile ({card}): {steps} config-5 steps in "
+          f"{wall * 1e3:.1f} ms under the profiler, device busy "
+          f"{busy_us / 1e3:.1f} ms ({100 * busy_us / 1e6 / wall:.1f}%), "
+          f"{sum(e.count for e in kern) / steps:.0f} kernels a step",
+          flush=True)
+    print("  top kernels by device time:", flush=True)
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / steps:9.2f} us/step  "
+              f"{e.count:6d}x  {e.key[:70]}", flush=True)
+    ops = [e for e in evs if e.device_type == DeviceType.CPU
+           and e.self_device_time_total > 0]
+    print("  top operations by device time:", flush=True)
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / steps:9.2f} us/step  "
+              f"{e.count:6d}x  {e.key[:70]}", flush=True)
+    return busy_us / steps / 1e3
+
+
+def general_syncs(sim, state, steps, card):
+    """Host syncs a step of ``steps`` general-path steps (PyTorch's sync
+    debug mode warns at each operation that waits for the card)."""
+    import warnings
+
+    import torch
+
+    from lammps_le_torch.integrate import make_step
+
+    step = make_step(sim, device=state.x.device)
+    s0 = int(state.step)
+    words = tuple(state.key.tolist())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for i in range(1, steps + 1):
+                state = step(state, s0 + i, words)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    where = sorted({f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"
+                    for w in caught})
+    print(f"general path host syncs ({card}): {len(caught)} in {steps} "
+          f"config-5 steps, {len(caught) / steps:.4f} a step; at {where}",
+          flush=True)
+    return len(caught)
+
+
+def fast_witness(cfg, sim, start, steps, sps, card):
+    """The fast engine (``run_fast``) on the same Simulation from the same
+    warm state for the same steps: its wall time against the general
+    path's and its T, the witness of the general path's.  Returns T."""
+    import torch
+
+    from lammps_le_torch.fast import run_fast
+    from lammps_le_torch.integrate import thermo_row
+
+    sync(start.x.device)
+    t0 = time.perf_counter()
+    fast, _ = run_fast(sim, start, steps)
+    sync(start.x.device)
+    wall = time.perf_counter() - t0
+    t_fast = float(thermo_row(fast, sim.system).temp)
+    print(f"general path config {cfg}: the fast engine from the same warm "
+          f"state, {steps} steps in {wall:.3f} s, {steps / wall:.2f} "
+          f"steps/s with its set-up (the general path's {sps:.2f} steps/s "
+          f"is {sps * wall / steps:.4f}x that); T {t_fast:.4f}, flags "
+          f"{int(fast.flags):#x}, moves {int(fast.n_moves)} ({card})",
+          flush=True)
+    return t_fast
+
+
+def general_path(dev, card, profile_steps=0, specs=None):
+    """Path 7: configs 1, 2, 3 and 5 through ``integrate.run`` as
+    configs.py runs them (thermalize on a warm Simulation, seeded
+    extruders, a warm-up run, the measured run), each printed and held
+    healthy (finite; no error-class flag; T in (0.5, 2.0) or within 5% of
+    the fast engine's from the same warm state, which config 5 always
+    runs (its extruders heat it past 2); a move in configs 2 and 5;
+    config 1, which configs.py starts far from equilibrium, only finite
+    with no NON_FINITE flag); config 2's card checks; config 5's profile
+    and host syncs.  Returns {config name: steps/s}."""
+    import torch
+
+    from lammps_le_torch.integrate import run, thermo_row
+    from lammps_le_torch.state import (FLAG_FENE_CLAMP, FLAG_NON_FINITE,
+                                       init_state)
+
+    on_card = torch.device(dev).type == "cuda"
+    out = {}
+    for cfg, spec in (specs or GENERAL).items():
+        t0 = time.perf_counter()
+        system, data, sim, warm, seed = general_config(cfg, spec)
+        state = init_state(system, data.x, types=data.types, seed=seed,
+                           device=dev)
+        if warm is not None:
+            state, _ = run(warm, state, spec["thermalize"])
+            n = system.n
+            state = seed_extruders(state, spec["n_ex"],
+                                   max(4, n // spec["n_ex"]),
+                                   system.max_extruders, reset_step=False)
+        state, _ = run(sim, state, spec["warm"])
+        sync(dev)
+        set_up = time.perf_counter() - t0
+        start = state
+        t0 = time.perf_counter()
+        state, _ = run(sim, state, spec["measure"])
+        sync(dev)
+        wall = time.perf_counter() - t0
+        row = thermo_row(state, system)
+        temp, flags = float(row.temp), int(state.flags)
+        moves = int(state.n_moves)
+        sps = spec["measure"] / wall
+        nb = system.neighbor
+        print(f"general path config {cfg} ({spec['name']}, {system.n} beads, "
+              f"grid {nb.nx}x{nb.ny}x{nb.nz} cap {nb.cell_cap}, rebuild "
+              f"every {nb.rebuild_every}; {card}): {spec['measure']} steps "
+              f"in {wall:.3f} s, {sps:.2f} steps/s, {sps * system.n:.4g} "
+              f"bead*steps/s; flags {flags:#x}; moves {moves}, loads "
+              f"{int(state.n_loads)}, unloads {int(state.n_unloads)}; T "
+              f"{temp:.4f}; extruders {int(row.n_extruders)}; set-up "
+              f"{set_up:.1f} s", flush=True)
+        finite = bool(torch.isfinite(state.x).all()
+                      and torch.isfinite(state.v).all())
+        if cfg == 1:
+            # configs.py's generated melt starts from overlapping random
+            # walks with no push-off and heats far past T 2, with cell
+            # overflow and skin flags, in the reference too: held finite
+            # with no NON_FINITE flag, its T and flags printed
+            if not finite or flags & FLAG_NON_FINITE:
+                fail(f"general path config 1: non-finite state, flags "
+                     f"{flags:#x}")
+        else:
+            t_fast = None
+            if cfg == 5 or not 0.5 < temp < 2.0:
+                t_fast = fast_witness(cfg, sim, start, spec["measure"], sps,
+                                      card)
+            # T outside (0.5, 2.0) is the configuration's own heating when
+            # the fast engine from the same warm state gets there too
+            t_ok = 0.5 < temp < 2.0 or (
+                t_fast is not None and abs(temp - t_fast) <= 0.05 * t_fast)
+            if (not finite or flags & ~FLAG_FENE_CLAMP or not t_ok
+                    or (cfg in (2, 5) and moves == 0)):
+                fail(f"general path config {cfg} unhealthy: flags "
+                     f"{flags:#x}, T {temp} (fast engine {t_fast}), moves "
+                     f"{moves}")
+        out[spec["name"]] = sps
+        if cfg == 2:
+            general_card_checks(sim, start, dev)
+        if cfg == 5 and on_card:
+            dev_ms = general_profile(sim, state,
+                                     max(profile_steps, GEN_PROFILE_STEPS),
+                                     card)
+            print(f"general path config 5: device busy at the measured rate"
+                  f" {dev_ms:.4f} ms a step x {sps:.2f} steps/s = "
+                  f"{100 * dev_ms * sps / 1e3:.1f}% ({card})", flush=True)
+            if general_syncs(sim, state, SYNC_STEPS, card):
+                fail("general path: host syncs between thermo rows")
+        del state, start
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
@@ -2395,6 +2772,7 @@ def main(argv=None):
     sps = {"100k full stencil, step loop": MEASURE / wall,
            "100k full stencil, chain": MEASURE / wall_c}
     del fs
+    general_vs_fast(system, settled)
     torch.cuda.empty_cache()
 
     # path 3, the sharded slab stencil: the reference's gate, then the
@@ -2527,6 +2905,11 @@ def main(argv=None):
 
     small_end_to_end(dev)
     small_end_to_end(dev, stencil="newton_half_forces")
+
+    # path 7, the general path: configs 1, 2, 3 and 5 through integrate.run
+    gen = general_path(dev, card, args.profile)
+    print(f"general path steps/s in this call ({card}): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in gen.items()), flush=True)
 
     print(json.dumps({"kernels": [
         {"name": name, "path": path, "route": "cuda",

@@ -131,9 +131,10 @@ class ThermoSample(NamedTuple):
 
 def fast_block_reason(sim) -> None:
     """Raise NotImplementedError naming what this engine does not cover
-    (the reference's fast_block_reason checks, engine.py:240, plus the
-    options this port does not have yet); return None when covered.  A
-    Simulation is never quietly run on something else."""
+    (the reference's fast_block_reason checks, engine.py:240): such a
+    Simulation runs on the general path (``integrate.run``), which the
+    caller picks; return None when covered.  A Simulation is never
+    quietly run on something else."""
     system = sim.system
     reason = None
     bts = np.asarray(system.backbone_type)
@@ -176,7 +177,7 @@ def fast_block_reason(sim) -> None:
                 reason = f"fix langevin {opt} (general-engine option)"
             n_lan += 1
         elif type(f) not in (Extrusion, ExLoad, ExUnload):
-            reason = f"fix {type(f).__name__} is not ported"
+            reason = f"fix {type(f).__name__} (general-engine fix)"
         elif f.group is not None:
             reason = f"fix {type(f).__name__} with a group"
     if not reason and n_nve != 1:
@@ -184,7 +185,9 @@ def fast_block_reason(sim) -> None:
     if not reason and n_lan > 1:
         reason = f"{n_lan} fix langevin (fast path supports at most one)"
     if reason:
-        raise NotImplementedError(f"lammps_le_torch fast engine: {reason}")
+        raise NotImplementedError(
+            f"lammps_le_torch fast engine: {reason}; run it on the general "
+            "path (lammps_le_torch.integrate.run)")
     return None
 
 

@@ -1,1 +1,10 @@
-from .config import NVE, ExLoad, ExUnload, Extrusion, Langevin  # noqa: F401
+from .config import (  # noqa: F401
+    NVE,
+    Extrusion,
+    ExLoad,
+    ExUnload,
+    Langevin,
+    NVELimit,
+)
+from .momentum import Momentum  # noqa: F401,E402  (registers the style)
+from .viscous import Viscous  # noqa: F401,E402  (registers the style)

@@ -1,1 +1,1 @@
-from .simulation import Simulation  # noqa: F401
+from .verlet import Simulation, make_step, run, setup, thermo_row  # noqa: F401

@@ -1,5 +1,6 @@
-"""The static run description (``lammps_le_tpu.integrate.verlet.Simulation``
-without the general engine around it): system + dt + fixes."""
+"""The static run description (``lammps_le_tpu.integrate.verlet
+.Simulation``): system + dt + fixes.  One class, which ``integrate``,
+``integrate.verlet`` and the fast engine share."""
 
 from __future__ import annotations
 

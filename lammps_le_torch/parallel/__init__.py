@@ -1,2 +1,8 @@
-"""Spatial decomposition of the fast engine's cell planes
-(``lammps_le_tpu/parallel``): the sharded slab stencil and its segment."""
+"""Parallel paths (``lammps_le_tpu/parallel``): the fast engine's sharded
+slab stencil and its segment, and the general path's replica
+ensembles."""
+from .replica import (  # noqa: F401
+    make_replica_runner,
+    replicate_state,
+    sharded_replica_state,
+)

@@ -28,6 +28,19 @@ FLAG_BOND_REACH = 64         # a backbone bond exceeded the cell-stencil reach
 
 
 @dataclasses.dataclass
+class NeighborList:
+    """Compact verlet list (state.py:35): full (symmetric) neighbour
+    candidates per bead found within ``cutoff + skin`` at the last
+    rebuild, padded with N; ``x_ref`` the positions then (skin check)."""
+
+    idx: torch.Tensor            # (N, K) int64, padded with N
+    x_ref: torch.Tensor          # (N, 3)
+
+    def replace(self, **kw) -> "NeighborList":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass
 class State:
     x: torch.Tensor              # (N, 3) wrapped positions
     v: torch.Tensor              # (N, 3) velocities
@@ -46,6 +59,9 @@ class State:
     n_unloads: torch.Tensor      # () int64 total extruders unloaded
     last_event: torch.Tensor     # (3,) int64 counts at the latest events
     therm_e: torch.Tensor        # () thermostat energy (tally: general path)
+    # the general path's neighbour structure: a NeighborList or an
+    # ops.grid.CellGrid (built at each rebuild), None before setup
+    nbr: object = None
 
     def replace(self, **kw) -> "State":
         return dataclasses.replace(self, **kw)
@@ -107,10 +123,28 @@ def extruder_partner(ex_left: torch.Tensor, ex_right: torch.Tensor,
     return partner[..., :n]
 
 
+def nbr_from_arrays(d: dict, device="cuda"):
+    """A reference ``NeighborList`` or ``CellGrid`` given as a dict of
+    numpy arrays (``idx`` / ``slot_bead`` + ``scatter_bead``, and
+    ``x_ref``) as the port's."""
+    def ints(name):
+        return torch.as_tensor(np.asarray(d[name]).astype(np.int64),
+                               device=device)
+
+    x_ref = torch.as_tensor(np.array(d["x_ref"]), device=device)
+    if "slot_bead" in d:
+        from .ops.grid import CellGrid
+
+        return CellGrid(slot_bead=ints("slot_bead"),
+                        scatter_bead=ints("scatter_bead"), x_ref=x_ref)
+    return NeighborList(idx=ints("idx"), x_ref=x_ref)
+
+
 def state_from_arrays(d: dict, device="cuda") -> State:
     """A port State from a dict of numpy arrays holding a reference State's
-    fields (``key`` as its raw uint32 words) — starts both engines from
-    the same point."""
+    fields (``key`` as its raw uint32 words; ``therm_e`` and ``nbr``, a
+    dict as ``nbr_from_arrays`` takes, optional) — starts both engines
+    from the same point."""
     def f(name):
         return torch.as_tensor(np.array(d[name]), device=device)
 
@@ -126,5 +160,8 @@ def state_from_arrays(d: dict, device="cuda") -> State:
         epair=f("epair"), ebond=f("ebond"),
         n_moves=i("n_moves"), n_loads=i("n_loads"),
         n_unloads=i("n_unloads"), last_event=i("last_event"),
-        therm_e=torch.zeros((), dtype=x.dtype, device=device),
+        therm_e=(f("therm_e") if "therm_e" in d else
+                 torch.zeros((), dtype=x.dtype, device=device)),
+        nbr=(None if d.get("nbr") is None
+             else nbr_from_arrays(d["nbr"], device)),
     )

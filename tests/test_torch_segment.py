@@ -300,6 +300,15 @@ assert int(st.step) == 6 and bool(torch.isfinite(st.x).all())
 fr = run_fast_replicas(sim, st, 2, 2)
 assert fr.replicas == 2 and fr.step == 8 and bool(torch.isfinite(fr.gx).all())
 assert tuple(thermo_row_fast(fr, system).temp.shape) == (2,)
+from lammps_le_torch.integrate import run
+from lammps_le_torch.parallel import make_replica_runner, replicate_state
+from lammps_le_torch.scene import chromosome, fene_melt
+gst, rows = run(sim, st, 2, thermo_every=1)
+assert int(gst.step) == 8 and len(rows) == 3
+setup_fn, segment = make_replica_runner(sim, device="cpu")
+rep = segment(setup_fn(replicate_state(gst, 2)), 1)
+assert tuple(rep.x.shape) == (2, 200, 3) and int(rep.step[1]) == 9
+assert fene_melt(2, 5).n_atoms == 10 and chromosome(20).n_atoms == 20
 assert not any(m.split(".")[0] in ("jax", "flax", "lammps_le_tpu")
                and sys.modules[m] for m in list(sys.modules))
 print("ok", int(st.n_moves))

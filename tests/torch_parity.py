@@ -226,3 +226,156 @@ def assert_same_run(a, b):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
     for name in ("step", "n_rebuilds", "skin_pend"):
         assert getattr(a, name) == getattr(b, name), name
+
+
+# ---------------------------------------------------------------------------
+# the general path (integrate.run) against the reference's, from the
+# melt32 start: tests/test_torch_verlet*.py
+
+GENERAL_STEPS, GENERAL_EVERY = 20, 10
+GENERAL_INTS = ("ex_left", "ex_right", "type", "img", "n_moves", "n_loads",
+                "n_unloads", "last_event", "flags", "step")
+_HALF = np.arange(500) < 250
+GROUPS = {"a": _HALF, "b": ~_HALF}
+
+
+def general_fixes(mod, name):
+    """The fix sets of the general-path trajectories: the LE mix; GJF
+    vhalf with tally, zero and a group; GJF vfull; nve/limit + a grouped
+    nve, two grouped Langevin fixes with a t ramp (zero on one, tally on
+    the other), fix momentum and fix viscous."""
+    if name == "le":
+        return le_fixes(mod)
+    if name == "gjf_vhalf":
+        return (mod.NVE(), mod.Langevin(1.0, 1.0, 2.0, seed=21, gjf="vhalf",
+                                        tally=True, zero=True, group="a"))
+    if name == "gjf_vfull":
+        return (mod.NVE(), mod.Langevin(1.0, 1.0, 1.0, seed=22,
+                                        gjf="vfull"))
+    return (mod.NVELimit(xmax=0.006, group="a"), mod.NVE(group="b"),
+            mod.Langevin(1.0, 1.5, 1.0, seed=3, group="a", zero=True),
+            mod.Langevin(1.2, 0.8, 2.0, seed=4, group="b", tally=True),
+            mod.Momentum(nevery=5), mod.Viscous(gamma=0.2))
+
+
+@functools.lru_cache(maxsize=None)
+def general_system(dtype):
+    return make_system(dtype=dtype)[0]
+
+
+def general_sims(name, dtype):
+    """(reference Simulation, port Simulation) of fix set ``name``;
+    energy_every 4 for the "mixed" set."""
+    import lammps_le_torch.fixes as tf
+    import lammps_le_tpu.fixes as jf
+    from lammps_le_torch.integrate import Simulation
+    from lammps_le_tpu.integrate import Simulation as RefSimulation
+
+    kw = dict(system=general_system(dtype), dt=0.005, ex_btype=2,
+              energy_every=4 if name == "mixed" else 1)
+    return (RefSimulation(fixes=general_fixes(jf, name), **kw),
+            Simulation(fixes=general_fixes(tf, name), **kw))
+
+
+@functools.lru_cache(maxsize=None)
+def general_start(dtype):
+    """The melt32 start (thermalized, six extruders) as numpy arrays in
+    ``dtype``."""
+    _, d = melt_arrays()
+    d = dict(d)
+    for k in ("x", "v", "f", "epair", "ebond"):
+        d[k] = np.asarray(d[k], dtype)
+    return arrays_of(jax_state(d, jnp.dtype(dtype)))
+
+
+def _compiled(fn, *args):
+    """``fn`` compiled for ``args`` with LLVM's optimisations off (the
+    same results, less compile time)."""
+    import jax
+
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0})
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_setup(dtype):
+    """The reference's setup, compiled once: it reads only the system and
+    ex_btype, which every fix set shares."""
+    from lammps_le_tpu.integrate import verlet
+
+    rsim, _ = general_sims("le", dtype)
+    return _compiled(lambda s: verlet.setup(rsim, s),
+                     jax_state(general_start(dtype), jnp.dtype(dtype)))
+
+
+def ref_general_run(rsim, d, groups):
+    """The reference's ``run`` of GENERAL_STEPS with a thermo row every
+    GENERAL_EVERY (verlet.py:631-709: setup, then segments): (final
+    State, the rows) as numpy, the rows stacked, the first after setup."""
+    import jax
+    from lammps_le_tpu.integrate import verlet
+
+    step = verlet.make_step(rsim, groups)
+    begin = int(d["step"])
+    rb, re = jnp.int32(begin), jnp.int32(begin + GENERAL_STEPS)
+    st = _ref_setup(str(np.asarray(d["x"]).dtype))(
+        jax_state(d, jnp.asarray(d["x"]).dtype))
+
+    def segments(s):
+        def chunk(s, _):
+            s = jax.lax.fori_loop(0, GENERAL_EVERY,
+                                  lambda i, s: step(s, rb, re), s)
+            return s, verlet.thermo_row(s, rsim.system)
+
+        return jax.lax.scan(chunk, s, None,
+                            length=GENERAL_STEPS // GENERAL_EVERY)
+
+    row0 = verlet.thermo_row(st, rsim.system)
+    st, rows = _compiled(segments, st)(st)
+    rows = jax.tree.map(lambda a, b: np.concatenate([np.asarray(a)[None],
+                                                     np.asarray(b)]),
+                        row0, rows)
+    return jax.tree.map(np.asarray, st), rows
+
+
+@functools.lru_cache(maxsize=None)
+def general_pair(name, dtype="float64"):
+    """(reference (State, rows), port (State, rows)) of one run of fix set
+    ``name`` from the same start."""
+    from lammps_le_torch.integrate import run
+    from lammps_le_torch.state import state_from_arrays
+
+    rsim, tsim = general_sims(name, dtype)
+    d = general_start(dtype)
+    groups = None if name == "le" else GROUPS
+    return (ref_general_run(rsim, d, groups),
+            run(tsim, state_from_arrays(d, "cpu"), GENERAL_STEPS,
+                groups=groups, thermo_every=GENERAL_EVERY))
+
+
+def check_general_ints(rs, ts):
+    for k in GENERAL_INTS:
+        np.testing.assert_array_equal(getattr(rs, k), getattr(ts, k).numpy(),
+                                      err_msg=k)
+
+
+def check_general_f64(name):
+    """A general-path run against the reference's in f64: integer fields
+    bit for bit; x and v within 1e-9, f within 1e-9 x max(1, max|f|),
+    the tally within 1e-9, thermo values within 1e-8 x max(1, |value|)."""
+    (rs, rows), (ts, trows) = general_pair(name)
+    check_general_ints(rs, ts)
+    for k in ("x", "v"):
+        assert float(np.abs(getattr(rs, k) - getattr(ts, k).numpy()).max()) \
+            <= 1e-9, k
+    assert float(np.abs(rs.f - ts.f.numpy()).max()) <= 1e-9 * max(
+        1.0, float(np.abs(rs.f).max()))
+    assert abs(float(rs.therm_e) - float(ts.therm_e)) <= 1e-9
+    assert len(trows) == len(rows.step)
+    for i, row in enumerate(trows):
+        assert (row.step, row.n_extruders) == (int(rows.step[i]),
+                                               int(rows.n_extruders[i]))
+        for k in ("temp", "epair", "ebond", "ke", "etotal"):
+            want = float(getattr(rows, k)[i])
+            assert abs(getattr(row, k) - want) <= 1e-8 * max(1.0, abs(want))
+    return ts
