@@ -68,7 +68,18 @@ warm state twice on the card (bit for bit) and on the CPU (integer
 fields bit for bit, positions within 1e-3); config 5's profile (device
 busy share, top kernels and operations) and host syncs a step, which
 must be 0.  After path 1 it holds the general path's ``setup`` on path
-1's settled state against the fast engine's forces.
+1's settled state against the fast engine's forces.  Then path 8, the
+deck front end (``deck/``, ``python -m lammps_le_torch``): config 4
+(configs.py:199-249, the README's deck: 10,000 beads, f32) through
+``DeckRunner`` on the card, ``run 300`` and the measured ``run 2000``,
+which must take K2's step loop, launch each of its kernels once a step
+and end healthy, then K1, K2a, K2c and K2d+e on its final planes against
+their plain versions (the ``config4`` records); the CLI in a subprocess
+on the 300-bead deck of tests/test_deck.py (exit 0, its log, dump and
+data file); that deck resumed from its checkpoint at step 40, bit for
+bit the uninterrupted run; that deck on the general path (``LLE_FAST=0``)
+in f64 on the card and on the CPU (integer fields equal); and
+``minimize`` decks (fire, cg) in f64 with the CPU's iteration counts.
 
     python3 chip_smoke.py [--profile STEPS] [--overrun STEPS]
 
@@ -185,6 +196,76 @@ GENERAL = {
 GEN_CHECK_STEPS, GEN_X_TOL = 40, 1e-3
 # config 5's profiled steps (at least; --profile raises it)
 GEN_PROFILE_STEPS = 20
+# path 8, the deck front end: config 4 (configs.py:199-249, README.md:22-40)
+# at its full lengths, a run of 300 steps then the measured 2,000; the
+# 300-bead deck of tests/test_deck.py:11-36 (the CLI, restart and card vs
+# CPU phases; f64 positions card against CPU after its 60 steps); the
+# minimize decks on its data jittered by 0.1 (fire to max|F| < 0.1, cg to
+# the energy tolerance 1e-6), f64
+C4 = dict(beads=10_000, measure=2000)
+CONFIG4_DECK = """
+units lj
+atom_style bond
+special_bonds fene
+read_data data.le
+neighbor 0.4 bin
+bond_style hybrid
+bond_coeff 1 fene 30.0 1.5 1.0 1.0
+bond_coeff 2 harmonic 10.0 1.1
+pair_style lj/cut 1.12
+pair_modify shift yes
+pair_coeff * * 1.0 1.0 1.12
+velocity all create 1.0 87287
+fix 1 all nve
+fix 2 all langevin 1.0 1.0 10.0 904297
+fix loop all extrusion 175 1 2 3 0.5 2 4
+fix loading all ex_load 70 1 1 1.12 2 prob 0.001 684474 iparam 1 1 jparam 1 1
+fix unloading all ex_unload 70 2 0.5 prob 0.001 456456
+thermo 2000
+timestep 0.006
+run 300
+"""
+TINY_DECK = """
+units lj
+atom_style bond
+special_bonds fene
+read_data data.tiny
+neighbor 0.3 bin
+bond_style hybrid
+bond_coeff 1 fene 30.0 1.5 1.0 1.0
+bond_coeff 2 harmonic 10.0 1.1
+pair_style lj/cut 1.12
+pair_modify shift yes
+pair_coeff * * 1.0 1.0 1.12
+velocity all create 1.0 87287
+fix 1 all nve
+fix 2 all langevin 1.0 1.0 10.0 904297
+fix loop all extrusion 10 1 2 3 0.5 2 4
+fix loading all ex_load 10 1 1 1.12 2 prob 0.5 684474 iparam 1 1 jparam 1 1
+fix unloading all ex_unload 10 2 0.5 prob 0.1 456456
+thermo 20
+timestep 0.005
+run 40
+write_data out.data
+write_restart out.ckpt.npz
+run 20
+"""
+DECK_X_TOL = 1e-6
+MIN_DECK = """
+units lj
+atom_style bond
+special_bonds fene
+read_data min.data
+neighbor 0.3 bin
+bond_style hybrid
+bond_coeff 1 fene 30.0 1.5 1.0 1.0
+bond_coeff 2 harmonic 10.0 1.1
+pair_style lj/cut 1.12
+pair_modify shift yes
+pair_coeff * * 1.0 1.0 1.12
+timestep 0.005
+"""
+MIN_RUNS = (("fire", "0.0 0.1 1000 5000"), ("cg", "1e-6 1e-3 300 3000"))
 # the TPU kernel each chain kernel replaces (its records, one-run and batched)
 REPLACES = {
     "kick_drift_halo": "lammps_le_tpu/fast/pallas_step.py:731",
@@ -1132,8 +1213,8 @@ def rcp_forms(name, call, out, plain, tol):
     return timings(lambda: exact_form(call), 20)
 
 
-def stencil_phase(fs, sim, g):
-    """stencil_forces vs its plain version on the 100k planes: forces
+def stencil_phase(fs, sim, g, label="100k"):
+    """stencil_forces vs its plain version on the ``label`` planes: forces
     within 3e-5 max|f|, energies, flags and clamps, in the default and in
     the IEEE reciprocal form (``rcp_forms``).  Returns its record (no
     launch count)."""
@@ -1161,7 +1242,7 @@ def stencil_phase(fs, sim, g):
     if not torch.equal(in_k, in_r):
         fail(f"stencil_forces flags/clamps {in_k.tolist()} vs "
              f"{in_r.tolist()}")
-    t_exact = rcp_forms("stencil_forces at the 100k planes",
+    t_exact = rcp_forms(f"stencil_forces at the {label} planes",
                         lambda: K.stencil_forces(*st_args),
                         (gf_k, en_k, in_k), (gf_r, en_r, in_r),
                         F_REL * max(fmax, 1.0))
@@ -2690,6 +2771,340 @@ def general_path(dev, card, profile_steps=0, specs=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# path 8: the deck front end (deck/, python -m lammps_le_torch)
+
+
+def deck_dir(n, seed, barrier, name, jitter=0.0):
+    """A temporary directory holding ``scene.serpentine(n, ...)``'s data
+    file (4 atom types, 2 bond types) as ``name``, written by the port's
+    ``write_data``; with ``jitter`` each coordinate moved by a seeded
+    normal draw of that scale."""
+    import os
+    import tempfile
+
+    from lammps_le_torch.io.data import write_data
+    from lammps_le_torch.scene import serpentine
+
+    td = tempfile.mkdtemp(prefix="chip_smoke_deck_")
+    data = serpentine(n, seed=seed, n_atom_types=4, n_bond_types=2,
+                      barrier_fraction=barrier)
+    if jitter:
+        data.x = data.x + np.random.default_rng(0).normal(
+            scale=jitter, size=data.x.shape)
+    write_data(os.path.join(td, name), data)
+    return td
+
+
+def write_deck(td, name, text):
+    import os
+
+    path = os.path.join(td, name)
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
+
+
+class FastCapture:
+    """Within the block, the FastState of the fast engine's last run: the
+    state ``run_fast`` hands to ``from_fast``, which the deck runner never
+    sees (its clamps, planes and launches)."""
+
+    def __enter__(self):
+        from lammps_le_torch.fast import engine
+
+        self.engine, self.orig, self.fs = engine, engine.from_fast, None
+
+        def capture(fs, system, replica_index=None):
+            self.fs = fs
+            return self.orig(fs, system, replica_index)
+
+        engine.from_fast = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.from_fast = self.orig
+
+
+def deck_runner(dtype, dev, logged):
+    """A DeckRunner on ``dev`` whose log lines go to ``logged``."""
+    from lammps_le_torch.deck import DeckRunner
+
+    r = DeckRunner(dtype=dtype, quiet=True, device=dev)
+    r.log = logged.append
+    return r
+
+
+def config4_path(dev, card, profile_steps):
+    """Config 4 (configs.py:199-249, the README's deck) through the deck
+    front end on the card: ``run 300``, then the measured ``run 2000``
+    with the launch counts zeroed just before it and read just after.  It
+    must take K2's step loop and end healthy (error-class flags 0, FENE
+    clamps <= 20 x moves, T in (0.5, 2.0), or within 5% of the same deck
+    on the general path); every kernel of the path launches once a step
+    (the stencil and the springs once more in the run's set-up).
+    Then K1, K2a, K2c and K2d+e on the run's final planes against their
+    plain versions.  Returns (records, steps/s)."""
+    import torch
+
+    from lammps_le_torch.fast import kernels as K
+    from lammps_le_torch.fast import thermo_row_fast
+    from lammps_le_torch.fast.maps import fast_maps
+    from lammps_le_torch.fast.place import GridConsts
+    from lammps_le_torch.state import FLAG_FENE_CLAMP
+
+    td = deck_dir(C4["beads"], 5, 0.01, "data.le")
+    path = write_deck(td, "in.le", CONFIG4_DECK)
+    logged = []
+    r = deck_runner("float32", dev, logged)
+    t0 = time.perf_counter()
+    r.run_file(path)
+    warm_wall = time.perf_counter() - t0
+    K.reset_launches()
+    with FastCapture() as cap:
+        r.command("run", [str(C4["measure"])])
+    launches = dict(K.LAUNCHES)
+    fs = cap.fs
+    perf = dict(r.last_perf)
+    engines = [m for m in logged if m.startswith("Engine:")]
+    for m in logged:
+        print(f"config 4 deck: {m}", flush=True)
+    if len(engines) != 2 or not all("K2 step loop" in m for m in engines):
+        fail(f"config 4's runs did not take K2's step loop: {engines}")
+    system, sim = r.system, r.sim
+    row = thermo_row_fast(fs, system)
+    temp, flags = float(row.temp), int(fs.flags)
+    moves, clamps = int(fs.n_moves), int(fs.n_clamps)
+    n_ex = int((fs.ex_left >= 0).sum())
+    sps = perf["steps_per_s"]
+    print(f"config 4 ({system.n} beads, dtype float32, {card}): last_perf "
+          f"{perf}; {sps:.2f} steps/s, {perf['bead_steps_per_s']:.4g} "
+          f"bead*steps/s over the measured run {C4['measure']} (loop time "
+          f"with its set-up, thermo rows and pressure); run 300 with its "
+          f"set-up and the kernels' first launch {warm_wall:.2f} s; T "
+          f"{temp:.4f}; extruders {n_ex}; moves {moves}, loads "
+          f"{int(fs.n_loads)}, unloads {int(fs.n_unloads)}; clamps "
+          f"{clamps}; flags {flags:#x}; {fs.n_launches} step-loop launches",
+          flush=True)
+    want = path_launches(launches, "stencil_forces", C4["measure"],
+                         loops=fs.n_launches)
+    # the run's set-up (to_fast) evaluates the forces once: the stencil
+    # and the springs on the chain
+    want["stencil_forces"] += 1
+    want["extruder_springs"] += 1
+    print(f"config 4 launches in the measured run: {launches}", flush=True)
+    if launches != want:
+        fail(f"config 4 kernel launches {launches}, want {want}")
+    x_fin = bool(torch.isfinite(fs.gx).all() and torch.isfinite(fs.gv).all())
+    t_gen = None
+    if not 0.5 < temp < 2.0:
+        t_gen = config4_general(td, path, dev, card)
+    t_ok = 0.5 < temp < 2.0 or (t_gen is not None
+                                and abs(temp - t_gen) <= 0.05 * t_gen)
+    if (not x_fin or flags & ~FLAG_FENE_CLAMP or not t_ok
+            or clamps > 20 * max(moves, 1)):
+        fail(f"config 4 unhealthy: finite {x_fin}, flags {flags:#x}, T "
+             f"{temp} (general path {t_gen}), clamps {clamps} for {moves} "
+             f"moves")
+    if profile_steps:
+        deck_profile(r, profile_steps, sps, card)
+    g = GridConsts.build(system, fast_maps(system), dev)
+    phases = dict(stencil_forces=stencil_phase(fs, sim, g, "config 4"),
+                  **kernel_phases(fs, sim, g))
+    del fs, r
+    torch.cuda.empty_cache()
+    return path_records("config4", phases, launches), sps
+
+
+def config4_general(td, path, dev, card):
+    """Config 4's deck anew on the general path (``LLE_FAST=0``) on the
+    card: its T at the end, the witness of a run that heats past 2."""
+    import os
+
+    os.environ["LLE_FAST"] = "0"
+    try:
+        logged = []
+        r = deck_runner("float32", dev, logged)
+        r.run_file(path)
+        r.command("run", [str(C4["measure"])])
+    finally:
+        os.environ.pop("LLE_FAST", None)
+    from lammps_le_torch.integrate import thermo_row
+
+    temp = float(thermo_row(r.state, r.system).temp)
+    print(f"config 4 on the general path ({card}): {logged[-4:]}; T "
+          f"{temp:.4f}, flags {int(r.state.flags):#x}", flush=True)
+    return temp
+
+
+def deck_profile(r, steps, sps, card):
+    """``steps`` more steps of the deck's run under torch.profiler: the
+    device busy share at the measured rate and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        r.command("run", [str(steps)])
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kern) / steps / 1e3
+    print(f"config 4 profile ({card}): {steps} steps, device {dev_ms:.4f} "
+          f"ms a step; busy at the measured rate {dev_ms:.4f} x {sps:.2f} "
+          f"steps/s = {100 * dev_ms * sps / 1e3:.1f}%", flush=True)
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / steps:9.2f} us/step  "
+              f"{e.count:6d}x  {e.key[:70]}", flush=True)
+
+
+def cli_phase(card):
+    """``python -m lammps_le_torch -in in.tiny -log log.txt`` in a
+    subprocess, no ``-platform`` (the card): exit 0, the log's thermo
+    header, rows, Engine line and loop time, the xyz dump's frames, and
+    the data file it writes reading back with 300 atoms."""
+    import os
+    import subprocess
+
+    from lammps_le_torch.io.data import read_data
+
+    td = deck_dir(300, 7, 0.02, "data.tiny")
+    deck = TINY_DECK.replace("run 40", "dump d1 all xyz 20 traj.xyz\nrun 40")
+    path = write_deck(td, "in.tiny", deck)
+    log = os.path.join(td, "log.txt")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "lammps_le_torch", "-in", path, "-log", log],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    text = open(log).read() if os.path.exists(log) else ""
+    rows = [ln for ln in text.splitlines()
+            if ln.split() and ln.split()[0].isdigit()]
+    traj = open(os.path.join(td, "traj.xyz")).read().splitlines() \
+        if os.path.exists(os.path.join(td, "traj.xyz")) else []
+    frames = sum(1 for ln in traj if ln.startswith("Atoms. Timestep:"))
+    n_out = (read_data(os.path.join(td, "out.data")).n_atoms
+             if os.path.exists(os.path.join(td, "out.data")) else 0)
+    engines = [ln for ln in text.splitlines() if ln.startswith("Engine:")]
+    print(f"CLI ({card}): exit {res.returncode} in {wall:.1f} s; {len(rows)} "
+          f"thermo rows; {engines}; {frames} xyz frames; out.data "
+          f"{n_out} atoms", flush=True)
+    if res.returncode != 0:
+        print(res.stderr[-3000:], flush=True)
+    if (res.returncode != 0 or "Step" not in text or "Loop time" not in text
+            or len(rows) < 5 or len(engines) != 2 or frames != 2
+            or n_out != 300):
+        fail("python -m lammps_le_torch on the card")
+
+
+def restart_phase(dev):
+    """The 300-bead deck on the card (K2's step loop), then a fresh runner
+    resumed from its ``write_restart`` checkpoint at step 40 for 20 more
+    steps: bit for bit the uninterrupted run."""
+    import torch
+
+    td = deck_dir(300, 7, 0.02, "data.tiny")
+    path = write_deck(td, "in.tiny", TINY_DECK)
+    logged = []
+    a = deck_runner("float32", dev, logged)
+    a.run_file(path)
+    b = deck_runner("float32", dev, [])
+    b.root = td
+    for line in TINY_DECK.strip().splitlines():
+        parts = line.split()
+        if parts[0] not in ("run", "write_data", "write_restart",
+                            "velocity"):
+            b.command(parts[0], parts[1:])
+    b.command("read_restart", ["out.ckpt.npz"])
+    step0 = int(b.state.step)
+    b.command("run", ["20"])
+    fields = ("x", "v", "img", "type", "ex_left", "ex_right", "step",
+              "flags", "n_moves", "n_loads", "n_unloads", "last_event")
+    same = {k: torch.equal(getattr(a.state, k), getattr(b.state, k))
+            for k in fields}
+    print(f"restart on the card: {[m for m in logged if m.startswith('Engine')]}"
+          f"; resumed at step {step0}, ends at {int(b.state.step)}; bitwise "
+          f"{same}; loads {int(a.state.n_loads)}, moves "
+          f"{int(a.state.n_moves)}", flush=True)
+    if step0 != 40 or not all(same.values()):
+        fail("the resumed deck differs from the uninterrupted run")
+
+
+def card_vs_cpu_phase(dev):
+    """The 300-bead deck with ``LLE_FAST=0`` (the general path) in f64 on
+    the card and on the CPU: integer fields equal, max|dx| printed and
+    within DECK_X_TOL after its 60 steps."""
+    import os
+
+    import torch
+
+    td = deck_dir(300, 7, 0.02, "data.tiny")
+    path = write_deck(td, "in.tiny", TINY_DECK)
+    os.environ["LLE_FAST"] = "0"
+    try:
+        runs = []
+        for d in (dev, "cpu"):
+            logged = []
+            r = deck_runner("float64", d, logged)
+            r.run_file(path)
+            runs.append((r, logged))
+    finally:
+        os.environ.pop("LLE_FAST", None)
+    (a, la), (c, lc) = runs
+    ints = ("img", "type", "ex_left", "ex_right", "step", "flags",
+            "n_moves", "n_loads", "n_unloads", "last_event")
+    same = {k: torch.equal(getattr(a.state, k).cpu(), getattr(c.state, k))
+            for k in ints}
+    dx = float((a.state.x.cpu() - c.state.x).abs().max())
+    engines = {m for m in la + lc if m.startswith("Engine:")}
+    print(f"deck card vs CPU (LLE_FAST=0, f64): {sorted(engines)}; integer "
+          f"fields equal {same}; max|dx| {dx:.3g} (tol {DECK_X_TOL}) after "
+          f"{int(a.state.step)} steps; loads {int(a.state.n_loads)}",
+          flush=True)
+    if not all(same.values()) or not dx <= DECK_X_TOL or len(engines) != 1 \
+            or "Engine: general (LLE_FAST=0)" not in engines:
+        fail("the deck on the card and on the CPU differ")
+
+
+def minimize_phase(dev):
+    """A ``minimize`` deck per style (fire, cg) on the jittered 300-bead
+    data in f64 on the card and on the CPU: the same iteration count and
+    max|F| (as the log prints it, six digits)."""
+    td = deck_dir(300, 7, 0.02, "min.data", jitter=0.1)
+    for style, args in MIN_RUNS:
+        deck = MIN_DECK + f"min_style {style}\nminimize {args}\n"
+        path = write_deck(td, f"in.min_{style}", deck)
+        out = []
+        for d in (dev, "cpu"):
+            logged = []
+            t0 = time.perf_counter()
+            deck_runner("float64", d, logged).run_file(path)
+            line = next(m for m in logged if m.startswith("Minimization"))
+            it = int(line.split(":")[1].split()[0])
+            fmax = float(line.rsplit("=", 1)[1])
+            out.append((it, fmax, time.perf_counter() - t0))
+        (it_a, f_a, w_a), (it_c, f_c, w_c) = out
+        print(f"minimize {style} ({args}): card {it_a} iterations, max|F| "
+              f"{f_a:.6g}, {w_a:.2f} s; CPU {it_c} iterations, max|F| "
+              f"{f_c:.6g}, {w_c:.2f} s", flush=True)
+        if it_a != it_c or f_a != f_c or it_a < 2:
+            fail(f"minimize {style} on the card differs from the CPU")
+
+
+def deck_path(dev, card, profile_steps=0):
+    """Path 8: config 4 through the deck runner, the CLI, restart, card
+    against CPU and minimize.  Returns (records, config 4 steps/s)."""
+    recs, sps = config4_path(dev, card, profile_steps)
+    cli_phase(card)
+    restart_phase(dev)
+    card_vs_cpu_phase(dev)
+    minimize_phase(dev)
+    return recs, sps
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
@@ -2910,6 +3325,15 @@ def main(argv=None):
     gen = general_path(dev, card, args.profile)
     print(f"general path steps/s in this call ({card}): " + ", ".join(
         f"{k} {v:.2f}" for k, v in gen.items()), flush=True)
+
+    # path 8, the deck front end: config 4's deck, the CLI, restart, card
+    # against CPU, minimize
+    deck_recs, c4_sps = deck_path(dev, card, args.profile)
+    for path, name, r in deck_recs:
+        print_kernel(path, name, r)
+    recs += deck_recs
+    print(f"config 4 through the deck runner ({card}): {c4_sps:.2f} steps/s,"
+          f" {c4_sps * C4['beads']:.4g} bead*steps/s", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": name, "path": path, "route": "cuda",

@@ -129,12 +129,10 @@ class ThermoSample(NamedTuple):
 # support check
 
 
-def fast_block_reason(sim) -> None:
-    """Raise NotImplementedError naming what this engine does not cover
-    (the reference's fast_block_reason checks, engine.py:240): such a
-    Simulation runs on the general path (``integrate.run``), which the
-    caller picks; return None when covered.  A Simulation is never
-    quietly run on something else."""
+def block_reason(sim):
+    """What this engine does not cover in ``sim`` (the reference's
+    fast_block_reason checks, engine.py:240), or None when it covers it:
+    the deck runner names the reason on its ``Engine:`` line."""
     system = sim.system
     reason = None
     bts = np.asarray(system.backbone_type)
@@ -184,6 +182,15 @@ def fast_block_reason(sim) -> None:
         reason = f"{n_nve} fix nve (fast path needs exactly one)"
     if not reason and n_lan > 1:
         reason = f"{n_lan} fix langevin (fast path supports at most one)"
+    return reason
+
+
+def fast_block_reason(sim) -> None:
+    """Raise NotImplementedError naming what this engine does not cover
+    (``block_reason``): such a Simulation runs on the general path
+    (``integrate.run``), which the caller picks; return None when
+    covered.  A Simulation is never quietly run on something else."""
+    reason = block_reason(sim)
     if reason:
         raise NotImplementedError(
             f"lammps_le_torch fast engine: {reason}; run it on the general "

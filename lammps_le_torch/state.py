@@ -67,6 +67,15 @@ class State:
         return dataclasses.replace(self, **kw)
 
 
+def host(a) -> np.ndarray:
+    """A State field as a host numpy array: a tensor on any device is
+    copied off it (the reference's ``np.asarray`` of a device array),
+    anything else goes through ``np.asarray``."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 def _dtype(system: System) -> torch.dtype:
     return getattr(torch, system.dtype)
 

@@ -309,10 +309,70 @@ setup_fn, segment = make_replica_runner(sim, device="cpu")
 rep = segment(setup_fn(replicate_state(gst, 2)), 1)
 assert tuple(rep.x.shape) == (2, 200, 3) and int(rep.step[1]) == 9
 assert fene_melt(2, 5).n_atoms == 10 and chromosome(20).n_atoms == 20
+import os, tempfile
+import lammps_le_torch.__main__
+from lammps_le_torch.deck import DeckRunner, parse_deck
+from lammps_le_torch.integrate.fire import minimize
+from lammps_le_torch.integrate.min_cg import minimize_cg
+from lammps_le_torch.io.checkpoint import load_checkpoint, save_checkpoint
+from lammps_le_torch.io.data import read_data, write_data
+from lammps_le_torch.io.dump import DumpSpec, run_with_dumps
+from lammps_le_torch.observe.pressure import make_pressure_fn
+assert bool(torch.isfinite(make_pressure_fn(system, 2)(gst)))
+assert parse_deck("run 5").commands[0].args == ["5"]
+with tempfile.TemporaryDirectory() as td:
+    save_checkpoint(os.path.join(td, "c.npz"), gst)
+    back = load_checkpoint(os.path.join(td, "c.npz"), like=gst)
+    assert bool((back.x == gst.x).all()) and int(back.step) == 8
+    write_data(os.path.join(td, "d.data"), data)
+    assert read_data(os.path.join(td, "d.data")).n_atoms == 200
 assert not any(m.split(".")[0] in ("jax", "flax", "lammps_le_tpu")
                and sys.modules[m] for m in list(sys.modules))
 print("ok", int(st.n_moves))
 """
+
+
+TINY_DECK = """
+units lj
+atom_style bond
+special_bonds fene
+read_data d.data
+neighbor 0.3 bin
+bond_style fene
+bond_coeff 1 30.0 1.5 1.0 1.0
+pair_style lj/cut 1.12
+pair_coeff * * 1.0 1.0 1.12
+velocity all create 1.0 87287
+fix 1 all nve
+thermo 5
+timestep 0.005
+run 10
+"""
+
+
+def test_cli_runs_a_deck(tmp_path):
+    """``python -m lammps_le_torch -platform cpu -in deck -quiet`` runs a
+    deck and writes its log; without ``-platform`` the CLI runs on the
+    card, so without one it exits with an error."""
+    from lammps_le_torch.io.data import write_data
+    from lammps_le_torch.scene import serpentine
+
+    write_data(str(tmp_path / "d.data"), serpentine(120, seed=1))
+    (tmp_path / "in.t").write_text(TINY_DECK)
+    cmd = [sys.executable, "-m", "lammps_le_torch", "-in",
+           str(tmp_path / "in.t"), "-quiet"]
+    res = subprocess.run(cmd + ["-platform", "cpu", "-log",
+                                str(tmp_path / "log.txt")],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout == ""
+    log = (tmp_path / "log.txt").read_text()
+    assert "Step" in log and "Loop time" in log and "Engine: general" in log
+    if not torch.cuda.is_available():
+        res = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                             timeout=300)
+        assert res.returncode != 0 and "device='cpu'" in res.stderr
 
 
 def test_port_runs_without_jax():

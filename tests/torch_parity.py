@@ -297,6 +297,32 @@ def _compiled(fn, *args):
         compiler_options={"xla_backend_optimization_level": 0})
 
 
+class UnoptimisedJax:
+    """``jax`` as a reference module sees it (set as its module attribute
+    ``jax``), with ``jit`` compiling each function once, at its first
+    call, with LLVM's optimisations off (``_compiled``): for functions
+    called with one signature throughout, the same results for less
+    compile time.  A call with another signature raises."""
+
+    def __init__(self):
+        import jax
+
+        self._jax = jax
+
+    def __getattr__(self, name):
+        return getattr(self._jax, name)
+
+    def jit(self, fn):
+        done = []
+
+        def call(*args):
+            if not done:
+                done.append(_compiled(fn, *args))
+            return done[0](*args)
+
+        return call
+
+
 @functools.lru_cache(maxsize=None)
 def _ref_setup(dtype):
     """The reference's setup, compiled once: it reads only the system and
