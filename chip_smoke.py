@@ -80,6 +80,19 @@ data file); that deck resumed from its checkpoint at step 40, bit for
 bit the uninterrupted run; that deck on the general path (``LLE_FAST=0``)
 in f64 on the card and on the CPU (integer fields equal); and
 ``minimize`` decks (fire, cg) in f64 with the CPU's iteration counts.
+Last, path 9, the observers and the native LAMMPS restart (``observe/``,
+``io/lammps_restart``): config 4's deck with ``compute pe/atom``,
+``stress/atom``, ``coord/atom`` (through ``dump custom`` and ``compute
+reduce``), ``rdf`` past the cell size (through ``fix ave/time`` in vector
+mode), ``group/group`` and ``pair/local`` (through ``dump local``) every
+500 steps of the measured ``run 2000`` in K2's step loop; each observer
+on its final state held against a CPU copy (integer outputs bit for bit)
+and timed, ``contact_map_accumulate`` and ``profile()``, and a native
+``write_restart`` read back by a fresh runner bit for bit; then the
+300-bead deck with the same observers in f64 against a CPU copy within
+1e-10, and its restart.  The probes also time P1's float4 ``rcp``
+against its first form (one element a thread) in turns, and its launch
+floor.
 
     python3 chip_smoke.py [--profile STEPS] [--overrun STEPS]
 
@@ -266,6 +279,33 @@ pair_coeff * * 1.0 1.0 1.12
 timestep 0.005
 """
 MIN_RUNS = (("fire", "0.0 0.1 1000 5000"), ("cg", "1e-6 1e-3 300 3000"))
+# path 9, the observers and the native restart on config 4's deck: the
+# computes and dumps every 500 steps of the measured run 2000; rdf past
+# the cell size (the dedicated wide grid); each observer on the card held
+# against the same observer on a CPU copy of the state: integer outputs
+# bit for bit, f32 floats within OBS_F32_REL x max(1, max|value|) (sums
+# of up to ~30 pair terms taken in another order; on the H100 the gap
+# was 2.0e-7 of the largest pe/atom and 9.2e-8 of the largest
+# stress/atom), the 300-bead deck's in f64 within OBS_F64_REL
+OBS_CMDS = """
+group left id 1:{half}
+group right id {half1}:{n}
+compute pea all pe/atom
+compute str all stress/atom NULL
+compute co all coord/atom cutoff {coord}
+compute petot all reduce sum c_pea
+compute comax all reduce max c_co
+compute gr all rdf 50 cutoff 2.5
+compute gg left group/group right
+compute pl all pair/local dist eng force
+fix avr all ave/time {every} 1 {every} c_gr[*] mode vector file rdf.ave
+dump dc all custom {every} atoms.dump id c_pea c_co c_str[1] c_str[2] c_str[3]
+dump dl all local {every} pairs.dump c_pl[1] c_pl[2] c_pl[3]
+thermo_style custom step temp epair press c_petot c_comax c_gg
+thermo {every}
+"""
+OBS_EVERY = 500
+OBS_F32_REL, OBS_F64_REL = 1e-5, 1e-10
 # the TPU kernel each chain kernel replaces (its records, one-run and batched)
 REPLACES = {
     "kick_drift_halo": "lammps_le_tpu/fast/pallas_step.py:731",
@@ -1619,6 +1659,22 @@ def group_temperatures(fs, system):
                  for m in (member, valid & ~member))
 
 
+def alternate_ms(fns: dict, rounds: int = 20, calls: int = 10) -> dict:
+    """{name: [device ms a call, one a round]} of each function of
+    ``fns`` ({name: fn}), timed in turns (``probes.device_ms``: CUDA
+    events around ``calls`` calls queued behind a sleep kernel), the order
+    reversed every other round, so that drifts of the card's clock fall on
+    every form alike."""
+    from lammps_le_torch.probes import device_ms
+
+    names = list(fns)
+    out = {name: [] for name in names}
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            out[name].append(device_ms(fns[name], calls))
+    return out
+
+
 def probe_phase():
     """P1 and P2 at the TPU probes' shapes.  For each run, its entry point
     (``rcp_chain``, ``precision``, ``chain``) is called once with the
@@ -1698,13 +1754,32 @@ def probe_phase():
     if not max(errs) <= 2.0 ** -22 or not max(exact) <= 2.0 ** -24:
         fail(f"reciprocal errors {errs} (approximate, want <= 2^-22), "
              f"{exact} (IEEE, want <= 2^-24)")
+    one = C.reciprocal_one(xd)
+    if not torch.equal(one, got):
+        fail("rcp: the float4 form and the one-element form differ")
+    t_floor = timings(lambda: C.launch_floor(xd.numel()), 50)
     out.append(("probe P1 precision", "rcp", dict(
         replaces="benchmarks/probe_rcp.py:63", max_abs_err=err,
         tol="max rel err <= 2^-22 over both domains", launches=launches,
         bound=bound(8 * xd.numel(), xd.numel(), mufu=xd.numel()),
         t=timings(lambda: C.reciprocal(xd), 50),
         t_plain=timings(lambda: 1.0 / xd, 50),
-        t_lib=timings(lambda: torch.reciprocal(xd), 50))))
+        t_lib=timings(lambda: torch.reciprocal(xd), 50), t_floor=t_floor)))
+    rec = out[-1][2]
+    ab = alternate_ms({
+        "float4 form": lambda: C.reciprocal(xd),
+        "one-element form": lambda: C.reciprocal_one(xd),
+        "empty kernel": lambda: C.launch_floor(xd.numel()),
+        "torch.reciprocal": lambda: torch.reciprocal(xd)}, 20, 50)
+    print(f"P1 rcp ({C.ROWS}x{C.P}): {rec['t'][0]:.4f} ms a call "
+          f"({rec['t'][2]}), bound {rec['bound'][0]:.4f} by "
+          f"{rec['bound'][1]}, launch floor (an empty kernel at its launch "
+          f"shape, the same profiler) {t_floor[0]:.4f} ms ({t_floor[2]}); "
+          f"float4 form bitwise the one-element form; by events, 20 rounds "
+          f"in turns, median (quartiles) ms a call: " + "; ".join(
+              f"{k} {np.median(v):.5f} ({np.percentile(v, 25):.5f}-"
+              f"{np.percentile(v, 75):.5f})" for k, v in ab.items()),
+          flush=True)
 
     run_ms = {}
     per_step = B.step_instructions()
@@ -3105,6 +3180,268 @@ def deck_path(dev, card, profile_steps=0):
     return recs, sps
 
 
+# path 9: the observers and the native restart (observe/, io/lammps_restart)
+
+
+def obs_deck(base, n, coord, every):
+    """``base`` (a deck up to its first run) with path 9's observer
+    commands in place of its thermo line."""
+    head, _ = base.split("\nthermo ", 1)
+    tail = base.split("\ntimestep ", 1)[1]
+    return (head + OBS_CMDS.format(half=n // 2, half1=n // 2 + 1, n=n,
+                                   coord=coord, every=every)
+            + "timestep " + tail)
+
+
+def observer_checks(label, r, st, tol, card, timed=False):
+    """Each observer of path 9 on ``st`` (on the card) against the same
+    observer on a CPU copy: pe/atom, stress/atom (within ``tol`` x max(1,
+    max|value|), the largest difference printed), coord/atom, the rdf's
+    counts and flags and the contact map's (bit for bit), group/group and
+    the pair/local table (host arithmetic on the same positions: equal).
+    With ``timed``, each call's device ms (``timings``) or, for the host
+    observers, wall ms.  Returns {observer: ms}."""
+    import torch
+
+    from lammps_le_torch.observe import (make_contact_fn, make_coord_atom_fn,
+                                         make_peratom_pe_fn, make_rdf_fn,
+                                         make_stress_atom_fn)
+
+    system = r.system
+    ex = r._ex_btype()
+    cpu = state_on(st, "cpu")
+    coord = r.computes["co"]["cutoff"]
+    fns = {
+        "pe/atom": make_peratom_pe_fn(system, ex),
+        "stress/atom": make_stress_atom_fn(system, ex),
+        "coord/atom": make_coord_atom_fn(system, coord),
+        "rdf": (lambda f: lambda s: f(s, torch.zeros(
+            50, dtype=torch.float32, device=s.x.device)))(
+                make_rdf_fn(system, 50, 2.5)),
+        "contact_map": (lambda f: lambda s: f(s, torch.zeros(
+            (256, 256), dtype=torch.float32, device=s.x.device)))(
+                make_contact_fn(system, 2.0, 256)),
+    }
+    host = {
+        "group/group": lambda s: r._compute_value("gg", s),
+        "pair/local": lambda s: r._pair_local_table(
+            ["dist", "eng", "force"], "all", s),
+    }
+    ms = {}
+    for name, fn in fns.items():
+        got, want = fn(st), fn(cpu)
+        if isinstance(got, tuple):
+            (got, gfl), (want, wfl) = got, want
+            same = torch.equal(got.cpu(), want) and int(gfl) == int(wfl)
+            print(f"{label} {name} card vs CPU: counts bitwise {same}, "
+                  f"total {float(got.sum()):.0f}, flags {int(gfl):#x}",
+                  flush=True)
+            if not same:
+                fail(f"{label} {name} differs on the card")
+        elif name == "coord/atom":
+            same = torch.equal(got.cpu(), want)
+            print(f"{label} {name} card vs CPU: bitwise {same}, max "
+                  f"{float(got.max()):.0f}, mean {float(got.mean()):.4f}",
+                  flush=True)
+            if not same:
+                fail(f"{label} {name} differs on the card")
+        else:
+            d = float((got.cpu() - want).abs().max())
+            lim = tol * max(1.0, float(want.abs().max()))
+            print(f"{label} {name} card vs CPU: max|d| {d:.3g} (tol "
+                  f"{lim:.3g}), sum {float(got.double().sum()):.6g}",
+                  flush=True)
+            if not d <= lim:
+                fail(f"{label} {name} card vs CPU {d} > {lim}")
+        if timed:
+            ms[name] = timings(lambda f=fn: f(st), 5, 1)[0]
+    for name, fn in host.items():
+        got, want = fn(st), fn(cpu)
+        same = bool(np.array_equal(np.asarray(got), np.asarray(want)))
+        rows = np.asarray(got).shape[0] if np.ndim(got) else got
+        print(f"{label} {name} card vs CPU state: equal {same} ({rows})",
+              flush=True)
+        if not same:
+            fail(f"{label} {name} differs between the card's and the "
+                 f"CPU's state")
+        if timed:
+            t0 = time.perf_counter()
+            fn(st)
+            ms[name] = (time.perf_counter() - t0) * 1e3
+    return ms
+
+
+def native_restart_check(label, r, deck_head, dev):
+    """``write_restart`` of the runner's state to a native file, then a
+    fresh runner on ``dev`` with ``deck_head`` (the deck's set-up) and
+    ``read_restart`` of it: the positions, velocities, images, types and
+    step it builds equal the file's fields (in the state's float type)
+    bit for bit, and its velocities, types, live extruder pairs and step
+    the written state's.  The writer folds a wrap into the image (LAMMPS's
+    read_restart needs every atom inside the box), so which beads it
+    wrapped is taken from the written state: its shift floor((x - lo) /
+    L).  Every bead's image read back is the written image plus that
+    shift, and its unwrapped position x + img L within the state type's
+    rounding (eps |x| + 4 f64 eps (|x| + (|img| + 1) L)) of the written
+    one; a bead the writer did not wrap has the written x bit for bit."""
+    import os
+
+    import torch
+
+    from lammps_le_torch.io.lammps_restart import read_lammps_restart
+
+    st = r.state
+    r.command("write_restart", ["obs.restart"])
+    path = os.path.join(r.root, "obs.restart")
+    f = read_lammps_restart(path)
+    back = deck_runner("float64" if st.x.dtype == torch.float64
+                       else "float32", dev, [])
+    back.root = r.root
+    for line in deck_head.strip().splitlines():
+        parts = line.split()
+        if parts[0] == "read_data":
+            parts = ["read_restart", "obs.restart"]
+        if parts[0] not in ("run", "velocity", "dump", "write_restart"):
+            back.command(parts[0], parts[1:])
+    back._build()
+    b = back.state
+
+    def field(a):
+        return torch.as_tensor(a).to(b.x.dtype)
+
+    lo = torch.as_tensor(np.asarray(r.system.box_lo, np.float64))
+    box = torch.as_tensor(np.asarray(r.system.box_hi, np.float64)) - lo
+    sx, bx = st.x.cpu().double(), b.x.cpu().double()
+    simg, bimg = st.img.cpu().long(), b.img.cpu().long()
+    shift = torch.floor((sx - lo) / box).long()
+    wrapped = (shift != 0).any(dim=1)
+    gap = ((bx + bimg * box) - (sx + simg * box)).abs()
+    tol = (torch.finfo(st.x.dtype).eps * bx.abs() + 4 * 2.0 ** -52
+           * (sx.abs() + (simg.abs() + 1) * box))
+    checks = {
+        "x": torch.equal(b.x.cpu(), field(f.x)),
+        "v": torch.equal(b.v.cpu(), field(f.v)),
+        "img": torch.equal(bimg, torch.as_tensor(f.img).long()),
+        "type": torch.equal(b.type.cpu(), torch.as_tensor(f.types)),
+        "step": int(b.step) == int(st.step) == f.step,
+        "v written": torch.equal(b.v, st.v),
+        "type written": torch.equal(b.type, st.type),
+        "img written + shift": torch.equal(bimg, simg + shift),
+        "unwrapped x written": bool((gap <= tol).all()),
+        "x written where not wrapped": torch.equal(
+            b.x.cpu()[~wrapped], st.x.cpu()[~wrapped]),
+    }
+    pairs = [sorted(zip(t.ex_left[t.ex_left >= 0].tolist(),
+                        t.ex_right[t.ex_left >= 0].tolist()))
+             for t in (st, b)]
+    checks["extruders"] = pairs[0] == pairs[1]
+    print(f"{label} native restart ({os.path.getsize(path)} B, step "
+          f"{f.step}, {len(pairs[0])} extruders, {int(wrapped.sum())} "
+          f"beads outside the box wrapped by the writer, unwrapped max|d| "
+          f"{float(gap.max()):.3g}): read back {checks}", flush=True)
+    if not all(checks.values()):
+        fail(f"{label}: the native restart read back differs")
+
+
+def observer_path(dev, card):
+    """Path 9: config 4's deck (path 8's) with the observers (pe/atom,
+    stress/atom, coord/atom through dump custom and compute reduce; rdf
+    past the cell size through fix ave/time in vector mode; group/group
+    between the chain's halves; pair/local through dump local) every 500
+    steps: ``run 300``, then the measured ``run 2000`` with the launch
+    counts zeroed just before it and read just after (K2's step loop;
+    each of its kernels launched), healthy; each observer's device time
+    on the final state, each held against a CPU copy
+    (``observer_checks``), ``contact_map_accumulate`` and ``profile()``;
+    ``write_restart`` to a native file read back by a fresh runner
+    (``native_restart_check``).  Then the 300-bead deck with the same
+    observers in f64 (general path, 40 steps) on the card against a CPU
+    copy within 1e-10, and its native restart.  Returns steps/s."""
+    import os
+
+    import torch
+
+    from lammps_le_torch.fast import kernels as K
+    from lammps_le_torch.integrate import thermo_row
+    from lammps_le_torch.observe import contact_map_accumulate, profile
+    from lammps_le_torch.state import FLAG_FENE_CLAMP
+
+    td = deck_dir(C4["beads"], 5, 0.01, "data.le")
+    deck = obs_deck(CONFIG4_DECK, C4["beads"], 1.5, OBS_EVERY)
+    path = write_deck(td, "in.obs", deck)
+    logged = []
+    r = deck_runner("float32", dev, logged)
+    r.root = td
+    r.run_file(path)
+    K.reset_launches()
+    with FastCapture() as cap:
+        r.command("run", [str(C4["measure"])])
+    launches = dict(K.LAUNCHES)
+    perf = dict(r.last_perf)
+    sps = perf["steps_per_s"]
+    st = r.state
+    system = r.system
+    row = thermo_row(st, system)
+    temp, flags = float(row.temp), int(st.flags)
+    engines = [m for m in logged if m.startswith("Engine:")]
+    rows = [m for m in logged if m.split() and m.split()[0].isdigit()]
+    print(f"path 9, config 4 with observers ({card}): {engines}; last_perf "
+          f"{perf}; {sps:.2f} steps/s over the measured run "
+          f"{C4['measure']}; T {temp:.4f}; flags {flags:#x}; "
+          f"{cap.fs.n_launches} step-loop launches; thermo rows "
+          f"{rows[-5:]}; launches {launches}", flush=True)
+    missing = [k for k in ("stencil_forces", "kick_drift_halo",
+                           "extruder_springs", "langevin_kick_monitor",
+                           "step_loop") if launches.get(k, 0) == 0]
+    if len(engines) != 2 or not all("K2 step loop" in m for m in engines) \
+            or missing:
+        fail(f"path 9 did not run K2's step loop's kernels: {engines}, "
+             f"not launched {missing}")
+    if flags & ~FLAG_FENE_CLAMP or not 0.5 < temp < 2.0 \
+            or not bool(torch.isfinite(st.x).all()):
+        fail(f"path 9 unhealthy: flags {flags:#x}, T {temp}")
+    files = {name: os.path.getsize(os.path.join(td, name))
+             for name in ("atoms.dump", "pairs.dump", "rdf.ave")}
+    frames = open(os.path.join(td, "atoms.dump")).read().count(
+        "ITEM: TIMESTEP")
+    print(f"path 9 files: {files}; atoms.dump frames {frames}", flush=True)
+    # each run reopens its dumps: the measured run's frames, steps 500,
+    # 1000, 1500 and 2000
+    if frames != C4["measure"] // OBS_EVERY or not all(files.values()):
+        fail(f"path 9's dumps: {frames} frames, sizes {files}")
+    ms = observer_checks("path 9 config 4", r, st, OBS_F32_REL, card,
+                         timed=True)
+    t0 = time.perf_counter()
+    cmap = contact_map_accumulate(st, system)
+    sync(dev)
+    ms["contact_map_accumulate (wall)"] = (time.perf_counter() - t0) * 1e3
+    sections = profile(r.sim, st, iters=10)
+    print(f"path 9 observers on the card, ms a call ({card}): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+          + f"; contact map total {float(cmap.sum()):.0f}; profile "
+          + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in sections.items()),
+          flush=True)
+    native_restart_check("path 9 config 4", r, deck.split("\nrun ")[0], dev)
+    del r, st, cap
+    torch.cuda.empty_cache()
+
+    # the 300-bead deck in f64 on the general path
+    td = deck_dir(300, 7, 0.02, "data.tiny")
+    tiny = obs_deck(TINY_DECK.split("\nwrite_data")[0] + "\n", 300, 1.2, 20)
+    path = write_deck(td, "in.obs", tiny)
+    os.environ["LLE_FAST"] = "0"
+    try:
+        r = deck_runner("float64", dev, [])
+        r.root = td
+        r.run_file(path)
+    finally:
+        os.environ.pop("LLE_FAST", None)
+    observer_checks("path 9 300-bead f64", r, r.state, OBS_F64_REL, card)
+    native_restart_check("path 9 300-bead f64", r, tiny.split("\nrun ")[0],
+                         dev)
+    return sps
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
@@ -3335,6 +3672,12 @@ def main(argv=None):
     print(f"config 4 through the deck runner ({card}): {c4_sps:.2f} steps/s,"
           f" {c4_sps * C4['beads']:.4g} bead*steps/s", flush=True)
 
+    # path 9, the observers and the native restart on config 4's deck
+    obs_sps = observer_path(dev, card)
+    print(f"config 4 with the observers every {OBS_EVERY} steps ({card}): "
+          f"{obs_sps:.2f} steps/s against {c4_sps:.2f} without (path 8)",
+          flush=True)
+
     print(json.dumps({"kernels": [
         {"name": name, "path": path, "route": "cuda",
          "source": "lammps_le_torch/csrc/" + SOURCES.get(name, "step.cu"),
@@ -3343,7 +3686,8 @@ def main(argv=None):
          "ms_source": r["t"][2], "plain_ms": r["t_plain"][0],
          "plain_ms_source": r["t_plain"][2], "bound_ms": r["bound"][0],
          "bound_by": r["bound"][1],
-         "library_ms": r["t_lib"][0] if "t_lib" in r else None}
+         "library_ms": r["t_lib"][0] if "t_lib" in r else None,
+         "floor_ms": r["t_floor"][0] if "t_floor" in r else None}
         for path, name, r in recs]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

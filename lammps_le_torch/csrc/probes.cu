@@ -9,7 +9,10 @@
 // and the bf16 chain runs on packed __nv_bfloat162 pairs.  Every kernel
 // takes PyTorch's current stream, allocates nothing, and each C entry
 // point returns cudaGetLastError().  The plain PyTorch versions are in
-// lammps_le_torch/probes/probe_rcp.py and probe_bf16.py.
+// lammps_le_torch/probes/probe_rcp.py and probe_bf16.py.  The one-pass
+// reciprocal's first form, one element a thread, stays beside its
+// redesign with its own entry point: its exact kernel is the listing
+// that prices the IEEE reciprocal (probe_rcp.rcp_price).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -21,6 +24,17 @@ namespace {
 constexpr int kThreads = 256;
 
 int blocks_for(long work) { return (int)((work + kThreads - 1) / kThreads); }
+
+// the card's SM count (one device a process, read once)
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
 
 // ---------------------------------------------------------------------
 // P1 <- benchmarks/probe_rcp.py:23 make_kernel (pallas_call :39) and the
@@ -61,14 +75,76 @@ __global__ void rcp_chain_kernel(const float* __restrict__ x,
   out[i] = acc;
 }
 
-// one reciprocal an element: precision()'s kernel (approximate), and
-// the exact one beside it, whose instructions price the IEEE reciprocal
+// one reciprocal an element, one element a thread: precision()'s first
+// kernel (approximate), and the exact one beside it, whose
+// instructions price the IEEE reciprocal (probe_rcp.rcp_price reads both
+// listings)
 template <bool kApprox>
 __global__ void rcp_kernel(const float* __restrict__ x,
                            float* __restrict__ out, long n) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) out[i] = rcp<kApprox>(x[i]);
 }
+
+// precision()'s kernel as redesigned: the same reciprocal an element over
+// 16-byte loads and stores (float4), a grid of whole waves (a multiple
+// of the SM count, blocks of kThreads), each thread walking the float4s
+// at the grid's stride kRcpUnroll at a time with all its loads issued
+// before its first reciprocal; the n % 4 tail elements by the first
+// threads.  Bound: bytes (8 a element) — 0.5 us for the probe's 216,064
+// floats at 3.35 TB/s, below a launch's own device time, so the
+// design's aim is the fewest instructions and memory transactions in
+// the one wave that the launch costs anyway.
+constexpr int kRcpUnroll = 2;
+
+template <bool kApprox>
+__device__ __forceinline__ float4 rcp4(float4 v) {
+  return make_float4(rcp<kApprox>(v.x), rcp<kApprox>(v.y), rcp<kApprox>(v.z),
+                     rcp<kApprox>(v.w));
+}
+
+template <bool kApprox>
+__global__ void __launch_bounds__(kThreads)
+    rcp_vec_kernel(const float* __restrict__ x, float* __restrict__ out,
+                   long n) {
+  const long n4 = n / 4;
+  const float4* __restrict__ x4 = reinterpret_cast<const float4*>(x);
+  float4* __restrict__ o4 = reinterpret_cast<float4*>(out);
+  const long stride = (long)gridDim.x * blockDim.x;
+  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  long i = t;
+  for (; i + (kRcpUnroll - 1) * stride < n4; i += kRcpUnroll * stride) {
+    float4 v[kRcpUnroll];
+#pragma unroll
+    for (int u = 0; u < kRcpUnroll; ++u) v[u] = x4[i + u * stride];
+#pragma unroll
+    for (int u = 0; u < kRcpUnroll; ++u)
+      o4[i + u * stride] = rcp4<kApprox>(v[u]);
+  }
+  for (; i < n4; i += stride) o4[i] = rcp4<kApprox>(x4[i]);
+  const long tail = 4 * n4 + t;
+  if (tail < n) out[tail] = rcp<kApprox>(x[tail]);
+}
+
+// the redesigned rcp's grid for n elements: the blocks its float4 passes
+// need, rounded up to whole waves of one block an SM, at most as many
+// waves as the occupancy keeps resident at once
+template <bool kApprox>
+int rcp_vec_blocks(long n) {
+  static int occ = 0;
+  if (occ == 0)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, rcp_vec_kernel<kApprox>, kThreads, 0);
+  const int sms = sm_count();
+  const long need = (n / 4 + (long)kThreads * kRcpUnroll - 1) /
+                    ((long)kThreads * kRcpUnroll);
+  const long waves = (need + sms - 1) / sms;
+  const long cap = occ > 0 ? occ : 1;
+  return (int)((waves < 1 ? 1 : (waves < cap ? waves : cap)) * sms);
+}
+
+// an empty kernel: the launch floor, timed at rcp's own launch shape
+__global__ void empty_kernel() {}
 
 // ---------------------------------------------------------------------
 // P2 <- benchmarks/probe_bf16.py:29 make_kernel (pallas_call :51)
@@ -108,6 +184,13 @@ __global__ void chain_f32_kernel(const float* __restrict__ x,
   out[i] = a;
 }
 
+// one packed pair a thread, on a grid (chain_bf16x2_grid) that spreads
+// the warps evenly over the SMs: blocks of 256 gave 28 of the 132 SMs a
+// fourth block at 8 rows, and those SMs paced the run.  The chain is
+// issue-bound, so the time follows the most pair-steps a warp scheduler
+// holds; interleaving two or four pairs a thread was slower on the H100
+// (PERF.md §6, P2).  Each operation rounds as the plain version's: one
+// packed instruction each, no multiply and add fused.
 __global__ void chain_bf16x2_kernel(const unsigned int* __restrict__ x,
                                     float2* __restrict__ out, long n2,
                                     int reps) {
@@ -136,6 +219,29 @@ __global__ void chain_bf16x2_kernel(const unsigned int* __restrict__ x,
   out[i] = __bfloat1622float2(a);
 }
 
+// (blocks, threads) for n2 threads of chain_bf16x2_kernel: the warps
+// spread evenly over the SMs (each SM's share rounded up), in as few
+// equal blocks an SM as 1,024 threads a block and the occupancy
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor at that block size)
+// allow, so every block of the one wave is resident at once and every SM
+// but the last block's holds the same warps
+void chain_bf16x2_grid(long n2, int* blocks, int* threads) {
+  const int sms = sm_count();
+  const long per_sm = ((n2 + 31) / 32 + sms - 1) / sms;
+  long bps = (per_sm + 31) / 32;
+  long per_block = (per_sm + bps - 1) / bps;
+  for (;;) {
+    int occ = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, chain_bf16x2_kernel, (int)(32 * per_block), 0);
+    if (occ >= bps || per_block == 1) break;
+    ++bps;
+    per_block = (per_sm + bps - 1) / bps;
+  }
+  *threads = (int)(32 * per_block);
+  *blocks = (int)((n2 + *threads - 1) / *threads);
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------
@@ -155,12 +261,33 @@ int lle_rcp_chain(const float* x, float* out, long n, int reps, int approx,
   return (int)cudaGetLastError();
 }
 
+// x and out 16-byte aligned (the wrapper checks)
 int lle_rcp(const float* x, float* out, long n, int approx, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (approx)
+    rcp_vec_kernel<true><<<rcp_vec_blocks<true>(n), kThreads, 0, s>>>(
+        x, out, n);
+  else
+    rcp_vec_kernel<false><<<rcp_vec_blocks<false>(n), kThreads, 0, s>>>(
+        x, out, n);
+  return (int)cudaGetLastError();
+}
+
+// the first form: one element a thread
+int lle_rcp_one(const float* x, float* out, long n, int approx,
+                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (approx)
     rcp_kernel<true><<<blocks_for(n), kThreads, 0, s>>>(x, out, n);
   else
     rcp_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(x, out, n);
+  return (int)cudaGetLastError();
+}
+
+// an empty kernel at lle_rcp's launch shape for n elements
+int lle_rcp_floor(long n, void* stream) {
+  empty_kernel<<<rcp_vec_blocks<true>(n), kThreads, 0,
+                 (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 
@@ -174,9 +301,10 @@ int lle_chain_f32(const float* x, float* out, long n, int reps,
 // n: elements (even); x holds n bf16 values, out n floats
 int lle_chain_bf16x2(const void* x, float* out, long n, int reps,
                      void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
   const long n2 = n / 2;
-  chain_bf16x2_kernel<<<blocks_for(n2), kThreads, 0, s>>>(
+  int blocks, threads;
+  chain_bf16x2_grid(n2, &blocks, &threads);
+  chain_bf16x2_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const unsigned int*)x, (float2*)out, n2, reps);
   return (int)cudaGetLastError();
 }

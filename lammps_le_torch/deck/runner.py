@@ -9,8 +9,7 @@ and drives a run loop on its device, printing LAMMPS-style thermo tables.
 On the card it picks the fast engine (K2's step loop within the
 whole-plane gate), on the CPU the general path below 20,000 beads, as the
 reference does on the TPU and the CPU; ``LLE_FAST=0`` keeps a deck on the
-general path.  Observers not ported yet raise ``NotImplementedError`` at
-the command that asks for them.
+general path.
 """
 
 from __future__ import annotations
@@ -36,27 +35,10 @@ class DeckError(RuntimeError):
     pass
 
 
-# ROADMAP Queue 1's items for the modules a deck can reach that are not
-# ported yet; the commands that need them raise at the command
-_NOT_PORTED = {
-    "observe/peratom": "ROADMAP Queue 1 item 5a (observe/peratom.py)",
-    "observe/pairs": "ROADMAP Queue 1 item 5b (observe/pairs.py)",
-    "observe/rdf": "ROADMAP Queue 1 item 5c (observe/rdf.py)",
-    "io/lammps_restart": ("ROADMAP Queue 1 item 5d "
-                          "(io/lammps_restart.py)"),
-}
-
-
 def _dev(a, like: torch.Tensor) -> torch.Tensor:
     """A host array as a tensor on ``like``'s device, in its own dtype (the
     reference's ``jnp.asarray`` of a host array)."""
     return torch.as_tensor(np.asarray(a), device=like.device)
-
-
-def _not_ported(module: str, what: str):
-    raise NotImplementedError(
-        f"{what} needs lammps_le_torch's {module}, which is not ported yet: "
-        f"{_NOT_PORTED[module]}")
 
 
 class DeckRunner:
@@ -590,18 +572,55 @@ class DeckRunner:
             return
         if style == "rdf":
             # compute ID group rdf Nbin [cutoff R] — radial distribution
-            # histogram (src/compute_rdf.cpp)
-            _not_ported("observe/rdf", "compute rdf")
-        if style in ("pe/atom", "stress/atom", "coord/atom"):
-            # per-atom pair/bond tallies (src/compute_pe_atom.cpp,
-            # compute_stress_atom.cpp, compute_coord_atom.cpp)
-            _not_ported("observe/peratom", f"compute {style}")
-        if style in ("ke/atom", "displace/atom"):
-            # per-atom computes (src/compute_ke_atom.cpp,
-            # compute_displace_atom.cpp): consumed by dump custom c_ID[n]
-            # columns and compute reduce inputs; host-side numpy
+            # histogram (src/compute_rdf.cpp; global VECTOR output,
+            # consumed by `fix ave/time ... c_ID[*] mode vector`).  The
+            # single-pair-set form (no itypeN/jtypeN args); cutoff
+            # defaults to the pair cutoff as in the reference.
+            nbins = int(args[3])
+            rmax = None
+            tail = list(args[4:])
+            while tail:
+                k = tail.pop(0)
+                if k == "cutoff" and tail:
+                    rmax = float(tail.pop(0))
+                else:
+                    raise DeckError(f"unsupported compute rdf arg {k!r}")
             self.computes[cid] = {"style": style, "group": group,
-                                  "fn": None, "x0": None}
+                                  "nbins": nbins, "rmax": rmax,
+                                  "fn": None}
+            return
+        if style in ("ke/atom", "pe/atom", "stress/atom", "displace/atom",
+                     "coord/atom"):
+            # per-atom computes (src/compute_ke_atom.cpp, compute_pe_atom
+            # .cpp, compute_stress_atom.cpp, compute_displace_atom.cpp,
+            # compute_coord_atom.cpp): consumed by dump custom c_ID[n]
+            # columns and compute reduce inputs.  The pair/bond tallies
+            # run as on-demand grid passes on the state's device
+            # (observe/peratom.py) — the hot loop carries no per-atom
+            # tally cost.
+            spec = {"style": style, "group": group, "fn": None, "x0": None}
+            rest = list(args[3:])
+            if style == "pe/atom":
+                # optional term selection: pe/atom [pair] [bond]
+                terms = [a for a in rest if a in ("pair", "bond")]
+                spec["pair"] = not terms or "pair" in terms
+                spec["bond"] = not terms or "bond" in terms
+            elif style == "stress/atom":
+                # stress/atom temp-ID|NULL [ke|pair|bond|virial]*
+                if rest:
+                    rest.pop(0)  # temp-ID / NULL: bias temps unsupported
+                terms = [a for a in rest if a in ("ke", "pair", "bond",
+                                                  "virial")]
+                spec["ke"] = not terms or "ke" in terms
+            elif style == "coord/atom":
+                if not rest or rest[0] == "cutoff":
+                    if len(rest) < 2:
+                        raise DeckError(
+                            "compute coord/atom: cutoff R required")
+                    spec["cutoff"] = float(rest[1])
+                else:
+                    spec["cutoff"] = float(rest[0])
+            self.computes[cid] = spec
             return
         if style == "chunk/atom":
             # compute ID group chunk/atom molecule|type — per-atom chunk
@@ -663,8 +682,14 @@ class DeckRunner:
             return
         if style == "group/group":
             # pairwise lj interaction energy between two groups
-            # (src/compute_group_group.cpp)
-            _not_ported("observe/pairs", "compute group/group")
+            # (src/compute_group_group.cpp, pair-only form); scalar
+            jgroup = args[3] if len(args) > 3 else None
+            if not jgroup:
+                raise DeckError("compute group/group: second group "
+                                "required")
+            self.computes[cid] = {"style": style, "group": group,
+                                  "jgroup": jgroup}
+            return
         if style == "reduce/region":
             # compute ID group reduce/region region-ID mode input
             # (src/compute_reduce_region.cpp)
@@ -714,8 +739,16 @@ class DeckRunner:
             return
         if style == "pair/local":
             # per-pair dist/eng/force within the pair cutoff
-            # (src/compute_pair_local.cpp)
-            _not_ported("observe/pairs", "compute pair/local")
+            # (src/compute_pair_local.cpp); consumed by `dump local`
+            props = list(args[3:])
+            bad = [p for p in props if p not in ("dist", "eng", "force")]
+            if bad:
+                raise DeckError(f"unsupported pair/local values {bad}")
+            self.computes[cid] = {
+                "style": style, "group": group,
+                "local_cols": props or ["dist"], "local_kind": "pair",
+            }
+            return
         if style == "temp/chunk":
             # compute ID group temp/chunk chunkID [com yes|no] — scalar
             # temp over the chunked atoms, vector of per-chunk temps
@@ -841,7 +874,8 @@ class DeckRunner:
             raise DeckError(f"undefined group {group!r}")
         return groups[group]
 
-    _PERATOM_STYLES = ("ke/atom", "displace/atom", "property/atom")
+    _PERATOM_STYLES = ("ke/atom", "pe/atom", "stress/atom",
+                       "displace/atom", "coord/atom", "property/atom")
 
     def _peratom_value(self, cid, st):
         """Evaluate a per-atom compute -> (n,) or (n, k) numpy array.
@@ -864,6 +898,29 @@ class DeckRunner:
             d = xu - spec["x0"]
             out = np.column_stack(
                 [d, np.sqrt(np.sum(d * d, axis=-1))])
+        elif style == "coord/atom":
+            from ..observe.peratom import make_coord_atom_fn
+
+            if spec["fn"] is None:
+                spec["fn"] = make_coord_atom_fn(self.system,
+                                                spec["cutoff"])
+            out = host(spec["fn"](st))
+        elif style == "pe/atom":
+            from ..observe.peratom import make_peratom_pe_fn
+
+            if spec["fn"] is None:
+                spec["fn"] = make_peratom_pe_fn(
+                    self.system, ex_btype=self._ex_btype(),
+                    pair=spec["pair"], bond=spec["bond"])
+            out = host(spec["fn"](st))
+        elif style == "stress/atom":
+            from ..observe.peratom import make_stress_atom_fn
+
+            if spec["fn"] is None:
+                spec["fn"] = make_stress_atom_fn(
+                    self.system, ex_btype=self._ex_btype(),
+                    ke=spec["ke"])
+            out = host(spec["fn"](st))
         elif style == "property/atom":
             n = self.system.n
             x = host(st.x).astype(np.float64)
@@ -1021,6 +1078,26 @@ class DeckRunner:
                 dof = 3.0 * cnt
             ke2 = float(np.sum(msel * np.sum(v * v, axis=1)))
             return ke2 / max(dof, 1.0)
+        if spec["style"] == "group/group":
+            # lj/cut interaction energy between the two groups, with
+            # special_bonds weighting (compute_group_group.cpp pair form)
+            from ..observe.pairs import (enumerate_pairs, lj_pair_values,
+                                         special_weights)
+
+            ga = self._group_mask(spec["group"])
+            gb = self._group_mask(spec["jgroup"])
+            n = self.system.n
+            ga = np.ones(n, bool) if ga is None else np.asarray(ga)
+            gb = np.ones(n, bool) if gb is None else np.asarray(gb)
+            x = host(st.x).astype(np.float64)
+            box = np.asarray(self.system.box_size, np.float64)
+            cut = float(np.max(np.asarray(self.system.pair.cutoff)))
+            i, j, dist = enumerate_pairs(x, box, cut)
+            cross = (ga[i] & gb[j]) | (gb[i] & ga[j])
+            i, j, dist = i[cross], j[cross], dist[cross]
+            w = special_weights(self.system, st, i, j)
+            eng, _ = lj_pair_values(self.system, host(st.type), i, j, dist)
+            return float(np.sum(w * eng))
         if spec["style"] == "reduce/region":
             # single-input reduction over region members
             # (compute_reduce_region.cpp); shares the reduce input
@@ -1167,6 +1244,40 @@ class DeckRunner:
                 out.append(np.where(harm, k * dth * dth,
                                     k * (1.0 + c)))
         return np.column_stack(out) if out else np.zeros((len(ctr), 0))
+
+    def _pair_local_table(self, cols, group, st):
+        """(M, k) per-pair dist/eng/force within the pair cutoff
+        (compute_pair_local.cpp; pairs with both atoms in the group,
+        special-weight-0 pairs skipped as the pair style would), in the
+        reference's row order."""
+        from ..observe.pairs import (enumerate_pairs, lj_pair_values,
+                                     special_weights)
+
+        sy = self.system
+        x = host(st.x).astype(np.float64)
+        box = np.asarray(sy.box_size, np.float64)
+        cut = float(np.max(np.asarray(sy.pair.cutoff)))
+        i, j, dist = enumerate_pairs(x, box, cut)
+        sel = self._group_mask(group)
+        if sel is not None:
+            sel = np.asarray(sel)
+            keep = sel[i] & sel[j]
+            i, j, dist = i[keep], j[keep], dist[keep]
+        w = special_weights(sy, st, i, j)
+        live = w != 0.0
+        i, j, dist, w = i[live], j[live], dist[live], w[live]
+        need = [c for c in cols if c in ("eng", "force")]
+        if need:
+            eng, frc = lj_pair_values(sy, host(st.type), i, j, dist)
+        out = []
+        for col in cols:
+            if col == "dist":
+                out.append(dist)
+            elif col == "eng":
+                out.append(w * eng)
+            else:
+                out.append(w * frc)
+        return np.column_stack(out) if out else np.zeros((i.shape[0], 0))
 
     def _chunk_ids(self, ccid, st):
         """Per-atom chunk ids for a chunk/atom compute: (ids, nchunk)
@@ -1317,13 +1428,35 @@ class DeckRunner:
         return np.asarray(vec if vec else [0.0])
 
     def _compute_vector(self, cid, st):
-        """Global VECTOR computes (one snapshot): */chunk computes ->
-        their per-chunk tables (consumed by fix ave/time mode vector).
-        The reference's compute rdf is not ported (cmd_compute)."""
+        """Global VECTOR computes (one snapshot): rdf -> (nbins, 4) rows
+        [bin, r_center, g(r), coord#] matching compute_rdf.cpp's array
+        columns; */chunk computes -> their per-chunk tables (both
+        consumed by fix ave/time mode vector)."""
         spec = self.computes[cid]
         if spec["style"] in self._CHUNK_STYLES:
             return self._chunk_table(cid, st)
-        raise DeckError(f"compute {cid} has no vector output")
+        if spec["style"] != "rdf":
+            raise DeckError(f"compute {cid} has no vector output")
+        from ..observe.rdf import make_rdf_fn, normalize_rdf
+
+        nbins = spec["nbins"]
+        if spec.get("fn") is None:
+            rmax = spec["rmax"]
+            if rmax is None:
+                # reference default: the force cutoff (compute_rdf.cpp
+                # init(): force->pair->cutforce)
+                rmax = float(np.max(np.asarray(self.system.pair.cutoff)))
+            spec["rmax"] = rmax
+            spec["fn"] = make_rdf_fn(self.system, nbins, rmax)
+        hist, _ = spec["fn"](st, torch.zeros((nbins,), dtype=torch.float32,
+                                             device=st.x.device))
+        hist = host(hist)
+        r, g = normalize_rdf(hist, self.system, 1, nbins, spec["rmax"])
+        # coordination number: running per-atom neighbor count
+        # (compute_rdf.cpp:210-217); hist counts both directions
+        coord = np.cumsum(np.asarray(hist, np.float64)) / self.system.n
+        return np.column_stack(
+            [np.arange(1, nbins + 1), r, g, coord])
 
     def live_value(self, key: str):
         """Evaluate a thermo keyword / c_ID / f_ID[n] against live state
@@ -1453,6 +1586,11 @@ class DeckRunner:
 
                 def local_rows(st, sy, cols_c=cols_c, cgroup=cgroup):
                     return runner._angle_local_table(cols_c, cgroup, st)
+            elif kind == "pair":
+                runner, cols_c = self, list(local_cols)
+
+                def local_rows(st, sy, cols_c=cols_c, cgroup=cgroup):
+                    return runner._pair_local_table(cols_c, cgroup, st)
         atom_cols = None
         if style in ("atom", "custom"):
             # v_name columns resolve against atom-style variables,
@@ -2365,13 +2503,28 @@ class DeckRunner:
         write_data(os.path.join(self.root, args[0]), self._state_datafile())
 
     def cmd_write_restart(self, args):
-        path = os.path.join(self.root, args[0])
-        if path.endswith(".restart"):
-            # native reference-readable format (write_restart.cpp layout)
-            _not_ported("io/lammps_restart",
-                        "write_restart to a native .restart file")
         if self.sim is None:
             self._build()
+        path = os.path.join(self.root, args[0])
+        if path.endswith(".restart"):
+            # native reference-readable format (write_restart.cpp layout):
+            # the reference binary can read_restart our mid-stream state
+            from ..io.lammps_restart import write_lammps_restart
+
+            p = self.system.pair
+            write_lammps_restart(
+                path, self._state_datafile(),
+                step=int(self.state.step), dt=float(self.sim.dt),
+                special_lj=tuple(self.system.special_lj),
+                pair=(np.asarray(p.epsilon), np.asarray(p.sigma),
+                      np.asarray(p.cutoff)) if p is not None else None,
+                pair_shift=bool(p.shift) if p is not None else True,
+                bond_styles=(np.asarray(self.system.bonds.style)
+                             if self.system.bonds is not None else None),
+                bond_coeffs=(np.asarray(self.system.bonds.coeffs)
+                             if self.system.bonds is not None else None),
+            )
+            return
         from ..io.checkpoint import save_checkpoint
 
         save_checkpoint(path, self.state)
@@ -2382,9 +2535,33 @@ class DeckRunner:
             head = fh.read(16)
         if head == b"LammpS RestartT\x00":
             # native binary restart written by the reference binary
-            # (read_restart.cpp surface)
-            _not_ported("io/lammps_restart",
-                        "read_restart of a native LAMMPS restart file")
+            # (read_restart.cpp surface): restores box/atoms/bonds/step/dt
+            # like read_data + velocities; styles/coeffs still come from
+            # the deck (as LAMMPS itself requires for hybrid styles).
+            # Host numpy into a DataFile; _build makes the tensors.
+            from ..io.data import DataFile
+            from ..io.lammps_restart import read_lammps_restart
+
+            r = read_lammps_restart(path)
+            bonds = np.asarray(r.bonds, np.int64)
+            if len(bonds):
+                bonds = bonds - 1  # DataFile is fully 0-based
+            self.data = DataFile(
+                n_atoms=r.natoms, n_bonds=len(bonds),
+                n_atom_types=r.ntypes, n_bond_types=r.nbondtypes,
+                box_lo=r.box_lo, box_hi=r.box_hi,
+                masses=np.asarray(r.masses if r.masses is not None
+                                  else np.ones(r.ntypes)),
+                x=r.x, v=r.v, types=r.types,
+                molecule=np.maximum(r.molecule - 1, 0),
+                image=r.img, bonds=bonds,
+            )
+            self.timestep0 = int(r.step)
+            if r.dt:
+                self.dt = float(r.dt)
+            self.state = None  # _build reinitializes from the restart
+            self._dirty = True
+            return
         from ..io.checkpoint import load_checkpoint
 
         if self.sim is None or self._dirty:

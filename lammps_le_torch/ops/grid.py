@@ -138,6 +138,17 @@ def build_grid(x: torch.Tensor, system: System):
     return grid, overflow_flag(rank, cap, FLAG_CELL_OVERFLOW)
 
 
+def slot_coords(x: torch.Tensor, grid: CellGrid, system: System,
+                far: float = -1.0e4):
+    """(gx, gy, gz), each (cap, P): every slot's bead coordinate plus its
+    ghost cell's box shift, empty slots at ``far`` (out of every
+    cutoff)."""
+    sh = _grid_const(system, "shifts", x.dtype, x.device)
+    xp = torch.cat([x, x.new_full((1, 3), far)])
+    slot = grid.slot_bead
+    return tuple(xp[slot, k] + sh[None, :, k] for k in range(3))
+
+
 def _shift(a: torch.Tensor, delta: int, fill):
     """Static shift along the minor axis: out[..., c] = a[..., c + delta]
     (grid.py:167)."""

@@ -4,7 +4,9 @@ and ``probe_bf16`` (benchmarks/probe_bf16.py: packed bf16 vs f32
 elementwise rate).  Their kernels are ``csrc/probes.cu``; each module's
 functions run the kernels on CUDA tensors and their plain PyTorch
 versions on CPU tensors.  ``LAUNCHES`` counts, per kernel, the calls
-that launched it.
+that launched it (``rcp_one`` is ``rcp``'s first form, one element a
+thread, whose exact kernel prices the IEEE reciprocal; ``empty`` the
+launch-floor kernel).
 
     python -m lammps_le_torch.probes.probe_rcp
     python -m lammps_le_torch.probes.probe_bf16
@@ -22,7 +24,8 @@ import torch
 
 from ..fast.kernels import _raise, _stream
 
-LAUNCHES = {"rcp_chain": 0, "rcp": 0, "elementwise_chain": 0}
+LAUNCHES = {"rcp_chain": 0, "rcp": 0, "elementwise_chain": 0, "rcp_one": 0,
+            "empty": 0}
 
 _LIB = None
 _P = ctypes.c_void_p
@@ -40,10 +43,12 @@ def lib():
         probes = ctypes.CDLL(str(build()["probes"]))
         probes.lle_rcp_chain.argtypes = [_P, _P, _L, _I, _I, _P]
         probes.lle_rcp.argtypes = [_P, _P, _L, _I, _P]
+        probes.lle_rcp_one.argtypes = [_P, _P, _L, _I, _P]
+        probes.lle_rcp_floor.argtypes = [_L, _P]
         probes.lle_chain_f32.argtypes = [_P, _P, _L, _I, _P]
         probes.lle_chain_bf16x2.argtypes = [_P, _P, _L, _I, _P]
-        for fn in ("lle_rcp_chain", "lle_rcp", "lle_chain_f32",
-                   "lle_chain_bf16x2"):
+        for fn in ("lle_rcp_chain", "lle_rcp", "lle_rcp_one",
+                   "lle_rcp_floor", "lle_chain_f32", "lle_chain_bf16x2"):
             getattr(probes, fn).restype = _I
         _LIB = probes
     return _LIB

@@ -52,13 +52,36 @@ def rcp_chain(x, approx: bool, reps: int = REPS):
 
 def reciprocal(x, approx: bool = True):
     """1/x in one pass: ``rcp.approx.ftz.f32`` (approx) or IEEE-rounded on
-    a CUDA tensor; on a CPU tensor the plain ``1.0 / x``."""
+    a CUDA tensor (the float4 kernel: x 16-byte aligned); on a CPU tensor
+    the plain ``1.0 / x``."""
+    if _on_cpu(x):
+        return 1.0 / x
+    _check("x", x, torch.float32)
+    if x.data_ptr() % 16:
+        raise ValueError("reciprocal: x must be 16-byte aligned (the "
+                         "kernel loads float4s)")
+    out = torch.empty_like(x)
+    launch("rcp", lib().lle_rcp, _ptr(x), _ptr(out), x.numel(), int(approx))
+    return out
+
+
+def reciprocal_one(x, approx: bool = True):
+    """``reciprocal``'s first form on a CUDA tensor: one element a thread
+    (``rcp_kernel``, the listing ``rcp_price`` reads); the plain ``1.0 /
+    x`` on a CPU one."""
     if _on_cpu(x):
         return 1.0 / x
     _check("x", x, torch.float32)
     out = torch.empty_like(x)
-    launch("rcp", lib().lle_rcp, _ptr(x), _ptr(out), x.numel(), int(approx))
+    launch("rcp_one", lib().lle_rcp_one, _ptr(x), _ptr(out), x.numel(),
+           int(approx))
     return out
+
+
+def launch_floor(n: int):
+    """An empty kernel at ``reciprocal``'s launch shape for ``n``
+    elements: what a launch costs the card with no work."""
+    launch("empty", lib().lle_rcp_floor, int(n))
 
 
 def domain(lo: float, hi: float, device="cuda"):

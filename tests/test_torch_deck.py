@@ -224,28 +224,6 @@ def test_compute_pair_nsub_known_reference_fault():
             "compute", ["p", "all", "pair", "lj/cut", "2"])
 
 
-@pytest.mark.parametrize("cmd,module", [
-    ("compute g all rdf 50", "observe/rdf"),
-    ("compute g all pe/atom", "observe/peratom"),
-    ("compute g all stress/atom NULL", "observe/peratom"),
-    ("compute g all coord/atom cutoff 1.5", "observe/peratom"),
-    ("compute g all group/group all", "observe/pairs"),
-    ("compute g all pair/local dist", "observe/pairs"),
-    ("write_restart out.restart", "io/lammps_restart"),
-    ("read_restart native.restart", "io/lammps_restart"),
-])
-def test_unported_observer_commands_raise(tmp_path, cmd, module):
-    """A command whose module is not ported raises NotImplementedError
-    at the command, naming the module and its ROADMAP item."""
-    with open(os.path.join(tmp_path, "native.restart"), "wb") as fh:
-        fh.write(b"LammpS RestartT\x00" + bytes(16))
-    r = DeckRunner(quiet=True, device="cpu", root=str(tmp_path))
-    parts = cmd.split()
-    with pytest.raises(NotImplementedError, match=module) as e:
-        r.command(parts[0], parts[1:])
-    assert "ROADMAP Queue 1 item 5" in str(e.value)
-
-
 def test_deck_runner_needs_a_card_unless_asked_for_the_cpu():
     """``DeckRunner()`` runs on the card: without one it raises, and
     ``device="cpu"`` runs on the CPU."""
