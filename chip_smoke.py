@@ -20,8 +20,14 @@ through the port's user entry points:
    stencil, with 5,000 seeded extruders and 600 measured steps, then
    two replicas of its end for 40 steps (``run_fast_replicas``);
 3. the 100k configuration's 1,500 measured steps, from the same settled
-   state, on the sharded slab stencil (make_sharded_segment) at sp=2 with
-   both slabs on the card;
+   state, on the slab-resident state (``shard_fast_state``: each slab's
+   columns of every plane on its own device, slab s on cuda:(s % the
+   device count), here both on the card) through make_sharded_segment at
+   sp=2 (the slab step: K2a, the slab stencil K4, K2c on the gathered
+   anchors and the split Langevin pass per slab, the margins, halos and
+   fold copied between slabs), held bit for bit to the whole-state chain
+   on the same stencil from the same state, with its cross-slab copies,
+   bytes and their device time a step;
 4. the same on the tiled full stencil (make_pallas_kernel as kernel_fn);
 5. the 100k configuration anew with its Langevin fix on the group of
    beads 1-90,000 with ``zero yes`` (the last tenth runs NVE);
@@ -33,7 +39,16 @@ through the port's user entry points:
    overflow: healthy through the step before its run alone first
    overflows, where a numpy count of that rebuild's positions must find a
    cell past cap), replica 0 bit for bit the same at every R, each kernel
-   one launch a step for all replicas.
+   one launch a step for all replicas;
+10. the multi-card paths, run after path 3: the 100k window
+    slab-resident at sp=4 (held bit for bit to the whole-state chain);
+    dp=2 x sp=2 on the 100k config for 200 steps
+    (``make_replicated_sharded_segment``, two replicas each on its row of
+    two slabs), each replica bit for bit the sp=2 segment on it alone;
+    and, inside path 7, config 2 with four replicas on the general path
+    over a mesh of two devices (``make_replica_runner(mesh=...)``), bit
+    for bit the one-card runner.  On a host of several cards the slabs
+    spread over them (``multi_card`` runs paths 3 and 10 alone).
 
 After each it holds that path's hand-written CUDA kernels against their
 plain PyTorch versions at the shapes the run gave them and times both
@@ -168,6 +183,15 @@ DIST_OPS = 8
 # (-fmad=false)
 APPROX_RCP_OPS = 4
 SP_PATH, SP_PHASES = 2, (2, 4)  # slabs of path 3; of its kernel phase
+# path 10: the slabs of its wide window; its dp x sp run's replicas (one a
+# row of SP_PATH slabs) and steps; the general path's replicas over a
+# mesh of GEN_MESH devices and their steps; path 5's slab-resident window
+# with zero (the split Langevin pass's sums); steps whose cross-slab
+# traffic is profiled; positions of the zero window against the whole
+# state (bead layout: the group means' sums differ in order)
+SP_WIDE, DP_REPLICAS, DP_STEPS = 4, 2, 200
+GEN_REPLICAS, GEN_MESH, GEN_REPLICA_STEPS = 4, 2, 40
+ZERO_SLAB_STEPS, TRAFFIC_STEPS, ZERO_X_TOL = 40, 20, 1e-4
 # the source of each kernel not in step.cu
 SOURCES = {"newton_half_forces": "blocked.cu", "window_forces": "blocked.cu",
            "tiled_stencil_forces": "tiled.cu", "rcp_chain": "probes.cu",
@@ -312,6 +336,8 @@ REPLACES = {
     "stencil_forces": "lammps_le_tpu/fast/pallas_step.py:249",
     "extruder_springs": "lammps_le_tpu/fast/pallas_step.py:776",
     "langevin_kick_monitor": "lammps_le_tpu/fast/pallas_step.py:932",
+    "langevin_kick_parts": "lammps_le_tpu/fast/pallas_step.py:932",
+    "langevin_sums": "lammps_le_tpu/fast/pallas_step.py:932",
     "newton_half_forces": "lammps_le_tpu/fast/blocked_kernel.py:90"}
 
 
@@ -414,30 +440,33 @@ def timed_run(label, sim, state, steps, groups=None):
 
 
 def measured_segment(sim, state, dev, warm, measure, profile_steps,
-                     kernel_fn=None, segment=None, groups=None, pallas=None):
+                     kernel_fn=None, segment=None, groups=None, pallas=None,
+                     mesh=None):
     """``warm`` steps, then ``measure`` timed steps with the launch counts
     zeroed just before them and read just after, on ``segment`` (default
     ``make_fast_segment`` on ``kernel_fn`` with ``pallas``: auto, the
-    step loop within the whole-plane gate); ``groups`` as to_fast's.
-    Returns (FastState, measured wall s, rebuilds, kernel launches and
-    step-loop launches in the window)."""
-    import torch
-
+    step loop within the whole-plane gate); ``groups`` as to_fast's; with
+    ``mesh`` the state slab-resident on its devices (``shard_fast_state``).
+    Returns (the FastState or ShardedFastState, measured wall s,
+    rebuilds, kernel launches and step-loop launches in the window)."""
     from lammps_le_torch.fast import kernels as K
     from lammps_le_torch.fast import make_fast_segment, to_fast
+    from lammps_le_torch.parallel.spatial import shard_fast_state
 
     segment = segment or make_fast_segment(
         sim, pallas=pallas, kernel_fn=kernel_fn, device=dev)[0]
     fs = to_fast(state, sim, kernel_fn, groups)
+    if mesh is not None:
+        fs = shard_fast_state(fs, mesh)
     b0 = fs.step
     bend = b0 + warm + measure
     segment(fs, b0, warm, b0, bend)
-    torch.cuda.synchronize()
+    sync_all()
     rebuilds0, loops0 = fs.n_rebuilds, fs.n_launches
     K.reset_launches()
     t0 = time.perf_counter()
     segment(fs, b0 + warm, measure, b0, bend)
-    torch.cuda.synchronize()
+    sync_all()
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     rebuilds = fs.n_rebuilds - rebuilds0
@@ -774,7 +803,11 @@ def max_cell_count(fs, system):
     from lammps_le_torch.fast.engine import extract_beads
     from lammps_le_torch.fast.maps import fast_maps
     from lammps_le_torch.ops.cells import cell_coords, wrap_positions
+    from lammps_le_torch.parallel.spatial import (ShardedFastState,
+                                                  gather_fast_state)
 
+    if isinstance(fs, ShardedFastState):
+        fs = gather_fast_state(fs)
     if fs.replicas:
         from lammps_le_torch.fast import replica
 
@@ -1376,8 +1409,8 @@ def shard_phase(fs, sim, g, dev):
     planes (2e-4 max|f|, flags and clamps equal, ghost columns 0).
     Prints per sp the device ms of window_forces, of the whole sharded
     stencil (windows, kernel, reactions, fold), of stencil_forces and of
-    newton_half_forces.  Returns the record of window_forces at
-    SP_PATH, the path's slab count (no launch count)."""
+    newton_half_forces.  Returns {sp: the record of window_forces} (no
+    launch counts)."""
     import torch
 
     from lammps_le_torch.fast import kernels as K
@@ -1398,7 +1431,7 @@ def shard_phase(fs, sim, g, dev):
     fmax = float(gf_s.abs().max())
     t_full = timings(lambda: K.stencil_forces(*st_args), 20)
     t_newton = timings(lambda: K.newton_half_forces(*nh_args), 20)
-    rec = None
+    recs = {}
     for sp in SP_PHASES:
         kern = make_sharded_kernel(system, maps, sim.ex_btype, [dev] * sp)
         (slabs, wargs), = kern.window_args(*planes, True)
@@ -1447,9 +1480,493 @@ def shard_phase(fs, sim, g, dev):
               f"sharded stencil {t_fn[0]:.4f} (wall {t_fn[1]:.4f}), "
               f"stencil_forces {t_full[0]:.4f}, newton_half_forces "
               f"{t_newton[0]:.4f}", flush=True)
-        if sp == SP_PATH:
-            rec = r
-    return rec
+        recs[sp] = r
+    return recs
+
+
+# the hand-written kernels the slab step launches (their symbols in a
+# profiler trace); every other device row of its trace is PyTorch's glue
+SLAB_KERNELS = ("kick_drift_kernel", "halo_kernel", "newton_half_kernel",
+                "window_finish_kernel", "springs_kernel", "langevin_kernel",
+                "langevin_sum_kernel")
+
+
+def slab_mesh(sp, first=0):
+    """``sp`` slab devices, slab s on cuda:((first + s) % the device
+    count): every slab on the one card of a one-card machine, spread over
+    the cards of a host of several."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", (first + s) % n) for s in range(sp)]
+
+
+def slab_traffic(label, segment, sfs, steps, b0, bend):
+    """``steps`` more steps of a slab-resident run, on a copy of ``sfs``,
+    under torch.profiler: the cross-slab copies and their bytes a step
+    (shard_step.TRAFFIC: the margins, their reactions, the remote halo
+    and fold columns, the springs' anchors, the slabs' monitor values,
+    and at rebuilds the gathers and splits), the device time a step of
+    the trace's memcpy rows, of the hand-written kernels' rows and of the
+    other rows (PyTorch's glue: packing, index, cat, elementwise, the
+    rebuilds' placement), beside the wall a step under the profiler.
+    Returns them as a dict."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lammps_le_torch.parallel import shard_step as ss
+
+    run = dataclasses.replace(sfs)
+    rebuilds0 = run.n_rebuilds
+    sync_all()
+    ss.reset_traffic()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        segment(run, run.step, steps, b0, bend)
+        sync_all()
+        wall = time.perf_counter() - t0
+    traffic = dict(ss.TRAFFIC)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count]
+
+    def us(sel):
+        return sum(e.self_device_time_total for e in sel) / steps
+
+    memcpy = [e for e in rows if "memcpy" in e.key.lower()]
+    hand = [e for e in rows if any(k in e.key for k in SLAB_KERNELS)]
+    out = dict(
+        copies=traffic["copies"] / steps, bytes=traffic["bytes"] / steps,
+        memcpy_us=us(memcpy), kernels_us=us(hand),
+        glue_us=us(rows) - us(memcpy) - us(hand), device_us=us(rows),
+        wall_ms=wall / steps * 1e3, rebuilds=run.n_rebuilds - rebuilds0)
+    print(f"cross-slab traffic, {label} ({card_line()}; "
+          f"{torch.cuda.device_count()} device(s), slabs on "
+          f"{[str(d) for d in sfs.mesh]}), {steps} profiled steps "
+          f"({out['rebuilds']} rebuilds): {out['copies']:.1f} copies and "
+          f"{out['bytes']:.0f} B a step; device us a step: memcpy rows "
+          f"{out['memcpy_us']:.2f} ({sum(e.count for e in memcpy)} rows), "
+          f"hand-written kernels {out['kernels_us']:.2f}, other glue "
+          f"{out['glue_us']:.2f}, all {out['device_us']:.2f}; wall "
+          f"{out['wall_ms']:.3f} ms a step under the profiler", flush=True)
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / steps:9.2f} us/step  "
+              f"{e.count:6d}x  {e.key[:70]}", flush=True)
+    return out
+
+
+def slab_langevin_phase(sfs, segment, sim, zero=False):
+    """The split Langevin pass on the slabs of the state a slab-resident
+    run left (``sfs``) at the production gammas: langevin_kick_parts on
+    each slab bit for bit its plain version given the same means (the
+    plain sums', with ``zero``), and the slabs' monitor merged equal to
+    the plain whole-slab monitors merged; with ``zero`` also
+    langevin_sums within the f32 round-off of two tree sums of the plain
+    sums.  Returns the record of langevin_kick_parts (slab 0's planes),
+    or with ``zero`` that of langevin_sums (no launch counts)."""
+    import torch
+
+    from lammps_le_torch.fast import kernels as K
+    from lammps_le_torch.fast import kernels_ref as R
+    from lammps_le_torch.fixes import Langevin
+    from lammps_le_torch.parallel.slab_step import merge_monitor
+
+    system = sim.system
+    n, units = system.n, system.units
+    lf = next(f for f in sim.fixes if isinstance(f, Langevin))
+    mass = float(system.masses[0])
+    kick = 0.5 * sim.dt * units.ftm2v / mass
+    gamma1 = -mass / lf.damp / units.ftm2v
+    gamma2 = float(np.sqrt(mass) * np.sqrt(
+        24.0 * units.boltz / (lf.damp * sim.dt) / units.mvv2e) / units.ftm2v)
+    key = (123456789, 987654321)
+    plan = segment.plan(sfs)
+    sp = len(sfs.mesh)
+    lgm = sfs.lgm or (None,) * sp
+    means, sum_err, sum_tol, sums_args = None, 0.0, 0.0, []
+    if zero:
+        tot = 0.0
+        for s in range(sp):
+            a = (sfs.gx[s], sfs.bid[s], plan.interior[s], lgm[s], key,
+                 sfs.step, n)
+            k, r = K.langevin_sums(*a), R.langevin_sums(*a)
+            cnt = float(r[3]) if lgm[s] is not None else float(
+                R.valid_mask(sfs.bid[s], plan.interior[s], n).sum())
+            cap, C = sfs.bid[s].shape
+            # two tree sums of cnt terms of |noise| <= 1/2 in f32
+            tol = cnt * 2.0 ** -24 * (np.log2(cap * C) + 3)
+            sum_err = max(sum_err, float((k - r).abs().max()))
+            sum_tol = max(sum_tol, tol)
+            tot = tot + r.to(sfs.mesh[0])
+            sums_args.append(a)
+        inv = (1.0 / n if sfs.lgm is None
+               else 1.0 / torch.clamp(tot[3], min=1.0))
+        means = tot[:3] * inv
+    parts_k, parts_r, err = [], [], 0.0
+    for s in range(sp):
+        m = None if means is None else means.to(sfs.mesh[s])
+        a = (sfs.gx[s], sfs.gx_ref[s], sfs.gv[s], sfs.gf[s], sfs.bid[s],
+             plan.interior[s], key, sfs.step, gamma1, gamma2, kick, sim.dt,
+             n, True, lgm[s], m)
+        k, r = K.langevin_kick_parts(*a), R.langevin_kick_parts(*a)
+        if not all(torch.equal(x, y) for x, y in zip(k, r)):
+            err = max(err, max(float((x - y).abs().max())
+                               for x, y in zip(k, r)))
+            fail(f"langevin_kick_parts on slab {s} differs from its plain "
+                 f"version ({err})")
+        parts_k.append(k[2].to(sfs.mesh[0]))
+        parts_r.append(r[2].to(sfs.mesh[0]))
+        if s == 0:
+            head = a
+    ints = [merge_monitor(torch.stack(p), 0.3, 0.2).tolist()
+            for p in (parts_k, parts_r)]
+    print(f"split Langevin pass on the {sp} slabs ({card_line()}): "
+          f"langevin_kick_parts bitwise its plain version; merged monitor "
+          f"{ints[0]} vs plain {ints[1]}"
+          + (f"; langevin_sums max_abs_err {sum_err:.3g} (tol "
+             f"{sum_tol:.3g})" if zero else ""), flush=True)
+    if ints[0] != ints[1]:
+        fail(f"merged slab monitors {ints}")
+    if zero and not sum_err <= sum_tol:
+        fail(f"langevin_sums vs its plain version: {sum_err} (tol "
+             f"{sum_tol})")
+    bid, interior, lg = head[4], head[5], head[14]
+    if zero:
+        a = sums_args[0]
+        cap, C = bid.shape
+        w = R.valid_mask(bid, interior, n)
+        if lg is not None:
+            w = w & (lg != 0)
+        # bid, interior and the group plane in, 4 sums out; threefry's
+        # three words a member, ~4 f32 operations a slot
+        return dict(
+            replaces=REPLACES["langevin_sums"], max_abs_err=sum_err,
+            tol=f"two f32 tree sums: {sum_tol:.3g}",
+            bound=bound(cap * C * (4 + (0 if lg is None else 4)) + C + 16,
+                        cap * C * 4, int_ops=3 * int(w.sum()) * THREEFRY_OPS),
+            t=timings(lambda: K.langevin_sums(*a), 50),
+            t_plain=timings(lambda: R.langevin_sums(*a), 5))
+    return dict(
+        replaces=REPLACES["langevin_kick_parts"], max_abs_err=err,
+        tol="bitwise (given the same means)",
+        bound=langevin_bound(bid, interior, n, lg, zero),
+        t=timings(lambda: K.langevin_kick_parts(*head), 50),
+        t_plain=timings(lambda: R.langevin_kick_parts(*head), 5))
+
+
+def slab_kernel_phases(sfs, segment, sim):
+    """The slab step's per-slab K2a and its springs on the state a
+    slab-resident run left (``sfs``), at the shapes the slab step gives
+    them, against their plain versions on the same card tensors:
+    kick_drift_halo on every slab's (3, cap, C) planes with its local
+    halo lists (``SlabPlan.local_halo``) bit for bit; extruder_springs on
+    the (3, 1, 2E) anchor planes that ``SlabPlan.gather_anchors`` builds
+    on mesh[0] from the slabs' planes and the slab stencil's force
+    buffers, within path 1's tolerance for the same kernel (F_REL of the
+    largest force; energies E_ABS + E_REL).  Returns the records of both
+    (slab 0's planes for K2a) and of langevin_kick_parts
+    (``slab_langevin_phase``), each with its bound from these tensors (no
+    launch counts)."""
+    import torch
+
+    from lammps_le_torch.fast import kernels as K
+    from lammps_le_torch.fast import kernels_ref as R
+    from lammps_le_torch.fast.consts import SpringConsts
+
+    system = sim.system
+    n, units = system.n, system.units
+    kick = 0.5 * sim.dt * units.ftm2v / float(system.masses[0])
+    plan = segment.plan(sfs)
+    sp, cap, C = len(sfs.mesh), plan.cap, plan.chunk
+    recs = {}
+
+    # kick_drift_halo per slab: bitwise
+    for s in range(sp):
+        a = (sfs.gx[s], sfs.gv[s], sfs.gf[s], sfs.bid[s], plan.interior[s],
+             *plan.local_halo[s], n, kick, sim.dt)
+        k, r = K.kick_drift_halo(*a), R.kick_drift_halo(*a)
+        if not all(torch.equal(x, y) for x, y in zip(k, r)):
+            fail(f"kick_drift_halo on slab {s} differs from its plain "
+                 f"version")
+        if s == 0:
+            kd = a
+    H = int(kd[5].shape[0])
+    recs["kick_drift_halo"] = dict(
+        replaces=REPLACES["kick_drift_halo"], max_abs_err=0.0,
+        tol="bitwise, every slab",
+        # as path 1's, on a slab's C columns and its local halo list
+        bound=bound(cap * C * (36 + 4 + 24) + C + H * 20,
+                    cap * C * 18 + cap * H * 3),
+        t=timings(lambda: K.kick_drift_halo(*kd), 50),
+        t_plain=timings(lambda: R.kick_drift_halo(*kd), 20))
+
+    # extruder_springs on the anchors gathered onto mesh[0]
+    S = SpringConsts(system, sim.ex_btype)
+    active = sfs.ex_left >= 0
+    n_active = int(active.sum())
+    if not n_active:
+        fail("no active extruder at the end of the slab-resident window")
+    anchors = plan.anchors(sfs.exl_slot, sfs.exr_slot, active)
+    bufs = plan.forces(list(sfs.gx),
+                       plan.window_ints(sfs.bid, sfs.hn, sfs.pid), False)[0]
+    xa, fa = plan.gather_anchors(sfs.gx, bufs, anchors)
+    left, right = anchors[1]
+    f_k, f_r = fa.clone(), fa.clone()
+    eb_k = K.extruder_springs(xa, f_k, left, right, active, S)
+    eb_r = R.extruder_springs(xa, f_r, left, right, active, S)
+    fmax = float(f_r.abs().max())
+    err = float((f_k - f_r).abs().max())
+    ek, er = float(eb_k.double().sum()), float(eb_r.double().sum())
+    print(f"slab kernels sp={sp} ({card_line()}): kick_drift_halo bitwise "
+          f"on every slab (slab 0: {tuple(kd[0].shape)}, {H} local halo "
+          f"columns); extruder_springs on the gathered anchors "
+          f"{tuple(xa.shape)}, {n_active} active: max_abs_err {err:.3g} "
+          f"(bitwise {torch.equal(f_k, f_r)}), energy {ek} vs plain {er}",
+          flush=True)
+    if not err <= F_REL * max(fmax, 1.0):
+        fail(f"extruder_springs on the slab anchors: force error {err} vs "
+             f"max|f| {fmax}")
+    if not abs(ek - er) <= E_ABS + E_REL * abs(er):
+        fail(f"extruder_springs on the slab anchors: energy {ek} vs {er}")
+    E = int(left.shape[0])
+    scratch = fa.clone()
+    recs["extruder_springs"] = dict(
+        replaces=REPLACES["extruder_springs"], max_abs_err=err,
+        tol=f"{F_REL}*max|f|={F_REL * max(fmax, 1.0):.3g}",
+        n_active=n_active,
+        # as path 1's: per spring its anchor pair and active bit in, its
+        # energy out; per active spring two anchors' x and f in, f out
+        bound=bound(E * 13 + n_active * 2 * 36, n_active * 36,
+                    divs=n_active * 4),
+        t=timings(lambda: K.extruder_springs(xa, scratch, left, right,
+                                             active, S), 50),
+        t_plain=timings(lambda: R.extruder_springs(xa, scratch, left, right,
+                                                   active, S), 20))
+    recs["langevin_kick_parts"] = slab_langevin_phase(sfs, segment, sim)
+    return recs
+
+
+def same_state(a, b, names=None):
+    """Whether two FastStates hold the same tensors bit for bit (and the
+    same host ints): the names of the fields that differ."""
+    import torch
+
+    bad = []
+    for f in dataclasses.fields(a):
+        if names is not None and f.name not in names:
+            continue
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor):
+            if not torch.equal(x, y):
+                bad.append(f.name)
+        elif x != y:
+            bad.append(f.name)
+    return bad
+
+
+def zero_slab_window(sim, start, dev, groups):
+    """Path 5's Langevin fix (zero over the group) on the slab-resident
+    state at SP_PATH slabs for ZERO_SLAB_STEPS steps from path 5's start,
+    against the whole-state chain on the same stencil from the same
+    state: the extruder tables, types, counters, flags, rebuilds and step
+    equal, the beads' positions within ZERO_X_TOL (the group means' sums
+    run over the slabs in another order than over the whole plane), each
+    kernel of the slab step launched as ``slab_launches`` says with zero.
+    Returns (the record of langevin_sums, the window's launches)."""
+    import torch
+
+    from lammps_le_torch.fast import kernels as K
+    from lammps_le_torch.fast import make_fast_segment, to_fast
+    from lammps_le_torch.parallel.spatial import (
+        gather_fast_state, make_sharded_segment, shard_fast_state)
+
+    system = sim.system
+    mesh = slab_mesh(SP_PATH)
+    seg = make_sharded_segment(sim, mesh)
+    fs0 = to_fast(start, sim, seg.kernel_fn, groups)
+    b = fs0.step
+    whole, _ = make_fast_segment(sim, pallas=False, kernel_fn=seg.kernel_fn,
+                                 device=dev)
+    fw = whole(dataclasses.replace(fs0), b, ZERO_SLAB_STEPS, b,
+               b + ZERO_SLAB_STEPS)
+    sfs = shard_fast_state(fs0, mesh)
+    sync_all()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    seg(sfs, b, ZERO_SLAB_STEPS, b, b + ZERO_SLAB_STEPS)
+    sync_all()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    got = gather_fast_state(sfs)
+    box = torch.as_tensor(np.asarray(system.box_size, np.float32),
+                          device=got.gx.device)
+    d = bead_positions(got, system) - bead_positions(fw, system)
+    dx = float((d - box * torch.round(d / box)).abs().max())
+    bad = same_state(got, fw, ("ex_left", "ex_right", "types", "flags",
+                               "n_moves", "n_loads", "n_unloads", "step",
+                               "n_rebuilds", "img"))
+    want = slab_launches(launches, ZERO_SLAB_STEPS, mesh, zero=True)
+    print(f"zero+group slab-resident sp={SP_PATH}, {ZERO_SLAB_STEPS} steps "
+          f"({card_line()}): {ZERO_SLAB_STEPS / wall:.2f} steps/s; against "
+          f"the whole-state chain: beads' max|dx| {dx:.3g} (tol "
+          f"{ZERO_X_TOL}), fields that differ {bad}; rebuilds "
+          f"{got.n_rebuilds}; launches {launches}", flush=True)
+    if bad or not dx <= ZERO_X_TOL:
+        fail(f"zero+group slab-resident window vs the whole state: {bad}, "
+             f"max|dx| {dx}")
+    if launches != want:
+        fail(f"zero+group slab-resident launches {launches} (want {want})")
+    return slab_langevin_phase(sfs, seg, sim, zero=True), launches
+
+
+def slab_window(sim, start, dev, sp, profile_steps, sps):
+    """Path 1's measured window from ``start`` on the slab-resident state
+    at ``sp`` slabs (slab s on cuda:(s % the device count)), healthy with
+    ``slab_launches``, and on the whole-state chain on the same slab
+    stencil from the same state: both timed (into ``sps``), held bit for
+    bit; then the slab-resident run's cross-slab traffic and its per-slab
+    kernels against their plain versions (``slab_kernel_phases``).
+    Returns (the segment, its ShardedFastState, that state gathered, the
+    launches, those kernels' records)."""
+    import torch
+
+    from lammps_le_torch.parallel.spatial import (gather_fast_state,
+                                                  make_sharded_segment)
+
+    mesh = slab_mesh(sp)
+    print(f"{torch.cuda.device_count()} CUDA device(s); sp={sp} slabs on "
+          f"{[str(d) for d in mesh]}", flush=True)
+    seg = make_sharded_segment(sim, mesh)
+    sfs, wall, rebuilds, launches, _ = measured_segment(
+        sim, start, dev, WARM, MEASURE, profile_steps, seg.kernel_fn, seg,
+        mesh=mesh)
+    fs = gather_fast_state(sfs)
+    check_run(f"sharded sp={sp} slab-resident", fs, sim.system, wall,
+              rebuilds, launches, MEASURE, GRID,
+              slab_launches(launches, MEASURE, mesh))
+    fw, wall_w, _, _, _ = measured_segment(
+        sim, start, dev, WARM, MEASURE, 0, seg.kernel_fn, pallas=False)
+    bad = same_state(fs, fw)
+    print(f"sharded sp={sp}: slab-resident {MEASURE / wall:.2f} steps/s, "
+          f"whole-state {MEASURE / wall_w:.2f} steps/s ({card_line()}); "
+          f"fields that differ {bad}", flush=True)
+    if bad:
+        fail(f"sp={sp} slab-resident window vs the whole state: {bad}")
+    sps[f"100k sharded sp={sp}, slab-resident"] = MEASURE / wall
+    sps[f"100k sharded sp={sp}, whole state"] = MEASURE / wall_w
+    b0 = sfs.step - WARM - MEASURE
+    slab_traffic(f"sp={sp}", seg, sfs, TRAFFIC_STEPS, b0,
+                 b0 + WARM + MEASURE)
+    return seg, sfs, fs, launches, slab_kernel_phases(sfs, seg, sim)
+
+
+def multi_card_path(sim, settled, start, dev, window4, sps):
+    """Path 10, the multi-card paths on the 100k config: the measured
+    window slab-resident at SP_WIDE slabs (``slab_window``); then
+    dp=DP_REPLICAS x sp=SP_PATH (``make_replicated_sharded_segment``, the
+    replicas bench.py's 0 and 1 of the settled state) for DP_STEPS steps,
+    each replica bit for bit the sp=SP_PATH segment on it alone on its
+    row.  Returns the path's records at SP_WIDE slabs: the slab step's
+    per-slab kernels (``slab_kernel_phases``) and, where ``window4`` (its
+    kernel phase's record of window_forces) is given, window_forces."""
+    import torch
+
+    from lammps_le_torch.fast import kernels as K
+    from lammps_le_torch.fast import stack_fast, to_fast
+    from lammps_le_torch.parallel.spatial import (
+        gather_fast_state, make_replicated_sharded_segment,
+        make_sharded_segment, shard_fast_state)
+
+    system = sim.system
+    print("path 10", flush=True)
+    _, _, _, launches, phases = slab_window(sim, start, dev, SP_WIDE, 0,
+                                            sps)
+    if window4:
+        phases["window_forces"] = window4
+    recs = path_records(f"100k sharded sp={SP_WIDE}", phases, launches)
+
+    # dp x sp: a replica a row of SP_PATH slabs
+    rows = [slab_mesh(SP_PATH, r * SP_PATH) for r in range(DP_REPLICAS)]
+    rseg = make_replicated_sharded_segment(sim, rows)
+    if rseg.shard_reason:
+        fail(f"dp x sp refused: {rseg.shard_reason}")
+    starts = [to_fast(bench_replica(settled, i), sim, rseg.kernel_fn)
+              for i in range(DP_REPLICAS)]
+    b = starts[0].step
+    runs = shard_fast_state(stack_fast(starts), rows)
+    sync_all()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rseg(runs, b, DP_STEPS, b, b + DP_STEPS)
+    sync_all()
+    wall = time.perf_counter() - t0
+    dp_launches = dict(K.LAUNCHES)
+    one = make_sharded_segment(sim, rows[0])
+    differ = []
+    for r, (run, fs0) in enumerate(zip(runs, starts)):
+        alone = one(shard_fast_state(fs0, rows[r]), b, DP_STEPS, b,
+                    b + DP_STEPS)
+        got = gather_fast_state(run)
+        differ.append(same_state(got, gather_fast_state(alone)))
+        sick = replica_health(got, system)
+        if sick or not bool(torch.isfinite(got.gx).all()):
+            fail(f"dp x sp replica {r} unhealthy: {sick}")
+    want = slab_launches(dp_launches, DP_STEPS * DP_REPLICAS, rows[0])
+    print(f"dp={DP_REPLICAS} x sp={SP_PATH} ({card_line()}; rows "
+          f"{[[str(d) for d in row] for row in rows]}): {DP_STEPS} steps of "
+          f"{DP_REPLICAS} replicas in {wall:.3f} s, "
+          f"{DP_STEPS * DP_REPLICAS / wall:.2f} replica steps/s; each "
+          f"replica against the sp={SP_PATH} segment on it alone: fields "
+          f"that differ {differ}; rebuilds {[r.n_rebuilds for r in runs]}",
+          flush=True)
+    if any(differ):
+        fail(f"dp x sp replicas differ from their runs alone: {differ}")
+    if dp_launches != want:
+        fail(f"dp x sp launches {dp_launches} (want {want})")
+    sps[f"100k dp={DP_REPLICAS} x sp={SP_PATH} (replica steps)"] = (
+        DP_STEPS * DP_REPLICAS / wall)
+    return recs
+
+
+def general_replicas(sim, start, dev):
+    """Config 2's GEN_REPLICAS replicas of the warm state (keys folded
+    from seed 5) over a mesh of GEN_MESH devices (``make_replica_runner``
+    with ``mesh``: contiguous blocks, each stepped by its device's
+    make_step, step i on every device before step i + 1) for
+    GEN_REPLICA_STEPS steps, against the one-card runner on the same
+    replicas: every field bit for bit."""
+    import torch
+
+    from lammps_le_torch.parallel import (gather_replica_state,
+                                          make_replica_runner,
+                                          replicate_state,
+                                          sharded_replica_state)
+
+    ndev = torch.cuda.device_count()
+    mesh = [torch.device("cuda", i % ndev) for i in range(GEN_MESH)]
+    reps = replicate_state(state_on(start, dev), GEN_REPLICAS, seed=5)
+    setup1, seg1 = make_replica_runner(sim, device=dev)
+    t0 = time.perf_counter()
+    one = seg1(setup1(reps), GEN_REPLICA_STEPS)
+    sync(dev)
+    wall1 = time.perf_counter() - t0
+    setup_m, seg_m = make_replica_runner(sim, mesh=mesh)
+    t0 = time.perf_counter()
+    blocks = seg_m(setup_m(sharded_replica_state(reps, mesh)),
+                   GEN_REPLICA_STEPS)
+    sync_all()
+    wall = time.perf_counter() - t0
+    got = gather_replica_state(blocks)
+    bad = [k for k in GEN_INTS + ("x", "v", "f", "key", "epair", "ebond")
+           if not torch.equal(getattr(got, k), getattr(one, k))]
+    print(f"general path config 2, {GEN_REPLICAS} replicas over "
+          f"{[str(d) for d in mesh]} ({card_line()}): {GEN_REPLICA_STEPS} "
+          f"steps in {wall:.3f} s (one-card runner {wall1:.3f} s); fields "
+          f"that differ from the one-card runner {bad}; moves "
+          f"{got.n_moves.tolist()}", flush=True)
+    if bad or not bool(torch.isfinite(got.x).all()):
+        fail(f"general path replicas over a mesh: {bad}")
 
 
 def shuffle_rows(planes, seed=0):
@@ -2476,9 +2993,25 @@ def path_launches(launches, stencil, steps=MEASURE, loops=0):
     kernel's count is the steps it executed."""
     stencils = ("stencil_forces", "newton_half_forces", "window_forces",
                 "tiled_stencil_forces")
-    want = {k: 0 if k in stencils else steps for k in launches}
+    # the split Langevin pass runs on the slab step only (slab_launches)
+    slab = ("langevin_sums", "langevin_kick_parts")
+    want = {k: 0 if k in stencils + slab else steps for k in launches}
     want[stencil] = steps
     want["step_loop"] = loops
+    return want
+
+
+def slab_launches(launches, steps, mesh, zero=False):
+    """The launches a slab-resident window of ``steps`` on ``mesh`` must
+    hold: per step K2a and the split Langevin pass once a slab (its sums
+    pass with ``zero``), the slab stencil once a device, the springs once
+    (on mesh[0]), nothing else."""
+    sp = len(mesh)
+    want = dict.fromkeys(launches, 0)
+    want.update(kick_drift_halo=steps * sp, extruder_springs=steps,
+                window_forces=steps * len(set(mesh)),
+                langevin_kick_parts=steps * sp,
+                langevin_sums=steps * sp if zero else 0)
     return want
 
 
@@ -2566,6 +3099,14 @@ def sync(dev):
 
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize()
+
+
+def sync_all():
+    """Wait for every card (a slab-resident run spans all of them)."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
 
 
 def state_on(state, dev):
@@ -2831,6 +3372,9 @@ def general_path(dev, card, profile_steps=0, specs=None):
         out[spec["name"]] = sps
         if cfg == 2:
             general_card_checks(sim, start, dev)
+            if on_card:
+                # path 10's general-path piece: replicas over a mesh
+                general_replicas(sim, start, dev)
         if cfg == 5 and on_card:
             dev_ms = general_profile(sim, state,
                                      max(profile_steps, GEN_PROFILE_STEPS),
@@ -3463,7 +4007,6 @@ def main(argv=None):
     from lammps_le_torch.fast.pallas_kernel import make_pallas_kernel
     from lammps_le_torch.fast.place import GridConsts
     from lammps_le_torch.parallel.shard_step import shardable
-    from lammps_le_torch.parallel.spatial import make_sharded_segment
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3528,23 +4071,25 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     # path 3, the sharded slab stencil: the reference's gate, then the
-    # same measured phase from the same settled state at SP_PATH slabs
+    # same measured phase from the same settled state on the slab-resident
+    # state at SP_PATH slabs, slab s on cuda:(s % the device count)
     maps = fast_maps(system)
     for sp in (1, 2, 4):
         print(f"shardable at sp={sp}: "
               f"{shardable(system, maps, [dev] * sp) or 'yes'}", flush=True)
-    segment = make_sharded_segment(sim, [dev] * SP_PATH)
-    fs, wall, rebuilds, launches, _ = measured_segment(
-        sim, start, dev, WARM, MEASURE, args.profile, segment.kernel_fn,
-        segment)
-    check_run(f"sharded sp={SP_PATH}", fs, system, wall, rebuilds, launches,
-              MEASURE, GRID, path_launches(launches, "window_forces"))
-    sps[f"100k sharded sp={SP_PATH}"] = MEASURE / wall
+    segment, sfs, fs, launches, slab = slab_window(sim, start, dev, SP_PATH,
+                                                   args.profile, sps)
     witness(f"sharded sp={SP_PATH}", sim, start, dev, segment.kernel_fn, fs,
             x_full, newton=True)
+    shard = shard_phase(fs, sim, g, dev)
     recs += path_records("100k sharded", dict(
-        window_forces=shard_phase(fs, sim, g, dev)), launches)
-    del fs, segment
+        window_forces=shard[SP_PATH], **slab), launches)
+    del fs, sfs, segment
+    torch.cuda.empty_cache()
+
+    # path 10, the multi-card paths: sp=SP_WIDE slab-resident, dp x sp
+    # (the general path's replicas over a mesh run inside path 7)
+    recs += multi_card_path(sim, settled, start, dev, shard[SP_WIDE], sps)
     torch.cuda.empty_cache()
 
     # path 4, the tiled full stencil as kernel_fn
@@ -3589,6 +4134,11 @@ def main(argv=None):
         fail("path 5 did not run in K2's step loop")
     loop_line("zero+group", loops, wall)
     sps["100k langevin zero+group"] = MEASURE / wall
+    # the same Langevin fix on the slab-resident state: the split pass's
+    # sums (langevin_sums) run there
+    rec_sums, launches_z = zero_slab_window(sim5, start, dev, groups)
+    recs += path_records(f"100k langevin zero+group sharded sp={SP_PATH}",
+                         dict(langevin_sums=rec_sums), launches_z)
     t_in, t_out = group_temperatures(fs, system)
     print(f"zero+group: T over the group's {N_CHAIN} beads {t_in:.4f}, over "
           f"the other {system.n - N_CHAIN} {t_out:.4f}", flush=True)
@@ -3693,6 +4243,53 @@ def main(argv=None):
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def multi_card():
+    """The multi-card paths alone, over every card of the host (slab s on
+    cuda:(s % the device count)), for a host of several cards:
+    ``python3 -c 'import chip_smoke, sys; sys.exit(chip_smoke.multi_card())'``.
+    The 100k config settled as ``main`` settles it, path 3's window
+    slab-resident at SP_PATH slabs and path 10 (SP_WIDE slabs, dp x sp),
+    each held bit for bit to the whole state or its run alone, and config
+    2's replicas over GEN_MESH devices bit for bit the one-card runner.
+    Returns 0, or raises on a failure; 2 without a card."""
+    import torch
+
+    from lammps_le_torch.csrc.build import build
+    from lammps_le_torch.integrate import run
+    from lammps_le_torch.state import init_state
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"{torch.cuda.device_count()} device(s): {cards}", flush=True)
+    build()
+    data, system = production_config(BEADS)
+    sim, settled = drive(system, data, dev, replica=None)
+    start = bench_replica(settled, 0)
+    sps = {}
+    slab_window(sim, start, dev, SP_PATH, 0, sps)
+    multi_card_path(sim, settled, start, dev, None, sps)
+    spec = GENERAL[2]
+    system, data, sim, warm, seed = general_config(2, spec)
+    state = init_state(system, data.x, types=data.types, seed=seed,
+                       device=dev)
+    state, _ = run(warm, state, spec["thermalize"])
+    state = seed_extruders(state, spec["n_ex"],
+                           max(4, system.n // spec["n_ex"]),
+                           system.max_extruders, reset_step=False)
+    state, _ = run(sim, state, spec["warm"])
+    general_replicas(sim, state, dev)
+    print(f"multi-card steps/s ({card_line()}): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in sps.items()), flush=True)
     return 0
 
 

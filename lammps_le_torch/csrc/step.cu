@@ -467,12 +467,15 @@ __device__ bool last_block(float* ticket_word) {
 // block reduces them in a fixed order into the means sum * inv_cnt,
 // inv_cnt = 1 / max(sum lgm, 1) with a group and 1/n without
 // (engine.py:1428-1434).  zpart: 4 partials a block, the 3 means, the
-// ticket word
+// ticket word.  With ``raw`` (one replica: a slab of the slab step) the
+// last block writes the four sums there unscaled instead: the slab step
+// adds every slab's in slab order before it scales them
 __global__ void __launch_bounds__(kSumThreads)
     langevin_sum_kernel(const int* __restrict__ bid,
                         const uint8_t* __restrict__ interior,
                         const float* __restrict__ lgm, float* zpart,
-                        LangevinArgs a0, const LaunchCtl* ctl) {
+                        LangevinArgs a0, const LaunchCtl* ctl,
+                        float* __restrict__ raw) {
   __shared__ float sh[32];
   if (step_off(ctl)) return;
   const LangevinArgs a = step_args(a0, ctl);
@@ -529,6 +532,11 @@ __global__ void __launch_bounds__(kSumThreads)
     m[3] += q.w;
   }
   for (int k = 0; k < 4; ++k) m[k] = block_sum(m[k], sh);
+  if (raw != nullptr) {
+    if (threadIdx.x == 0)
+      for (int k = 0; k < 4; ++k) raw[k] = m[k];
+    return;
+  }
   if (threadIdx.x == 0) {
     const float inv = a.group ? 1.f / fmaxf(m[3], 1.f) : a.inv_n;
     for (int k = 0; k < 3; ++k) zpart[4 * nb + k] = m[k] * inv;
@@ -543,12 +551,14 @@ __global__ void __launch_bounds__(kSumThreads)
 // stats rows after it and, in the step loop's graph (cond not 0), sets
 // the loop's condition: another step while !stopped && s + 1 < limit
 // (pallas_step.py:1002-1004).  The chain's step writes [flag bits,
-// trigger]
+// trigger], or with ``pout`` (a slab of the slab step) the three values
+// they are taken from, [M, the largest value below M, the largest
+// look-ahead], for the step to merge over its slabs
 __device__ void langevin_finish(const float* part, int nblocks,
                                 const LangevinArgs& a,
                                 long long* __restrict__ out, LaunchCtl* ctl,
                                 cudaGraphConditionalHandle cond, int s,
-                                float* sh) {
+                                float* sh, float* __restrict__ pout) {
   float m = 0.f, p = 0.f;
   for (int b = threadIdx.x; b < nblocks; b += blockDim.x) {
     m = fmaxf(m, __ldcg(part + 3 * b));
@@ -562,6 +572,14 @@ __device__ void langevin_finish(const float* part, int nblocks,
     m2 = fmaxf(m2, m1b != M ? m1b : __ldcg(part + 3 * b + 1));
   }
   m2 = block_max(m2, sh);
+  if (pout != nullptr) {
+    if (threadIdx.x == 0) {
+      pout[0] = M;
+      pout[1] = m2;
+      pout[2] = p;
+    }
+    return;
+  }
   if (threadIdx.x == 0) {
     const bool bad = sqrtf(M) + sqrtf(m2) > a.bad_cut;
     const int trig = p > a.trig_cut ? 1 : 0;
@@ -586,8 +604,9 @@ __device__ void langevin_finish(const float* part, int nblocks,
 
 // gf_out / gv_out may be gf / gv (each slot reads its own values first).
 // part: 3 partials a block (m1, m2, max look-ahead), the ticket word;
-// mean: zero's means (zero's pass's buffer, its replicas mstride apart).
-// Replica blockIdx.y: its planes, partials, ticket word, means and out
+// mean: zero's means (zero's pass's buffer, its replicas mstride apart);
+// pout: langevin_finish's.  Replica blockIdx.y: its planes, partials,
+// ticket word, means and out
 __global__ void __launch_bounds__(kLanThreads)
     langevin_kernel(const float* __restrict__ gx,
                     const float* __restrict__ gxr, const float* gv,
@@ -597,7 +616,8 @@ __global__ void __launch_bounds__(kLanThreads)
                     const float* __restrict__ mean, long mstride,
                     float* gf_out, float* gv_out, float* part,
                     long long* __restrict__ out, LangevinArgs a0,
-                    LaunchCtl* ctl, cudaGraphConditionalHandle cond) {
+                    LaunchCtl* ctl, cudaGraphConditionalHandle cond,
+                    float* __restrict__ pout) {
   __shared__ float sh[32];
   const int s = step_of(ctl);
   if (step_off(ctl)) {
@@ -666,7 +686,12 @@ __global__ void __launch_bounds__(kLanThreads)
     part[3 * blockIdx.x + 2] = pm;
   }
   if (last_block(part + 3 * gridDim.x))
-    langevin_finish(part, gridDim.x, a, out, ctl, cond, s, sh);
+    langevin_finish(part, gridDim.x, a, out, ctl, cond, s, sh, pout);
+}
+
+// zero's pass's blocks over capP slots
+int zero_blocks(int capP) {
+  return (capP + kSumThreads * kSumSlots - 1) / (kSumThreads * kSumSlots);
 }
 
 // the launches of each kernel pair over R replicas; ctl null: the
@@ -696,18 +721,40 @@ void langevin_launch(const float* gx, const float* gxr, const float* gv,
   const float* mean = nullptr;
   long mstride = 0;
   if (a.langevin && a.zero) {
-    const int nz = (capP + kSumThreads * kSumSlots - 1) /
-                   (kSumThreads * kSumSlots);
-    langevin_sum_kernel<<<dim3(nz, R), kSumThreads, 0, s>>>(bid, interior,
-                                                            lgm, zpart, a,
-                                                            ctl);
+    const int nz = zero_blocks(capP);
+    langevin_sum_kernel<<<dim3(nz, R), kSumThreads, 0, s>>>(
+        bid, interior, lgm, zpart, a, ctl, nullptr);
     mean = zpart + 4 * nz;
     mstride = 4L * nz + 4;
   }
   langevin_kernel<<<dim3((capP + kLanThreads - 1) / kLanThreads, R),
                     kLanThreads, 0, s>>>(gx, gxr, gv, gf, bid, interior, lgm,
                                          mean, mstride, gf_out, gv_out, part,
-                                         out, a, ctl, cond);
+                                         out, a, ctl, cond, nullptr);
+}
+
+// the chain's Langevin pass split at zero's means, for one slab of the
+// slab step (one replica, no control block): the first pass's four sums
+// unscaled (zero only), and the main pass given the means (zero; null
+// without) writing the monitor's three values to pout
+void langevin_sums_launch(const int* bid, const uint8_t* interior,
+                          const float* lgm, float* zpart, float* sums,
+                          LangevinArgs a, cudaStream_t s) {
+  langevin_sum_kernel<<<zero_blocks(a.cap * a.P), kSumThreads, 0, s>>>(
+      bid, interior, lgm, zpart, a, nullptr, sums);
+}
+
+void langevin_parts_launch(const float* gx, const float* gxr,
+                           const float* gv, const float* gf, const int* bid,
+                           const uint8_t* interior, const float* lgm,
+                           const float* mean, float* gf_out, float* gv_out,
+                           float* part, float* pout, LangevinArgs a,
+                           cudaStream_t s) {
+  a.zero = mean != nullptr;
+  const int capP = a.cap * a.P;
+  langevin_kernel<<<(capP + kLanThreads - 1) / kLanThreads, kLanThreads, 0,
+                    s>>>(gx, gxr, gv, gf, bid, interior, lgm, mean, 0,
+                         gf_out, gv_out, part, nullptr, a, nullptr, 0, pout);
 }
 
 // one controlled step, in place on the static planes, in the chain's
@@ -860,6 +907,32 @@ int lle_langevin_kick_monitor(const float* gx, const float* gxr,
                               LangevinArgs a, int R, void* stream) {
   langevin_launch(gx, gxr, gv, gf, bid, interior, lgm, gf_out, gv_out, part,
                   zpart, out, a, R, nullptr, 0, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+// the Langevin pass of one slab (R = 1), split at zero's means.  sums:
+// the slab's 4 unscaled sums [noise * w x, y, z, group plane]; zpart as
+// lle_langevin_kick_monitor's (its ticket word 0 at the first launch,
+// left 0)
+int lle_langevin_sums(const int* bid, const uint8_t* interior,
+                      const float* lgm, float* zpart, float* sums,
+                      LangevinArgs a, void* stream) {
+  langevin_sums_launch(bid, interior, lgm, zpart, sums, a,
+                       (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+// the main pass given zero's 3 means (null: no zero), the monitor's
+// values [largest dsq, largest dsq below it, largest look-ahead] in
+// parts; part as lle_langevin_kick_monitor's
+int lle_langevin_kick_parts(const float* gx, const float* gxr,
+                            const float* gv, const float* gf, const int* bid,
+                            const uint8_t* interior, const float* lgm,
+                            const float* means, float* gf_out, float* gv_out,
+                            float* part, float* parts, LangevinArgs a,
+                            void* stream) {
+  langevin_parts_launch(gx, gxr, gv, gf, bid, interior, lgm, means, gf_out,
+                        gv_out, part, parts, a, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

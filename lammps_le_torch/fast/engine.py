@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -475,51 +475,42 @@ def rebuild_schedule(sim, reactive: bool = True, hot_window: int = None):
     return due
 
 
-def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
-                      reactive: bool = True, hot_window: int = None,
-                      kernel_fn=None, *, device="cuda"):
-    """Build ``(segment, step_core)`` (engine.make_fast_segment,
-    engine.py:1102-1746): ``segment(fs, step0, length, run_begin, run_end)
-    -> fs`` advances ``length`` steps in place, ``step_core(fs, sstep,
-    run_begin, run_end) -> fs`` one step.
+@dataclasses.dataclass(frozen=True)
+class ChainParts:
+    """The parts a step of the chain is made of (``chain_parts``): its
+    stencil context and constants, the run's cadences and its boundary
+    work, shared by make_fast_segment's steps and the step over the same
+    state held in slabs (parallel/slab_step.py), whose boundary work runs
+    on a FastState gathered from the slabs."""
+    ctx: _Ctx
+    kick: float
+    dt: float
+    energy_every: int           # the energy cadence (thermo's gcd)
+    K_every: int                # the rebuild backstop
+    event_phases: list          # (nevery, phase) of each LE event fix
+    bad_cut: float              # the skin monitor's cuts (skin_cuts)
+    trig_cut: float
+    langevin: Optional[Langevin]
+    zero: bool                  # fix langevin ... zero yes
+    placement: Callable         # (fs, gx, gv, gf) -> a new grid
+    commit: Callable            # (fs, placement) -> None
+    rebuild: Callable           # (fs) -> None
+    is_event: Callable          # (sstep) -> bool
+    rebuild_due: Callable       # (fs, sstep) -> bool
+    apply_events: Callable      # (fs, sstep) -> None
+    tally: Callable             # (fs, energies, ints, energy) -> None
+    langevin_args: Callable     # (fs, sstep, run_begin, run_end)
+    ramp: Callable              # (sstep, run_begin, run_end)
+    lan_words: Optional[Callable]  # run key words -> noise key words
 
-    ``pallas`` (``_pallas_step_mode``): None = auto, False = the chain,
-    "real" / "interpret" = K2's step loop on the card / in plain PyTorch.
-    The chain runs the step of the reference's XLA chain
-    (engine.py:1348-1455), one host-driven step at a time.  Reactive, it
-    rebuilds before the drift where the cadence, an LE event or the skin
-    trigger armed by the previous step asks, and reads that trigger once
-    a step.  With ``reactive=False`` the schedule is static
-    (engine.py:1175-1200): the cadence, each LE event phase, and each
-    extrusion fix's hot window ``((sstep - phase) % nevery) < w`` (``w`` =
-    ``hot_window``, default min(150, max(nevery // 4, 1))), served after
-    the drift and the events; no trigger is armed or read, so a step
-    reads nothing from the card, and the segment takes a replica-batched
-    FastState (``stack_fast``) as the reference's ``jax.vmap`` of it does.
 
-    The step loop's reactive ``segment`` batches up to LAUNCH_MAX steps a
-    launch (engine.py:1692-1739), stopping at the next cadence step (LE
-    event phases, the rebuild backstop, energy steps) or where the
-    in-launch trigger fires; the host reads one stats block a launch and
-    counts ``fs.n_launches``.  Non-reactive, it runs one-step launches
-    (engine.py:1740-1746) with the static schedule served before each
-    launch's drift, as the reference's ``launch_pallas`` serves it.  The
-    step loop and the reactive chain take one run's state: a
-    replica-batched one raises ValueError.  ``kernel_fn``: a caller's
-    stencil with select_kernel's contract for the chain (engine.py:1130-
-    1132; one run's planes), else select_kernel's; the step loop carries
-    its own stencil and ignores it (engine.py:1458).  ``thermo_every``
-    raises the energy cadence to its gcd with the thermo cadence
-    (engine.py:1127-1129).  A Langevin group is the FastState's ``lgm``
-    plane (to_fast's ``groups``); ``zero`` subtracts the random force's
-    mean over the group each step (engine.py:1422-1435).  ``device``: the
-    run's, the card by default (it raises without one)."""
-    if isinstance(thermo_every, bool) or not isinstance(
-            thermo_every, (int, np.integer)):
-        raise TypeError(f"thermo_every={thermo_every!r} is a step count "
-                        f"(the device is keyword-only)")
-    mode = _pallas_step_mode(sim.system, pallas, device)
-    ctx = _ctx(sim, device, None if mode else kernel_fn)
+def chain_parts(sim, thermo_every: int = 0, reactive: bool = True,
+                hot_window: int = None, kernel_fn=None, *,
+                device) -> ChainParts:
+    """The chain's parts for ``make_fast_segment``'s arguments of the same
+    names, on ``device``: ``kernel_fn`` the stencil (select_kernel's when
+    None)."""
+    ctx = _ctx(sim, device, kernel_fn)
     system, maps, g = ctx.system, ctx.maps, ctx.g
     n = system.n
     cap, P = maps.cap, maps.P
@@ -669,6 +660,89 @@ def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
             fs.last_event = last
             retable(fs, l, r)
 
+    def tally(fs, en, ints, energy: bool):
+        """The stencil's flag bits and clamps, and on energy steps its
+        energies, into the state."""
+        fs.flags = fs.flags | ints[..., 0]
+        fs.n_clamps = fs.n_clamps + ints[..., 1]
+        if energy:
+            fs.epair, fs.ebond = en[..., 0], en[..., 1]
+            fs.flags = fs.flags | (~torch.all(torch.isfinite(en), dim=-1)).to(
+                torch.int64) * FLAG_NON_FINITE
+
+    def langevin_args(fs, sstep: int, run_begin: int, run_end: int):
+        """(key words, gamma1, gamma2) of the step's Langevin pass: the
+        noise key (an (R, 2) tensor for R replicas), the friction and the
+        noise scale at the ramp's target (engine.py:1393-1420)."""
+        gamma1 = gamma2 = 0.0
+        lan_key = lan_keys(fs.key_words) if fs.replicas else (0, 0)
+        if lf is not None:
+            gamma1 = -mass / lf.damp / units.ftm2v
+            if not fs.replicas:
+                lan_key = lan_words(fs.key_words)
+            t_target, _ = ramp(sstep, run_begin, run_end)
+            gamma2 = float(np_dtype(g2base) * np.sqrt(t_target))
+        return lan_key, gamma1, gamma2
+
+    return ChainParts(
+        ctx=ctx, kick=kick, dt=dt, energy_every=energy_every,
+        K_every=K_every, event_phases=event_phases, bad_cut=bad_cut,
+        trig_cut=trig_cut, langevin=lf, zero=lan_zero, placement=placement,
+        commit=commit, rebuild=rebuild, is_event=is_event,
+        rebuild_due=rebuild_due, apply_events=apply_events, tally=tally,
+        langevin_args=langevin_args, ramp=ramp,
+        lan_words=lan_words if lf is not None else None)
+
+
+def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
+                      reactive: bool = True, hot_window: int = None,
+                      kernel_fn=None, *, device="cuda"):
+    """Build ``(segment, step_core)`` (engine.make_fast_segment,
+    engine.py:1102-1746): ``segment(fs, step0, length, run_begin, run_end)
+    -> fs`` advances ``length`` steps in place, ``step_core(fs, sstep,
+    run_begin, run_end) -> fs`` one step.
+
+    ``pallas`` (``_pallas_step_mode``): None = auto, False = the chain,
+    "real" / "interpret" = K2's step loop on the card / in plain PyTorch.
+    The chain runs the step of the reference's XLA chain
+    (engine.py:1348-1455), one host-driven step at a time.  Reactive, it
+    rebuilds before the drift where the cadence, an LE event or the skin
+    trigger armed by the previous step asks, and reads that trigger once
+    a step.  With ``reactive=False`` the schedule is static
+    (engine.py:1175-1200): the cadence, each LE event phase, and each
+    extrusion fix's hot window ``((sstep - phase) % nevery) < w`` (``w`` =
+    ``hot_window``, default min(150, max(nevery // 4, 1))), served after
+    the drift and the events; no trigger is armed or read, so a step
+    reads nothing from the card, and the segment takes a replica-batched
+    FastState (``stack_fast``) as the reference's ``jax.vmap`` of it does.
+
+    The step loop's reactive ``segment`` batches up to LAUNCH_MAX steps a
+    launch (engine.py:1692-1739), stopping at the next cadence step (LE
+    event phases, the rebuild backstop, energy steps) or where the
+    in-launch trigger fires; the host reads one stats block a launch and
+    counts ``fs.n_launches``.  Non-reactive, it runs one-step launches
+    (engine.py:1740-1746) with the static schedule served before each
+    launch's drift, as the reference's ``launch_pallas`` serves it.  The
+    step loop and the reactive chain take one run's state: a
+    replica-batched one raises ValueError.  ``kernel_fn``: a caller's
+    stencil with select_kernel's contract for the chain (engine.py:1130-
+    1132; one run's planes), else select_kernel's; the step loop carries
+    its own stencil and ignores it (engine.py:1458).  ``thermo_every``
+    raises the energy cadence to its gcd with the thermo cadence
+    (engine.py:1127-1129).  A Langevin group is the FastState's ``lgm``
+    plane (to_fast's ``groups``); ``zero`` subtracts the random force's
+    mean over the group each step (engine.py:1422-1435).  ``device``: the
+    run's, the card by default (it raises without one)."""
+    if isinstance(thermo_every, bool) or not isinstance(
+            thermo_every, (int, np.integer)):
+        raise TypeError(f"thermo_every={thermo_every!r} is a step count "
+                        f"(the device is keyword-only)")
+    mode = _pallas_step_mode(sim.system, pallas, device)
+    c = chain_parts(sim, thermo_every, reactive, hot_window,
+                    None if mode else kernel_fn, device=device)
+    ctx, kick, dt, lf = c.ctx, c.kick, c.dt, c.langevin
+    system, maps, g, n = ctx.system, ctx.maps, ctx.g, ctx.system.n
+
     def one_run(fs: FastState, what: str):
         if fs.replicas:
             raise ValueError(f"{what} takes one run's FastState, not "
@@ -679,44 +753,32 @@ def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
         if reactive or kernel_fn is not None:
             one_run(fs, "the reactive chain" if reactive
                     else "a caller's stencil (kernel_fn)")
-        event = is_event(sstep)
-        if reactive and rebuild_due(fs, sstep):
+        event = c.is_event(sstep)
+        if reactive and c.rebuild_due(fs, sstep):
             # served BEFORE the drift (engine.py:1349-1360)
-            rebuild(fs)
+            c.rebuild(fs)
         fs.gx, fs.gv = K.kick_drift_halo(
             fs.gx, fs.gv, fs.gf, fs.bid, g.interior, g.halo_cols,
             g.halo_src, g.halo_shift, n, kick, dt)
         fs.step = sstep
         if event:
-            apply_events(fs, sstep)
+            c.apply_events(fs, sstep)
         # reactive: the post-event rebuild; static: every due step, after
         # the drift and the events (engine.py:1374-1382)
-        if event if reactive else rebuild_due(fs, sstep):
-            rebuild(fs)
+        if event if reactive else c.rebuild_due(fs, sstep):
+            c.rebuild(fs)
 
-        energy = sstep % energy_every == 0
+        energy = sstep % c.energy_every == 0
         gf, en, ints = _forces(ctx, fs.gx, fs.bid, fs.hn, fs.pid,
                                fs.exl_slot, fs.exr_slot, fs.ex_left >= 0,
                                energy)
-        fs.flags = fs.flags | ints[..., 0]
-        fs.n_clamps = fs.n_clamps + ints[..., 1]
-        if energy:
-            fs.epair, fs.ebond = en[..., 0], en[..., 1]
-            fs.flags = fs.flags | (~torch.all(torch.isfinite(en), dim=-1)).to(
-                torch.int64) * FLAG_NON_FINITE
-
-        gamma1 = gamma2 = 0.0
-        lan_key = lan_keys(fs.key_words) if fs.replicas else (0, 0)
-        if lf is not None:
-            gamma1 = -mass / lf.damp / units.ftm2v
-            if not fs.replicas:
-                lan_key = lan_words(fs.key_words)
-            t_target, _ = ramp(sstep, run_begin, run_end)
-            gamma2 = float(np_dtype(g2base) * np.sqrt(t_target))
+        c.tally(fs, en, ints, energy)
+        lan_key, gamma1, gamma2 = c.langevin_args(fs, sstep, run_begin,
+                                                  run_end)
         fs.gf, fs.gv, mon = K.langevin_kick_monitor(
             fs.gx, fs.gx_ref, fs.gv, gf, fs.bid, g.interior, lan_key, sstep,
-            gamma1, gamma2, kick, dt, bad_cut,
-            trig_cut, n, lf is not None, fs.lgm, lan_zero)
+            gamma1, gamma2, kick, dt, c.bad_cut,
+            c.trig_cut, n, lf is not None, fs.lgm, c.zero)
         fs.flags = fs.flags | mon[..., 0]
         if reactive:
             # the one host read of the step: the armed trigger
@@ -753,31 +815,31 @@ def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
         commits it (``placed``) only where its rebuild is due, so the run
         is the chain's.  Returns (d, that placement or None)."""
         one_run(fs, "K2's step loop")
-        event = is_event(sstep)
-        if rebuild_due(fs, sstep):
+        event = c.is_event(sstep)
+        if c.rebuild_due(fs, sstep):
             if placed is None:
-                rebuild(fs)
+                c.rebuild(fs)
             else:
-                commit(fs, placed)
+                c.commit(fs, placed)
         fs.step = sstep
         if event:
             fs.gx, fs.gv = drift(fs.gx, fs.gv, fs.gf, fs.bid, g.interior,
                                  g.halo_cols, g.halo_src, g.halo_shift, n,
                                  kick, dt)
-            apply_events(fs, sstep)
-            rebuild(fs)
-        energy = sstep % energy_every == 0
+            c.apply_events(fs, sstep)
+            c.rebuild(fs)
+        energy = sstep % c.energy_every == 0
         key_words, t_target, t_slope = (0, 0), 1.0, 0.0
         if lf is not None:
-            key_words = lan_words(fs.key_words)
-            t_target, t_slope = ramp(sstep, run_begin, run_end)
+            key_words = c.lan_words(fs.key_words)
+            t_target, t_slope = c.ramp(sstep, run_begin, run_end)
         nxt = []
         fs.gx, fs.gv, fs.gf, stats = core(
             fs.gx, fs.gv, fs.gf, fs.gx_ref, fs.bid, fs.hn, fs.pid,
             fs.exl_slot, fs.exr_slot, fs.ex_left >= 0, fs.lgm, sstep,
             not event, key_words, float(t_target), float(t_slope),
             1 if energy else limit, energy,
-            (lambda *planes: nxt.append(placement(fs, *planes)))
+            (lambda *planes: nxt.append(c.placement(fs, *planes)))
             if ahead else None)
         st = stats.tolist()
         d = int(st[7])
@@ -818,7 +880,7 @@ def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
         return segment, step_pallas
 
     # the next step of each cadence bounds a launch (engine.py:1706-1711)
-    cadences = event_phases + [(K_every, 0), (energy_every, 0)]
+    cadences = c.event_phases + [(c.K_every, 0), (c.energy_every, 0)]
 
     def segment(fs: FastState, step0: int, length: int, run_begin: int,
                 run_end: int):

@@ -5,9 +5,10 @@ Each wrapper takes the tensors of the plain version in ``kernels_ref.py``
 and returns the same results.  On CPU tensors it runs the plain version;
 on CUDA tensors it checks device, dtype, shape and contiguity, allocates
 its outputs with ``torch.empty`` (the Langevin kernel's small zeroed
-scratch is kept per stream), launches the kernel on PyTorch's current
-stream (building the library with nvcc at first use) and raises if the
-launch is refused — there is no fallback.  ``LAUNCHES`` counts, per
+scratch is kept per stream), launches the kernel on its first tensor's
+device, on PyTorch's current stream there (building the library with
+nvcc at first use; a host with several cards runs slabs and replicas on
+each), and raises if the launch is refused — there is no fallback.  ``LAUNCHES`` counts, per
 wrapper, the calls that launched the kernel.
 
 =====================  ==================================================
@@ -15,6 +16,8 @@ kick_drift_halo        pallas_step.py:731-751 (K2a)
 stencil_forces         pallas_step.py:249-510, 753-774 (K1 / K2b)
 extruder_springs       pallas_step.py:776-930 (K2c)
 langevin_kick_monitor  pallas_step.py:932-1000 (K2d + K2e)
+langevin_sums          the same, split at zero's means: the sums pass
+langevin_kick_parts    and the main pass, for one slab of the slab step
 StepLoop               pallas_step.py:554, 725-1022 (K2's step loop)
 newton_half_forces     blocked_kernel.py:90 (K3), body K1
 window_forces          parallel/shard_step.py:55 (K4), body K1
@@ -29,6 +32,14 @@ bits) and return their outputs with that axis ((R, 2) energies and ints),
 in one launch of each kernel for all R (each counted once): replica r is
 bitwise the call on its own tensors.  The unbatched call is the same
 launch at R = 1.  The other kernels take one run.
+
+``langevin_sums`` and ``langevin_kick_parts`` are ``langevin_kick_monitor``
+split where ``zero`` needs the whole group's sums (the slab step,
+``parallel/slab_step.py``, launches them per slab): the first returns a
+slab's four unscaled sums, the second takes the means the step makes of
+every slab's and returns, in place of the flag bits and trigger, the
+three values they are taken from, which the step merges over its slabs
+(``slab_step.merge_monitor``).
 
 ``StepLoop`` launches the step kernels' launch-controlled forms over up to
 LAUNCH_MAX steps as one launch of a CUDA graph whose WHILE conditional
@@ -52,6 +63,7 @@ divides exactly, as its reference (pallas_kernel.py) does.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import weakref
 
@@ -63,7 +75,8 @@ from . import kernels_ref as ref
 LAUNCHES = {"kick_drift_halo": 0, "stencil_forces": 0,
             "extruder_springs": 0, "langevin_kick_monitor": 0,
             "step_loop": 0, "newton_half_forces": 0, "window_forces": 0,
-            "tiled_stencil_forces": 0}
+            "tiled_stencil_forces": 0, "langevin_sums": 0,
+            "langevin_kick_parts": 0}
 
 APPROX_RCP = os.environ.get("LLE_APPROX_RCP", "1") == "1"
 
@@ -140,12 +153,15 @@ def bind(paths):
     lib.lle_extruder_springs.argtypes = [_P] * 6 + [SpringArgs, _I, _P]
     lib.lle_langevin_kick_monitor.argtypes = (
         [_P] * 12 + [LangevinArgs, _I, _P])
+    lib.lle_langevin_sums.argtypes = [_P] * 5 + [LangevinArgs, _P]
+    lib.lle_langevin_kick_parts.argtypes = [_P] * 12 + [LangevinArgs, _P]
     _U = ctypes.c_uint32
     lib.lle_launch_begin.argtypes = [_P, _U, _U, _U, _I, _I, _F, _F, _P]
     lib.lle_step_ctl.argtypes = [StepPlanes, StencilArgs, SpringArgs,
                                  LangevinArgs, _P]
     for fn in ("lle_kick_drift_halo", "lle_stencil_forces",
                "lle_extruder_springs", "lle_langevin_kick_monitor",
+               "lle_langevin_sums", "lle_langevin_kick_parts",
                "lle_launch_begin", "lle_step_ctl", "lle_ctl_words",
                "lle_ctl_stats"):
         getattr(lib, fn).restype = _I
@@ -191,6 +207,19 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
+def _on_device(fn):
+    """A wrapper run with its first tensor's device current (PyTorch's
+    device guard): the launch and ``_stream()`` are that device's."""
+    @functools.wraps(fn)
+    def call(t, *args, **kw):
+        if t.device.type != "cuda":
+            return fn(t, *args, **kw)
+        with torch.cuda.device(t.device):
+            return fn(t, *args, **kw)
+
+    return call
+
+
 def _check(name, t, dtype, shape=None):
     if t.device.type != "cuda" or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"{name}: want a contiguous {dtype} CUDA tensor, "
@@ -233,6 +262,7 @@ def _reps(lead):
     return lead[0] if lead else 1
 
 
+@_on_device
 def kick_drift_halo(gx, gv, gf, bid, interior, halo_cols, halo_src,
                     halo_shift, n: int, kick: float, dt: float):
     """Half kick + drift of valid slots, then the halo columns refreshed
@@ -297,6 +327,7 @@ def _check_cap(name, cap, max_cap):
                          f"the kernel is built for")
 
 
+@_on_device
 def stencil_forces(gx, bid, hn, pid, interior, C, n: int, strides,
                    energy: bool):
     """27-offset LJ + FENE + exclusion forces.  Returns (gf, energies (2,)
@@ -319,6 +350,7 @@ def stencil_forces(gx, bid, hn, pid, interior, C, n: int, strides,
     return gf, en, ints
 
 
+@_on_device
 def newton_half_forces(gx, bid, hn, pid, interior, faces, C, n: int,
                        strides, fold_shifts, energy: bool):
     """Newton-half LJ + FENE + exclusion forces with the ghost fold (the
@@ -349,6 +381,7 @@ def newton_half_forces(gx, bid, hn, pid, interior, faces, C, n: int,
     return gf, en, ints
 
 
+@_on_device
 def window_forces(xw, bidw, hnw, pidw, ownint, C, n: int, period: int,
                   strides, energy: bool):
     """The Newton-half offset loop over S margin-extended slab windows of
@@ -382,6 +415,7 @@ def window_forces(xw, bidw, hnw, pidw, ownint, C, n: int, period: int,
     return f, stats
 
 
+@_on_device
 def tiled_stencil_forces(gx, bid, hn, pid, interior, C, n: int, strides,
                          energy: bool):
     """The tiled full 27-offset stencil in K5's formulas
@@ -411,6 +445,7 @@ def _spring_args(S, E, cap, P):
         int(S.harmonic), E, cap, P)
 
 
+@_on_device
 def extruder_springs(gx, gf, exl_slot, exr_slot, active, S):
     """Extruder spring forces added to ``gf`` in place.  Returns the
     per-spring energies (E,)."""
@@ -462,6 +497,7 @@ def _langevin_scratch(dev, nblk, R=1):
     return _LAN_SCRATCH[key]
 
 
+@_on_device
 def langevin_kick_monitor(gx, gx_ref, gv, gf, bid, interior, key_words,
                           sstep: int, gamma1: float, gamma2: float,
                           kick: float, dt: float, bad_cut: float,
@@ -511,6 +547,82 @@ def langevin_kick_monitor(gx, gx_ref, gv, gf, bid, interior, key_words,
     _raise("langevin_kick_monitor", err)
     LAUNCHES["langevin_kick_monitor"] += 1
     return gf_out, gv_out, ints
+
+
+def _slab_langevin(gx, bid, interior, lgm):
+    """Checks of a split pass's one-run planes; (cap, P, group flag)."""
+    _, cap, P = _planes(gx, bid)
+    _check("interior", interior, torch.bool, (P,))
+    if lgm is not None:
+        _check("lgm", lgm, torch.float32, (cap, P))
+    return cap, P, int(lgm is not None)
+
+
+def _lan_args(key_words, sstep, gamma1, gamma2, kick, dt, cap, P, n,
+              langevin, group, zero):
+    k0, k1 = key_words
+    return LangevinArgs(int(k0), int(k1), (int(sstep) * 4) & 0xFFFFFFFF,
+                        gamma1, gamma2, kick, dt, 0.0, 0.0, int(langevin),
+                        cap, P, n, group, int(zero), 1.0 / n)
+
+
+@_on_device
+def langevin_sums(gx, bid, interior, lgm, key_words, sstep: int, n: int):
+    """``zero``'s first pass on one slab's planes (``gx`` for its shape
+    and device): (4,) f32 = [the sums of noise * w over the slab's slots
+    for x, y and z, the sum of the group plane ``lgm`` (0 without one)],
+    unscaled (kernels_ref.langevin_sums).  One launch."""
+    if _on_cpu(gx):
+        return ref.langevin_sums(gx, bid, interior, lgm, key_words, sstep, n)
+    cap, P, group = _slab_langevin(gx, bid, interior, lgm)
+    lib = _lib()
+    _, zpart = _langevin_scratch(gx.device, lib.lle_blocks(cap * P))
+    sums = torch.empty(4, dtype=torch.float32, device=gx.device)
+    a = _lan_args(key_words, sstep, 0.0, 0.0, 0.0, 0.0, cap, P, n, True,
+                  group, True)
+    err = lib.lle_langevin_sums(
+        _ptr(bid), _ptr(interior), None if lgm is None else _ptr(lgm),
+        _ptr(zpart), _ptr(sums), a, _stream())
+    _raise("langevin_sums", err)
+    LAUNCHES["langevin_sums"] += 1
+    return sums
+
+
+@_on_device
+def langevin_kick_parts(gx, gx_ref, gv, gf, bid, interior, key_words,
+                        sstep: int, gamma1: float, gamma2: float,
+                        kick: float, dt: float, n: int, langevin: bool,
+                        lgm=None, means=None):
+    """``langevin_kick_monitor`` on one slab's planes with zero's group
+    means given (``means`` (3,) f32, every slab's sums scaled; None: no
+    zero): returns (gf, gv, parts (3,) f32 = [the largest squared
+    displacement since the rebuild, the largest below it, the largest
+    look-ahead]) for the step to merge over its slabs
+    (slab_step.merge_monitor).  One launch."""
+    if _on_cpu(gx):
+        return ref.langevin_kick_parts(
+            gx, gx_ref, gv, gf, bid, interior, key_words, sstep, gamma1,
+            gamma2, kick, dt, n, langevin, lgm, means)
+    cap, P, group = _slab_langevin(gx, bid, interior, lgm)
+    for name, t in (("gx_ref", gx_ref), ("gv", gv), ("gf", gf)):
+        _check(name, t, torch.float32, gx.shape)
+    if means is not None:
+        _check("means", means, torch.float32, (3,))
+    lib = _lib()
+    part, _ = _langevin_scratch(gx.device, lib.lle_blocks(cap * P))
+    gf_out = torch.empty_like(gf)
+    gv_out = torch.empty_like(gv)
+    parts = torch.empty(3, dtype=torch.float32, device=gx.device)
+    a = _lan_args(key_words, sstep, gamma1, gamma2, kick, dt, cap, P, n,
+                  langevin, group, means is not None)
+    err = lib.lle_langevin_kick_parts(
+        _ptr(gx), _ptr(gx_ref), _ptr(gv), _ptr(gf), _ptr(bid),
+        _ptr(interior), None if lgm is None else _ptr(lgm),
+        None if means is None else _ptr(means), _ptr(gf_out), _ptr(gv_out),
+        _ptr(part), _ptr(parts), a, _stream())
+    _raise("langevin_kick_parts", err)
+    LAUNCHES["langevin_kick_parts"] += 1
+    return gf_out, gv_out, parts
 
 
 class StepLoop:

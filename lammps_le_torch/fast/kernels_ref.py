@@ -474,16 +474,52 @@ def langevin_kick_monitor(gx, gx_ref, gv, gf, bid, interior, key_words,
             None if lgm is None else lgm[r], zero)
             for r, (k0, k1) in enumerate(key_words.tolist())]
         return tuple(torch.stack(o) for o in zip(*outs))
+    means = None
+    if langevin and zero:
+        sums = langevin_sums(gx, bid, interior, lgm, key_words, sstep, n)
+        inv_cnt = (1.0 / n if lgm is None
+                   else 1.0 / torch.clamp(sums[3], min=1.0))
+        means = sums[:3] * inv_cnt
+    gf, gv, (m1, m2, pred) = langevin_kick_parts(
+        gx, gx_ref, gv, gf, bid, interior, key_words, sstep, gamma1, gamma2,
+        kick, dt, n, langevin, lgm, means)
+    bad = torch.sqrt(m1) + torch.sqrt(m2) > bad_cut
+    trig = pred > trig_cut
+    ints = torch.stack([bad.to(torch.int64) * FLAG_SKIN_VIOLATION,
+                        trig.to(torch.int64)])
+    return gf, gv, ints
+
+
+def langevin_sums(gx, bid, interior, lgm, key_words, sstep: int, n: int):
+    """``langevin_kick_monitor``'s zero sums on the planes (the whole
+    plane's, or one slab's): (4,) = [the sums of noise * w for x, y and
+    z, the sum of ``lgm`` (0 without a group)], unscaled (the slab step
+    adds every slab's before it scales them)."""
+    valid = valid_mask(bid, interior, n).to(gx.dtype)[None]
+    noise = langevin_noise(key_words, bid, sstep, gx.dtype)
+    w_lan = valid if lgm is None else valid * lgm[None]
+    cnt = (torch.zeros((1,), dtype=gx.dtype, device=gx.device)
+           if lgm is None else torch.sum(lgm)[None])
+    return torch.cat([torch.sum(noise * w_lan, dim=(1, 2)), cnt])
+
+
+def langevin_kick_parts(gx, gx_ref, gv, gf, bid, interior, key_words,
+                        sstep: int, gamma1: float, gamma2: float,
+                        kick: float, dt: float, n: int, langevin: bool,
+                        lgm=None, means=None):
+    """``langevin_kick_monitor`` given zero's group ``means`` (3,) (None:
+    no zero), on the whole plane or one slab: returns (gf, gv, parts (3,)
+    = [the largest squared displacement since the rebuild, the largest
+    value below it, the largest look-ahead]), the values the flag bits
+    and trigger are taken from (over slabs by
+    ``parallel.slab_step.merge_monitor``)."""
     valid = valid_mask(bid, interior, n)
     vf = valid.to(gx.dtype)[None]
     if langevin:
         noise = langevin_noise(key_words, bid, sstep, gx.dtype)
         w_lan = vf if lgm is None else vf * lgm[None]
-        if zero:
-            inv_cnt = (1.0 / n if lgm is None
-                       else 1.0 / torch.clamp(torch.sum(lgm), min=1.0))
-            noise = noise - torch.sum(noise * w_lan, dim=(1, 2),
-                                      keepdim=True) * inv_cnt
+        if means is not None:
+            noise = noise - means[:, None, None]
         gf = gf + (gamma1 * gv + gamma2 * noise) * w_lan
     gv = gv + kick * gf * vf
     d = gx - gx_ref
@@ -491,15 +527,11 @@ def langevin_kick_monitor(gx, gx_ref, gv, gf, bid, interior, key_words,
     dsq = torch.where(valid, d[0] * d[0] + d[1] * d[1] + d[2] * d[2], nil)
     m1 = torch.max(dsq)
     m2 = torch.max(torch.where(dsq == m1, nil, dsq))
-    bad = torch.sqrt(m1) + torch.sqrt(m2) > bad_cut
     vn = gv + kick * gf
     vsq = torch.where(valid, vn[0] * vn[0] + vn[1] * vn[1] + vn[2] * vn[2],
                       nil)
     pred = torch.max(torch.sqrt(dsq) + dt * torch.sqrt(vsq))
-    trig = pred > trig_cut
-    ints = torch.stack([bad.to(torch.int64) * FLAG_SKIN_VIOLATION,
-                        trig.to(torch.int64)])
-    return gf, gv, ints
+    return gf, gv, torch.stack([m1, m2, pred])
 
 
 def step_loop(L, gx, gv, gf, gx_ref, bid, hn, pid, exl_slot, exr_slot,

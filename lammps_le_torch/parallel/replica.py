@@ -4,8 +4,14 @@ tensors stacked on a leading replica axis, each replica with its own key
 (the reference's multi-partition runs, universe.cpp ``-partition``).
 
 On one card the runner steps the replicas in turn, each exactly as a
-one-run ``make_step`` run with its key.  The mesh form (replicas laid out
-across cards) is ROADMAP Queue 1 item 6, the multi-card paths.
+one-run ``make_step`` run with its key.  Over a mesh (a sequence of
+``torch.device``, the reference's ``dp`` axis) the replicas lie in
+contiguous blocks, block i on ``mesh[i]`` (``sharded_replica_state``, as
+``P("dp")`` splits them), each block stepped by its own device's
+``make_step``; step i is issued on every device before step i + 1, so
+that the cards overlap, and no step reads the card.  Replicas never
+communicate (replica.py:1-12), so a replica's run is the one-card
+runner's bit for bit.
 """
 
 from __future__ import annotations
@@ -18,10 +24,6 @@ import torch
 from .. import rng
 from ..integrate.verlet import Simulation, make_step, setup
 from ..state import State
-
-_MESH = ("replicas across cards (a mesh) are not ported yet: ROADMAP "
-         "Queue 1 item 6, the multi-card paths")
-
 
 def _map(obj, fn):
     """``fn`` on every tensor of a State (or its neighbour structure),
@@ -63,9 +65,37 @@ def replicate_state(state: State, n_replicas: int, seed: int = 0) -> State:
                                         device=state.key.device))
 
 
-def sharded_replica_state(state: State, mesh, axis: str = "dp") -> State:
-    """Replicas laid out over a mesh's ``axis``: not ported."""
-    raise NotImplementedError(_MESH)
+def sharded_replica_state(state: State, mesh, axis: str = "dp"):
+    """A replicated State laid out over ``mesh`` (a sequence of devices,
+    the reference's ``axis`` of a Mesh, replica.py:39-42): a list of
+    len(mesh) States, block i the contiguous replicas [i R / D, (i + 1) R /
+    D) copied onto ``mesh[i]``.  R must be divisible by len(mesh), as
+    ``P(axis)`` requires."""
+    devs = [torch.device(d) for d in mesh]
+    R = state.key.shape[0]
+    if R % len(devs):
+        raise ValueError(f"{R} replicas over {len(devs)} devices: R must be "
+                         f"divisible by the mesh's {axis} size")
+    b = R // len(devs)
+    return [_map(state, lambda t, i=i: t[i * b:(i + 1) * b].to(
+        dev, copy=True)) for i, dev in enumerate(devs)]
+
+
+def gather_replica_state(blocks) -> State:
+    """``sharded_replica_state``'s blocks as one replicated State on the
+    first block's device."""
+    dev = blocks[0].key.device
+
+    def cat(*ts):
+        if ts[0] is None:
+            return None
+        if isinstance(ts[0], torch.Tensor):
+            return torch.cat([t.to(dev) for t in ts])
+        return dataclasses.replace(ts[0], **{
+            f.name: cat(*(getattr(t, f.name) for t in ts))
+            for f in dataclasses.fields(ts[0])})
+
+    return cat(*blocks)
 
 
 def make_replica_runner(sim: Simulation, groups: Optional[dict] = None,
@@ -74,24 +104,43 @@ def make_replica_runner(sim: Simulation, groups: Optional[dict] = None,
     (replica.py:45): ``setup_fn(states)`` sets each replica up,
     ``segment_fn(states, k)`` advances each by ``k`` steps with its own
     key, without the Langevin ramp's run bounds (as the reference's
-    vmapped step).  Each call reads each replica's step and key once."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH)
-    step = make_step(sim, groups, device=device)
+    vmapped step).  Each call reads each replica's step and key once.
 
-    def setup_fn(states: State) -> State:
-        return _stack([setup(sim, replica(states, r))
-                       for r in range(states.key.shape[0])])
+    With ``mesh`` (a sequence of devices, ``axis`` naming it as the
+    reference's Mesh axis does) both take and return
+    ``sharded_replica_state``'s list of blocks, block i on ``mesh[i]``
+    and stepped by that device's ``make_step``; ``device`` is then
+    unused.  Step i of every replica is issued before step i + 1 of
+    any."""
+    # one card: a mesh of one device, the State its one block
+    devs = [torch.device(d) for d in (mesh or [device])]
+    steps = {d: make_step(sim, groups, device=d) for d in set(devs)}
 
-    def segment_fn(states: State, k: int) -> State:
-        out = []
-        for r in range(states.key.shape[0]):
-            st = replica(states, r)
-            s0 = int(st.step)
-            key_words = tuple(st.key.tolist())
-            for i in range(1, k + 1):
-                st = step(st, s0 + i, key_words)
-            out.append(st)
-        return _stack(out)
+    def blocks_of(states):
+        if mesh is None:
+            return [states]
+        if len(states) != len(devs):
+            raise ValueError(f"{len(states)} blocks on a mesh of "
+                             f"{len(devs)} devices")
+        return states
+
+    def out(blocks):
+        return blocks[0] if mesh is None else blocks
+
+    def setup_fn(states):
+        return out([_stack([setup(sim, replica(b, r))
+                            for r in range(b.key.shape[0])])
+                    for b in blocks_of(states)])
+
+    def segment_fn(states, k: int):
+        runs = [[replica(b, r) for r in range(b.key.shape[0])]
+                for b in blocks_of(states)]
+        heads = [[(int(st.step), tuple(st.key.tolist())) for st in row]
+                 for row in runs]
+        for i in range(1, k + 1):
+            for dev, row, head in zip(devs, runs, heads):
+                for r, (s0, key_words) in enumerate(head):
+                    row[r] = steps[dev](row[r], s0 + i, key_words)
+        return out([_stack(row) for row in runs])
 
     return setup_fn, segment_fn

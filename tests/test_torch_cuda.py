@@ -337,6 +337,55 @@ def test_kernel_path_engine_on_card_matches_cpu(dev, stencil):
     chip_smoke.small_end_to_end(dev, stencil=stencil)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("sp", [2, 4])
+def test_slab_resident_engine_on_card(dev, sp):
+    """40 steps with every LE fix on the slab-resident state (sp slabs on
+    the card): bit for bit the whole-state chain on the same slab stencil
+    on the card, the same events as the slab-resident run on the CPU
+    (plain versions) with positions within 1e-3, and each kernel of the
+    slab step launched as chip_smoke.slab_launches says."""
+    from lammps_le_torch.fast import (from_fast, make_fast_segment,
+                                      run_fast, to_fast)
+    from lammps_le_torch.fixes import NVE, Langevin
+    from lammps_le_torch.integrate import Simulation
+    from lammps_le_torch.parallel.spatial import (
+        gather_fast_state, make_sharded_segment, shard_fast_state)
+    from lammps_le_torch.state import init_state
+
+    data, system = chip_smoke.production_config(2000, seed=5)
+    warm = Simulation(system=system, dt=0.006, ex_btype=2, fixes=(
+        NVE(), Langevin(t_start=1.0, t_stop=1.0, damp=1.0, seed=7)))
+    sim = Simulation(system=system, dt=0.005, energy_every=4, ex_btype=2,
+                     fixes=chip_smoke.le_fixes(5, 7, 0.3))
+    runs = {}
+    for d in ("cpu", dev):
+        st = init_state(system, data.x, types=data.types, seed=11, device=d)
+        st, _ = run_fast(warm, st, 30)
+        st = chip_smoke.seed_extruders(st, 20, 100, system.max_extruders)
+        mesh = [d] * sp
+        seg = make_sharded_segment(sim, mesh)
+        fs = to_fast(st, sim, seg.kernel_fn)
+        b = fs.step
+        K.reset_launches()
+        sfs = seg(shard_fast_state(fs, mesh), b, 40, b, b + 40)
+        runs[str(d)] = gather_fast_state(sfs), dict(K.LAUNCHES), mesh
+        if d != "cpu":
+            whole, _ = make_fast_segment(sim, pallas=False,
+                                         kernel_fn=seg.kernel_fn, device=d)
+            want = whole(fs, b, 40, b, b + 40)
+    (a, la, _), (c, lc, mesh) = runs["cpu"], runs[str(dev)]
+    assert chip_smoke.same_state(c, want) == []
+    assert not any(la.values())
+    assert lc == chip_smoke.slab_launches(lc, 40, mesh)
+    x_a, x_c = (from_fast(f, system).x.cpu() for f in (a, c))
+    assert float((x_a - x_c).abs().max()) < 1e-3
+    for k in ("ex_left", "ex_right", "n_moves", "n_loads", "n_unloads",
+              "flags"):
+        assert torch.equal(getattr(a, k), getattr(c, k).cpu()), k
+    assert int(c.n_moves) > 0
+
+
 def _group_plane(system, maps, p, frac):
     """The 0/1 Langevin-group plane of beads 1 to frac * n."""
     from lammps_le_torch.fast.engine import _lgm_plane
@@ -364,6 +413,59 @@ def test_langevin_kick_monitor_zero_group(dev, zero, group):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert torch.equal(a[2], r[2])
     assert _close(a[0], r[0]) and _close(a[1], r[1])
+
+
+def _slabs(t, sp=2):
+    C = t.shape[-1] // sp
+    return [t[..., i * C:(i + 1) * C].contiguous() for i in range(sp)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero,group", [(False, False), (False, True),
+                                        (True, True)])
+def test_split_langevin_passes(dev, zero, group):
+    """The slab step's split Langevin entries on two slabs of the planes:
+    langevin_sums within f32 round-off of the plain sums (another order);
+    langevin_kick_parts given the same means (or none) bit for bit its
+    plain version, forces, velocities and monitor values; the slabs'
+    monitor merged is the whole-plane kernel's flag bits and trigger.
+    One launch each, counted under its own name."""
+    system, maps, g, p, _ = _planes(dev)
+    n = system.n
+    lgm = _group_plane(system, maps, p, 0.9) if group else None
+    gx_ref = p[0] + 0.01 * torch.sin(p[0])
+    whole = K.langevin_kick_monitor(
+        p[0], gx_ref, p[1], p[2], p[3], g.interior, (7, 9), 33, -0.1, 0.7,
+        0.003, 0.006, 0.01, 0.02, n, True, lgm, zero)
+    sl = [_slabs(t) for t in (p[0], gx_ref, p[1], p[2], p[3], g.interior)]
+    lg = _slabs(lgm) if group else [None, None]
+    means = None
+    K.reset_launches()
+    if zero:
+        sums = [K.langevin_sums(sl[0][i], sl[4][i], sl[5][i], lg[i], (7, 9),
+                                33, n) for i in range(2)]
+        for i, got in enumerate(sums):
+            want = R.langevin_sums(sl[0][i], sl[4][i], sl[5][i], lg[i],
+                                   (7, 9), 33, n)
+            assert float((got - want).abs().max()) <= 1e-4 * max(
+                float(want.abs().max()), 1.0)
+        tot = sums[0] + sums[1]
+        means = tot[:3] * (1.0 / torch.clamp(tot[3], min=1.0))
+    parts = []
+    for i in range(2):
+        args = ([t[i] for t in sl[:6]] + [(7, 9), 33, -0.1, 0.7, 0.003,
+                                          0.006, n, True, lg[i], means])
+        a = K.langevin_kick_parts(*args)
+        b = R.langevin_kick_parts(*args)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        parts.append(a[2])
+    assert K.LAUNCHES["langevin_kick_parts"] == 2
+    assert K.LAUNCHES["langevin_sums"] == (2 if zero else 0)
+    assert K.LAUNCHES["langevin_kick_monitor"] == 0
+    from lammps_le_torch.parallel.slab_step import merge_monitor
+
+    ints = merge_monitor(torch.stack(parts), 0.01, 0.02)
+    assert torch.equal(ints, whole[2]) and ints.tolist() == [4, 1]
 
 
 # the plain version's forces and velocities without zero (x, y, z; float

@@ -4,7 +4,8 @@ counters, flags, step and rebuild schedule as make_fast_segment(
 pallas=False), positions within 1e-3 and epair within 0.1 (the
 tolerances of tests/test_pallas_step.py:105-128), on the full stencil, on
 the Newton-half stencil of grids past the whole-plane gate, on the
-sharded slab stencil at sp=2 (make_sharded_segment) and on the tiled
+slab-resident state at sp=2 (shard_fast_state, make_sharded_segment,
+gather_fast_state) and on the tiled
 full stencil (make_pallas_kernel as kernel_fn), all against the same
 reference run; one step also against the fused Pallas kernel in
 interpret mode.  The port runs where jax is absent without loading the
@@ -36,7 +37,9 @@ from lammps_le_torch.fast.blocked_kernel import make_blocked_kernel
 from lammps_le_torch.fast.maps import fast_maps
 from lammps_le_torch.fast.pallas_kernel import make_pallas_kernel
 from lammps_le_torch.integrate import Simulation
-from lammps_le_torch.parallel.spatial import make_sharded_segment
+from lammps_le_torch.parallel.spatial import (gather_fast_state,
+                                              make_sharded_segment,
+                                              shard_fast_state)
 from lammps_le_torch.state import init_state, state_from_arrays
 from lammps_le_tpu.fast import engine as ref
 from lammps_le_tpu.integrate import Simulation as RefSimulation
@@ -82,7 +85,8 @@ def _ref_run(nsteps, energy_every, pallas=False):
 def _run_both(nsteps, energy_every, pallas=False, kernel_fn=None,
               mesh=None):
     """Both engines from the same start; the port on ``kernel_fn``, or on
-    make_sharded_segment over ``mesh``."""
+    make_sharded_segment over ``mesh`` (the state sharded into slabs by
+    shard_fast_state, stepped slab-resident, gathered back)."""
     system, _ = melt_arrays()
     sim = _sims(system, energy_every)[1]
     start, fj = _ref_run(nsteps, energy_every, pallas)
@@ -93,7 +97,11 @@ def _run_both(nsteps, energy_every, pallas=False, kernel_fn=None,
         tseg = make_sharded_segment(sim, mesh)
         kernel_fn = tseg.kernel_fn
     ft = to_fast(state_from_arrays(start, "cpu"), sim, kernel_fn)
-    ft = tseg(ft, b, nsteps, b, b + nsteps)
+    if mesh is None:
+        ft = tseg(ft, b, nsteps, b, b + nsteps)
+    else:
+        ft = gather_fast_state(tseg(shard_fast_state(ft, mesh), b, nsteps,
+                                    b, b + nsteps))
     return system, fj, ft
 
 
@@ -116,9 +124,10 @@ def test_newton_half_segment_matches_reference_xla_chain():
 
 @pytest.mark.parametrize("path", ["sharded_sp2", "tiled"])
 def test_kernel_path_segment_matches_reference_xla_chain(path):
-    """The sharded slab stencil (K4's counterpart, two slabs) through
-    make_sharded_segment, and the tiled full stencil (K5's counterpart)
-    as kernel_fn, against the same reference run."""
+    """The slab-resident state on the sharded slab stencil (K4's
+    counterpart, two slabs) through make_sharded_segment, and the tiled
+    full stencil (K5's counterpart) as kernel_fn, against the same
+    reference run."""
     system, _ = melt_arrays()
     if path == "tiled":
         _check_segment(make_pallas_kernel(system, fast_maps(system), 2))
@@ -260,7 +269,8 @@ from lammps_le_torch.fast.engine import select_kernel
 from lammps_le_torch.fast.maps import fast_maps
 from lammps_le_torch.fast.pallas_kernel import make_pallas_kernel
 from lammps_le_torch.parallel.shard_step import shardable
-from lammps_le_torch.parallel.spatial import make_sharded_segment
+from lammps_le_torch.parallel.spatial import (
+    gather_fast_state, make_sharded_segment, shard_fast_state)
 from lammps_le_torch.csrc import build
 from lammps_le_torch.fixes import NVE, Langevin, Extrusion
 from lammps_le_torch.integrate import Simulation
@@ -294,7 +304,7 @@ st, _ = run_fast(sim, st, 2,
 assert shardable(system, fast_maps(system), ["cpu"] * 2) is None
 seg = make_sharded_segment(sim, ["cpu"] * 2)
 fs = to_fast(st, sim, seg.kernel_fn)
-seg(fs, 4, 2, 4, 6)
+fs = gather_fast_state(seg(shard_fast_state(fs, ["cpu"] * 2), 4, 2, 4, 6))
 st = from_fast(fs, system)
 assert int(st.step) == 6 and bool(torch.isfinite(st.x).all())
 fr = run_fast_replicas(sim, st, 2, 2)

@@ -34,7 +34,8 @@ from lammps_le_torch.fast.consts import StencilConsts
 from lammps_le_torch.integrate import Simulation
 from lammps_le_torch.parallel import shard_step as ss
 from lammps_le_torch.parallel.spatial import (
-    make_replicated_sharded_segment, make_sharded_segment)
+    gather_fast_state, make_replicated_sharded_segment, make_sharded_segment,
+    replica_blocks, shard_fast_state)
 from lammps_le_tpu.fast import engine as ref
 from lammps_le_tpu.parallel import shard_step as jss
 from test_torch_blocked import _grid
@@ -211,29 +212,33 @@ def test_sharded_segment_refuses_what_it_does_not_cover():
 
 @pytest.mark.parametrize("sp", [2, 8])
 def test_replicated_sharded_segment(sp):
-    """make_replicated_sharded_segment on two replicas: at sp=2 each
-    replica (a one-run FastState) runs the reactive slab segment in turn,
-    bit for bit make_sharded_segment on it alone; at sp=8 (refused) the
-    replica-batched state runs the non-reactive chain, bit for bit
-    make_fast_segment(pallas=False, reactive=False); shard_reason as the
-    reference sets it (spatial.py:203, 226)."""
+    """make_replicated_sharded_segment on two replicas over one row of sp
+    devices: at sp=2 each replica (``shard_fast_state``'s one-run
+    slab-resident states) runs the reactive slab segment, bit for bit
+    make_sharded_segment on it alone; at sp=8 (refused) the row's block
+    of both replicas (``replica_blocks``) runs the non-reactive chain,
+    bit for bit make_fast_segment(pallas=False, reactive=False);
+    shard_reason as the reference sets it (spatial.py:203, 226)."""
     sim = _le_sim()
     start = fast_start(sim)
     pair = [dataclasses.replace(start, key_words=rng.fold_in(
         start.key_words, i)) for i in range(2)]
-    seg = make_replicated_sharded_segment(sim, ["cpu"] * sp)
+    mesh = [["cpu"] * sp]
+    seg = make_replicated_sharded_segment(sim, mesh)
+    b = start.step
     if sp == 8:
         assert "margin 73" in seg.shard_reason
-        got = _run(seg, stack_fast(pair))
+        got, = seg(replica_blocks(stack_fast(pair), mesh), b, 3, b, b + 3)
         want, _ = make_fast_segment(sim, pallas=False, reactive=False,
                                     device="cpu")
         assert_same_run(got, _run(want, stack_fast(pair)))
         assert not torch.equal(replica(got, 0).gx, replica(got, 1).gx)
         return
     assert seg.shard_reason is None
-    b = start.step
-    got = seg([dataclasses.replace(p) for p in pair], b, 3, b, b + 3)
-    one = make_sharded_segment(sim, ["cpu"] * sp)
+    got = [gather_fast_state(r) for r in seg(
+        shard_fast_state(stack_fast(pair), mesh), b, 3, b, b + 3)]
+    one = make_sharded_segment(sim, mesh[0])
     for run, p in zip(got, pair):
-        assert_same_run(run, _run(one, p))
+        assert_same_run(run, gather_fast_state(
+            one(shard_fast_state(p, mesh[0]), b, 3, b, b + 3)))
     assert not torch.equal(got[0].gx, got[1].gx)

@@ -28,7 +28,8 @@ import lammps_le_torch.fixes as tf
 from lammps_le_torch import scene as tscene
 from lammps_le_torch.fast import from_fast, to_fast
 from lammps_le_torch.integrate import Simulation, make_step, run, setup
-from lammps_le_torch.parallel import (make_replica_runner, replicate_state,
+from lammps_le_torch.parallel import (gather_replica_state,
+                                      make_replica_runner, replicate_state,
                                       sharded_replica_state)
 from lammps_le_torch.state import state_from_arrays
 from lammps_le_tpu.parallel import replica as jreplica
@@ -85,12 +86,46 @@ def test_replica_runner():
     assert not torch.equal(out.x[0], out.x[1])
 
 
-def test_mesh_not_ported():
-    _, tsim = general_sims("le", "float32")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        make_replica_runner(tsim, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        sharded_replica_state(None, object())
+def test_replica_runner_over_a_mesh(monkeypatch):
+    """Four replicas in f64 over a mesh of two CPU devices (two blocks,
+    each stepped by its own device's make_step, step i issued on both
+    before step i + 1): bit for bit the one-card runner; and against the
+    reference's meshed runner (a jax.sharding.Mesh over 4 virtual CPU
+    devices, its segment compiled with LLVM's optimisations off) from the
+    reference's setup of the same start: integer fields bit for bit, x
+    and v within 1e-9, the general path's tolerance."""
+    import jax
+    from jax.sharding import Mesh
+
+    from torch_parity import UnoptimisedJax, _ref_setup
+
+    rsim, tsim = general_sims("le", "float64")
+    d = general_start("float64")
+    st = state_from_arrays(d, "cpu")
+    mesh = ["cpu", torch.device("cpu", 0)]
+    setup_fn, segment = make_replica_runner(tsim, mesh=mesh)
+    blocks = sharded_replica_state(replicate_state(st, 4, seed=5), mesh)
+    assert [b.key.shape[0] for b in blocks] == [2, 2]
+    got = gather_replica_state(segment(setup_fn(blocks), 4))
+    setup1, segment1 = make_replica_runner(tsim, device="cpu")
+    one = segment1(setup1(replicate_state(st, 4, seed=5)), 4)
+    for k in GENERAL_INTS + ("x", "v", "f", "key"):
+        assert torch.equal(getattr(got, k), getattr(one, k)), k
+    with pytest.raises(ValueError, match="divisible"):
+        sharded_replica_state(replicate_state(st, 3), mesh)
+
+    monkeypatch.setattr(jreplica, "jax", UnoptimisedJax())
+    jmesh = Mesh(np.asarray(jax.devices()[:4]), ("dp",))
+    _, jsegment = jreplica.make_replica_runner(rsim, mesh=jmesh)
+    js = jreplica.sharded_replica_state(jreplica.replicate_state(
+        _ref_setup("float64")(jax_state(d, jnp.float64)), 4, seed=5), jmesh)
+    rs = jsegment(js, 4)
+    for k in GENERAL_INTS:
+        np.testing.assert_array_equal(np.asarray(getattr(rs, k)),
+                                      getattr(got, k).numpy(), err_msg=k)
+    for k in ("x", "v"):
+        assert float(np.abs(np.asarray(getattr(rs, k))
+                            - getattr(got, k).numpy()).max()) <= 1e-9, k
 
 
 @pytest.mark.parametrize("gen", ["fene_melt", "chromosome"])
