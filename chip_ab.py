@@ -50,6 +50,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import importlib
+import inspect
 import shutil
 import statistics
 import subprocess
@@ -135,6 +136,9 @@ def kernel_cases(inputs, pkg):
                0.3, 0.2, n, True)
         kdh = (fs.gx, fs.gv, fs.gf, fs.bid, g.interior, g.halo_cols,
                g.halo_src, g.halo_shift, n, kick, sim.dt)
+        # a tree whose K2a writes the halo by its image map takes it
+        if "images" in inspect.signature(K.kick_drift_halo).parameters:
+            kdh += (g.images,)
         spr = (fs.gx, fs.gf.clone(), fs.exl_slot, fs.exr_slot,
                fs.ex_left >= 0, S)
         common = [

@@ -942,6 +942,57 @@ def timings(fn, reps, warmup=3):
     return ms, wall_ms, "events"
 
 
+def kick_drift_bound(cap, P, images, R=1):
+    """K2a's bound on R replicas' (3, cap, P) planes with the image map
+    ``images`` (``place.ImageTensors``): v, f and bid in and v and x out
+    at every slot, x in at the slots that write their own, x out at each
+    sent image, the interior and own masks and the image map once; 18
+    f32 operations a slot and 3 an image's row."""
+    own = int(images.own.sum())
+    I = int(images.idx.shape[0])
+    per = cap * P * (24 + 4 + 24) + cap * own * 12 + cap * images.n_send * 12
+    return bound(R * per + 2 * P + 4 * (P + 1) + 20 * I,
+                 R * cap * (18 * P + 3 * I))
+
+
+def kick_drift_phase(args, images, what):
+    """kick_drift_halo (K2a) on ``args`` (the plain version's arguments)
+    with the image map ``images`` against its plain version, bit for bit
+    (planes and any send buffer), then timed beside its plain version and
+    its launch floor: an empty kernel at its launch shape
+    (``kernels.kick_drift_floor``).  Returns its record (no launch
+    count)."""
+    import torch
+
+    from lammps_le_torch.fast import kernels as K
+    from lammps_le_torch.fast import kernels_ref as R
+
+    got = K.kick_drift_halo(*args, images)
+    want = R.kick_drift_halo(*args, images)
+    if len(got) != len(want) or not all(
+            torch.equal(a, b) for a, b in zip(got, want)):
+        fail(f"kick_drift_halo ({what}) differs from its plain version")
+    gx = args[0]
+    cap, P = gx.shape[-2:]
+    reps = gx.shape[0] if gx.dim() == 4 else 1
+    shape = K.kick_drift_shape(cap, P, reps)
+    rec = dict(
+        replaces=REPLACES["kick_drift_halo"], max_abs_err=0.0,
+        tol="bitwise", bound=kick_drift_bound(cap, P, images, reps),
+        t=timings(lambda: K.kick_drift_halo(*args, images), 50),
+        t_plain=timings(lambda: R.kick_drift_halo(*args, images), 20),
+        t_floor=timings(lambda: K.kick_drift_floor(cap, P, reps), 50))
+    print(f"kick_drift_halo {what} ({card_line()}): planes "
+          f"{tuple(gx.shape)}, {int(images.idx.shape[0])} images "
+          f"({images.n_send} sent); one launch of {shape[0]} x {shape[2]} "
+          f"blocks of {shape[1]} threads; bitwise "
+          f"its plain version; device {rec['t'][0]:.4f} ms ({rec['t'][2]}), "
+          f"launch floor {rec['t_floor'][0]:.4f} ({rec['t_floor'][2]}), "
+          f"bound {rec['bound'][0]:.4f} by {rec['bound'][1]}; plain "
+          f"{rec['t_plain'][0]:.4f}", flush=True)
+    return rec
+
+
 def kernel_phases(fs, sim, g):
     """The kernels both paths launch (kick_drift_halo, extruder_springs,
     langevin_kick_monitor) vs their plain versions on the same card
@@ -953,35 +1004,17 @@ def kernel_phases(fs, sim, g):
     from lammps_le_torch.fast import kernels as K
     from lammps_le_torch.fast import kernels_ref as R
     from lammps_le_torch.fast.consts import SpringConsts
-    from lammps_le_torch.fast.maps import fast_maps
 
     system = sim.system
-    maps = fast_maps(system)
     S = SpringConsts(system, sim.ex_btype)
     n = system.n
     kick = 0.5 * sim.dt / float(system.masses[0])
-    cap, P = maps.cap, maps.P
-    H = int(g.halo_cols.shape[0])
     recs = {}
 
     # kick_drift_halo: bitwise
-    kd_args = (fs.gx, fs.gv, fs.gf, fs.bid, g.interior, g.halo_cols,
-               g.halo_src, g.halo_shift, n, kick, sim.dt)
-    gx_k, gv_k = K.kick_drift_halo(*kd_args)
-    gx_r, gv_r = R.kick_drift_halo(*kd_args)
-    if not (torch.equal(gx_k, gx_r) and torch.equal(gv_k, gv_r)):
-        fail("kick_drift_halo differs from its plain version")
-    err = max(float((gx_k - gx_r).abs().max()),
-              float((gv_k - gv_r).abs().max()))
-    recs["kick_drift_halo"] = dict(
-        replaces=REPLACES["kick_drift_halo"], max_abs_err=err,
-        tol="bitwise",
-        # x, v, f, bid in, x, v out per slot; the halo list; 18 operations
-        # a slot, 3 a halo copy
-        bound=bound(cap * P * (36 + 4 + 24) + P + H * 20,
-                    cap * P * 18 + cap * H * 3),
-        t=timings(lambda: K.kick_drift_halo(*kd_args), 50),
-        t_plain=timings(lambda: R.kick_drift_halo(*kd_args), 20))
+    recs["kick_drift_halo"] = kick_drift_phase(
+        (fs.gx, fs.gv, fs.gf, fs.bid, g.interior, g.halo_cols, g.halo_src,
+         g.halo_shift, n, kick, sim.dt), g.images, f"{system.n} beads")
 
     # extruder_springs (in place on copies of the run's forces)
     active = fs.ex_left >= 0
@@ -1145,7 +1178,9 @@ def step_loop_phase(fs, sim, g, phases):
     same state (planes bitwise, stats rows equal), each in d iterations of
     the graph's conditional node, and take within 1.05x its device time
     (``loop_launch_ms``, three alternating rounds, medians).  The graph's
-    body must hold 5 kernel nodes with zero off and 6 with zero on.
+    body must hold 4 kernel nodes with zero off and 5 with zero on (K2a
+    one launch, the stencil, its fold with the springs, the Langevin
+    pass, and zero's sums).
     Times a launch; its bound is the sum of its steps' kernel bounds
     (``phases``: path 1's records; the stencil without energies).
     Returns its record (no launch count)."""
@@ -1219,9 +1254,9 @@ def step_loop_phase(fs, sim, g, phases):
     if not ratio <= 1.05:
         fail(f"a stopped {LAUNCH_MAX}-step launch takes {ratio:.4f}x the "
              f"device time of a {steps}-step launch")
-    if (k_on, k_off) != (6, 5):
+    if (k_on, k_off) != (5, 4):
         fail(f"the step loop's body holds {k_on} kernel nodes with zero on "
-             f"and {k_off} with it off, want 6 and 5")
+             f"and {k_off} with it off, want 5 and 4")
     parts = [stencil_bound("stencil_forces", fs, g, maps,
                            StencilConsts(system), system.n, False)]
     parts += [phases[k]["bound"] for k in ("kick_drift_halo",
@@ -1486,9 +1521,83 @@ def shard_phase(fs, sim, g, dev):
 
 # the hand-written kernels the slab step launches (their symbols in a
 # profiler trace); every other device row of its trace is PyTorch's glue
-SLAB_KERNELS = ("kick_drift_kernel", "halo_kernel", "newton_half_kernel",
+SLAB_KERNELS = ("kick_drift_halo_kernel", "newton_half_kernel",
                 "window_finish_kernel", "springs_kernel", "langevin_kernel",
                 "langevin_sum_kernel")
+
+
+def slab_host_ops(sp, n_beads=BEADS, device="cpu", counted=1):
+    """The PyTorch operations a slab-resident step issues outside its
+    kernels' wrappers (the functions ``kernels.LAUNCHES`` counts), and the
+    whole-state chain's on the same slab stencil: (slab-resident, whole)
+    a step, each the mean over ``counted`` steps that are neither rebuild
+    nor LE event steps, from path 1's serpentine with its seeded
+    extruders (no thermalisation: the count does not depend on the
+    positions).  Every dispatched ATen operation but a view counts once
+    (``TorchDispatchMode``): allocations, copies, index and arithmetic
+    operations, host reads.  Runs on the CPU,
+    where the wrappers run their plain versions:
+    ``python3 -c 'import chip_smoke; chip_smoke.slab_host_ops(2)'``."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from lammps_le_torch.fast import kernels as K
+    from lammps_le_torch.fast import make_fast_segment, to_fast
+    from lammps_le_torch.integrate import Simulation
+    from lammps_le_torch.parallel.spatial import (make_sharded_segment,
+                                                  shard_fast_state)
+    from lammps_le_torch.state import init_state
+
+    data, system = production_config(n_beads)
+    state = seed_extruders(init_state(system, data.x, types=data.types,
+                                      seed=11, device=device),
+                           N_EX0, n_beads // N_EX0, system.max_extruders)
+    sim = Simulation(system=system, dt=0.006, energy_every=100,
+                     fixes=le_fixes(), ex_btype=2)
+    seg = make_sharded_segment(sim, [torch.device(device)] * sp)
+    fs = to_fast(state, sim, seg.kernel_fn)
+    whole, _ = make_fast_segment(sim, pallas=False, kernel_fn=seg.kernel_fn,
+                                 device=device)
+    inside = [0]
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not inside[0] and not func.is_view:
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    def quiet(fn):
+        def call(*a, **kw):
+            inside[0] += 1
+            try:
+                return fn(*a, **kw)
+            finally:
+                inside[0] -= 1
+        return call
+
+    saved = {k: getattr(K, k) for k in K.LAUNCHES if hasattr(K, k)}
+    out = []
+    for run, state_of in ((seg, lambda f: shard_fast_state(f, [
+            torch.device(device)] * sp)), (whole, dataclasses.replace)):
+        f = state_of(fs)
+        b = f.step
+        run(f, b, 2, b, b + 2 + counted)
+        for k, fn in saved.items():
+            setattr(K, k, quiet(fn))
+        try:
+            Count.n = 0
+            with Count():
+                run(f, b + 2, counted, b, b + 2 + counted)
+        finally:
+            for k, fn in saved.items():
+                setattr(K, k, fn)
+        out.append(Count.n / counted)
+    print(f"host operations a step outside the kernels ({n_beads} beads, "
+          f"sp={sp}, on {device}): slab-resident {out[0]:.1f}, whole-state "
+          f"chain on the slab stencil {out[1]:.1f}", flush=True)
+    return tuple(out)
 
 
 def slab_mesh(sp, first=0):
@@ -1659,8 +1768,10 @@ def slab_kernel_phases(sfs, segment, sim):
     """The slab step's per-slab K2a and its springs on the state a
     slab-resident run left (``sfs``), at the shapes the slab step gives
     them, against their plain versions on the same card tensors:
-    kick_drift_halo on every slab's (3, cap, C) planes with its local
-    halo lists (``SlabPlan.local_halo``) bit for bit; extruder_springs on
+    kick_drift_halo on every slab's (3, cap, C) planes with its image map
+    (``SlabPlan.images``: local images in place, the others into its send
+    buffer) bit for bit, and ``SlabPlan.halo`` from the send buffers
+    bitwise the whole plane's plain kick + drift + halo; extruder_springs on
     the (3, 1, 2E) anchor planes that ``SlabPlan.gather_anchors`` builds
     on mesh[0] from the slabs' planes and the slab stencil's force
     buffers, within path 1's tolerance for the same kernel (F_REL of the
@@ -1673,33 +1784,47 @@ def slab_kernel_phases(sfs, segment, sim):
     from lammps_le_torch.fast import kernels as K
     from lammps_le_torch.fast import kernels_ref as R
     from lammps_le_torch.fast.consts import SpringConsts
+    from lammps_le_torch.fast.maps import fast_maps
+    from lammps_le_torch.fast.place import GridConsts
 
     system = sim.system
     n, units = system.n, system.units
     kick = 0.5 * sim.dt * units.ftm2v / float(system.masses[0])
     plan = segment.plan(sfs)
-    sp, cap, C = len(sfs.mesh), plan.cap, plan.chunk
+    sp = len(sfs.mesh)
     recs = {}
 
-    # kick_drift_halo per slab: bitwise
+    # kick_drift_halo per slab, its sent images included: bitwise; then
+    # the exchange from the send buffers gives the whole plane's halo
+    xs, sends = [], []
     for s in range(sp):
         a = (sfs.gx[s], sfs.gv[s], sfs.gf[s], sfs.bid[s], plan.interior[s],
-             *plan.local_halo[s], n, kick, sim.dt)
-        k, r = K.kick_drift_halo(*a), R.kick_drift_halo(*a)
-        if not all(torch.equal(x, y) for x, y in zip(k, r)):
+             *plan.images[s].halo_lists, n, kick, sim.dt)
+        k, r = K.kick_drift_halo(*a, plan.images[s]), R.kick_drift_halo(
+            *a, plan.images[s])
+        if len(k) != len(r) or not all(torch.equal(x, y)
+                                       for x, y in zip(k, r)):
             fail(f"kick_drift_halo on slab {s} differs from its plain "
                  f"version")
+        xs.append(k[0])
+        sends.append(k[2] if len(k) > 2 else None)
         if s == 0:
             kd = a
-    H = int(kd[5].shape[0])
-    recs["kick_drift_halo"] = dict(
-        replaces=REPLACES["kick_drift_halo"], max_abs_err=0.0,
-        tol="bitwise, every slab",
-        # as path 1's, on a slab's C columns and its local halo list
-        bound=bound(cap * C * (36 + 4 + 24) + C + H * 20,
-                    cap * C * 18 + cap * H * 3),
-        t=timings(lambda: K.kick_drift_halo(*kd), 50),
-        t_plain=timings(lambda: R.kick_drift_halo(*kd), 20))
+    home = sfs.gx[0].device
+    whole = [torch.cat([p.to(home) for p in t], -1)
+             for t in (sfs.gx, sfs.gv, sfs.gf, sfs.bid)]
+    g = GridConsts.build(system, fast_maps(system), home)
+    want = R.kick_drift_halo(*whole, g.interior, g.halo_cols, g.halo_src,
+                             g.halo_shift, n, kick, sim.dt)[0]
+    plan.halo(xs, sends)
+    if not torch.equal(torch.cat([x.to(want.device) for x in xs], -1),
+                       want):
+        fail("the slabs' K2a and halo exchange differ from the whole "
+             "plane's kick + drift + halo")
+    recs["kick_drift_halo"] = kick_drift_phase(kd, plan.images[0],
+                                               f"a slab at sp={sp}")
+    recs["kick_drift_halo"]["tol"] = (
+        "bitwise, every slab; the exchange bitwise the whole plane")
 
     # extruder_springs on the anchors gathered onto mesh[0]
     S = SpringConsts(system, sim.ex_btype)
@@ -1719,8 +1844,10 @@ def slab_kernel_phases(sfs, segment, sim):
     err = float((f_k - f_r).abs().max())
     ek, er = float(eb_k.double().sum()), float(eb_r.double().sum())
     print(f"slab kernels sp={sp} ({card_line()}): kick_drift_halo bitwise "
-          f"on every slab (slab 0: {tuple(kd[0].shape)}, {H} local halo "
-          f"columns); extruder_springs on the gathered anchors "
+          f"on every slab (slab 0: {tuple(kd[0].shape)}, "
+          f"{int(plan.images[0].idx.shape[0])} images, "
+          f"{plan.images[0].n_send} sent), the exchange bitwise the whole "
+          f"plane; extruder_springs on the gathered anchors "
           f"{tuple(xa.shape)}, {n_active} active: max_abs_err {err:.3g} "
           f"(bitwise {torch.equal(f_k, f_r)}), energy {ek} vs plain {er}",
           flush=True)
@@ -2696,7 +2823,7 @@ def overflow_witness(label, segment, sim, settled, fs, r, b0, bend):
     kick = 0.5 * sim.dt * system.units.ftm2v / float(system.masses[0])
     gx, _ = K.kick_drift_halo(before.gx, before.gv, before.gf, before.bid,
                               g.interior, g.halo_cols, g.halo_src,
-                              g.halo_shift, system.n, kick, sim.dt)
+                              g.halo_shift, system.n, kick, sim.dt, g.images)
     x = extract_beads(dataclasses.replace(before, gx=gx), maps)[0]
     counts = numpy_cell_counts(x.cpu().numpy(), system)
     due = rebuild_schedule(sim, reactive=False)(s)
@@ -2833,7 +2960,7 @@ def batched_records(runs, sim, g, one_bound, names):
         "kick_drift_halo": lambda M: (
             lambda gx, gv, gf, bid: M.kick_drift_halo(
                 gx, gv, gf, bid, g.interior, g.halo_cols, g.halo_src,
-                g.halo_shift, n, kick, sim.dt),
+                g.halo_shift, n, kick, sim.dt, g.images),
             stacked("gx", "gv", "gf", "bid"), None),
         # in place on the forces: each check on its own copy of them, the
         # timed calls on one scratch copy (``scratch``)
@@ -2899,6 +3026,11 @@ def batched_records(runs, sim, g, one_bound, names):
             t_one=timings(lambda: [call(*(t[r] for t in scratch), *(
                 (key[1][r],) if key else ())) for r in range(nrep)], 20),
             t_plain=timings(lambda: plain(*scratch, *extra), 2, 1))
+        if name == "kick_drift_halo":
+            # its launch floor: an empty kernel at its launch shape
+            cap, P = batched[0].shape[-2:]
+            recs[name]["t_floor"] = timings(
+                lambda: K.kick_drift_floor(cap, P, nrep), 50)
     return recs
 
 
@@ -2912,12 +3044,10 @@ def one_run_bound(sim, g):
     system = sim.system
     maps = fast_maps(system)
     n, cap, P = system.n, maps.cap, maps.P
-    H = int(g.halo_cols.shape[0])
 
     def one_bound(name, fs):
         if name == "kick_drift_halo":
-            return bound(cap * P * (36 + 4 + 24) + P + H * 20,
-                         cap * P * 18 + cap * H * 3)
+            return kick_drift_bound(cap, P, g.images)
         if name == "extruder_springs":
             act = int((fs.ex_left >= 0).sum())
             return bound(fs.exl_slot.shape[0] * 13 + act * 2 * 36, act * 36,

@@ -104,8 +104,9 @@ struct StepPlanes {
   const uint8_t* hn;
   const int* pid;
   const uint8_t* interior;
-  const int *halo_cols, *halo_src;
-  const float* halo_shift;
+  const uint8_t* own;  // K2a's image map (kick_drift_halo_kernel)
+  const int *img_ptr, *img_idx, *img_src;
+  const float* img_shift;
   const int *exl, *exr;
   const uint8_t* active;
   float* eb;
@@ -114,7 +115,7 @@ struct StepPlanes {
   int* ipart;
   float *lpart, *zpart;
   LaunchCtl* ctl;
-  int H;
+  int I;  // the image map's images
   float kick, dt;
 };
 
@@ -157,25 +158,76 @@ __global__ void launch_begin_kernel(LaunchCtl* ctl, unsigned int sstep0,
 // ---------------------------------------------------------------------
 // kick_drift_halo <- pallas_step.py:731-751 (K2a)
 //
-// Bound: device-memory bytes (reads x, v, f, bid; writes x, v once) — a
-// streaming pass at 12 float planes per slot.  Design: one thread per
-// slot for the kick + drift; the halo columns (about a fifth of the
-// columns at 100k beads) in a second launch that gathers each from its
-// interior source column — the six masked rolls of the TPU kernel exist
-// because a TPU lane gather is slow; here a gather is a plain load.
+// Bound: device-memory bytes (reads v, f, bid and the x of the slots that
+// write their own; writes x and v once each; the image map) — a
+// streaming pass at about 16 words a slot.  Design: one launch.  A block
+// takes a chunk of one row, a slot a thread: it kicks and drifts the slot
+// as the plain version does, writes v, writes x where the slot writes its
+// own (``own``: every column but a local halo image), and keeps x in
+// shared memory.  Then the block writes the halo images of its chunk's
+// columns (the halo map inverted, CSR over the source columns,
+// maps.HaloImages: one contiguous run of images a chunk), a thread an
+// image at a time: x + shift into the image's slot of the same row, a
+// halo column of the planes or a sent image's place in the send buffer (a
+// slab's, for the slab exchange).  The TPU kernel's six masked face
+// rolls, like a second pass that gathers each halo column from its
+// source, read back what the drift had just written; here each slot is
+// written by one thread and no thread uses a value that another writes
+// but through the block's shared memory, so the planes may be updated in
+// place (the step loop) with no order between blocks.  A face or corner
+// column has up to 7 images, and a chunk of a face's columns about as
+// many images as slots: each thread loads its first kKdPre image records
+// beside its slot's planes, so that after the barrier it only stores.
+// (Four slots a thread with 16-byte loads measured slower on the H100 at
+// every shape but R = 8's: a face chunk then holds four images a
+// thread.)  The launch shape (kd_shape) spreads the chunks evenly over
+// the SMs, so a plane too small to fill the card (config 4's, a slab's)
+// still reaches every SM.
 
-// gx_out / gv_out may be gx / gv (each slot reads its own values first);
-// replica blockIdx.y
-__global__ void kick_drift_kernel(const float* gx, const float* gv,
-                                  const float* __restrict__ gf,
-                                  const int* __restrict__ bid,
-                                  const uint8_t* __restrict__ interior,
-                                  float* gx_out, float* gv_out, int cap,
-                                  int P, int n, float kick, float dt,
-                                  const LaunchCtl* ctl) {
+constexpr int kKdThreads = 256;
+constexpr int kKdPre = 2;
+
+// the card's SM count (the cards of one host alike, read once)
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+// one image: x + shift into its slot of row r (gx_out, or the send buffer
+// for w < 0)
+__device__ __forceinline__ void kd_image(float* gx_out, float* send,
+                                         int2 d, const float* x,
+                                         const float* shift, int r,
+                                         int cap) {
+  float* out = d.y > 0 ? gx_out : send;
+  const long w = d.y > 0 ? d.y : -d.y;
+  const long o = d.x + (long)r * w;
+  for (int k = 0; k < 3; ++k) out[o + k * cap * w] = x[k] + shift[k];
+}
+
+// gx_out / gv_out may be gx / gv; send: the sent images' buffer (null
+// without); replica blockIdx.y (no sent images).  Blocks of any multiple
+// of 32 threads up to kKdThreads; a row's chunks are blockDim.x slots
+__global__ void __launch_bounds__(kKdThreads)
+    kick_drift_halo_kernel(const float* gx, const float* gv,
+                           const float* gf, const int* __restrict__ bid,
+                           const uint8_t* __restrict__ interior,
+                           const uint8_t* __restrict__ own,
+                           const int* __restrict__ img_ptr,
+                           const int2* __restrict__ img_idx,
+                           const int* __restrict__ img_src,
+                           const float* __restrict__ img_shift, int I,
+                           float* gx_out, float* gv_out, float* send,
+                           int cap, int P, int n, float kick, float dt,
+                           const LaunchCtl* ctl) {
+  __shared__ float xs[3][kKdThreads];
+  if (drift_off(ctl)) return;
   const long capP = (long)cap * P;
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= capP || drift_off(ctl)) return;
   const long rp = 3 * capP * blockIdx.y;
   gx += rp;
   gv += rp;
@@ -183,29 +235,108 @@ __global__ void kick_drift_kernel(const float* gx, const float* gv,
   gx_out += rp;
   gv_out += rp;
   bid += capP * blockIdx.y;
-  const int c = (int)(t % P);
-  const float vf = (interior[c] && bid[t] < n) ? 1.f : 0.f;
-  for (int k = 0; k < 3; ++k) {
-    const long i = k * capP + t;
-    const float v = gv[i] + (kick * gf[i]) * vf;
-    gv_out[i] = v;
-    gx_out[i] = gx[i] + (dt * v) * vf;
+  const int per_row = (P + blockDim.x - 1) / blockDim.x;
+  const long chunks = (long)cap * per_row;
+  for (long ch = blockIdx.x; ch < chunks; ch += gridDim.x) {
+    const int r = (int)(ch / per_row);
+    const int c_lo = (int)(ch - (long)r * per_row) * blockDim.x;
+    const int c_hi = min(c_lo + (int)blockDim.x, P);
+    const int i_lo = img_ptr[c_lo], i_hi = img_ptr[c_hi];
+    // the first kKdPre image records this thread writes
+    int2 pd[kKdPre];
+    int pl[kKdPre];
+    float psh[kKdPre][3];
+#pragma unroll
+    for (int u = 0; u < kKdPre; ++u) {
+      const int i = i_lo + threadIdx.x + u * blockDim.x;
+      if (i < i_hi) {
+        pd[u] = img_idx[i];
+        pl[u] = img_src[i] - c_lo;
+        for (int k = 0; k < 3; ++k) psh[u][k] = img_shift[(long)k * I + i];
+      }
+    }
+    const int c = c_lo + threadIdx.x;
+    if (c < c_hi) {
+      // every load before the first store: gx_out may be gx
+      const long t = (long)r * P + c;
+      float x[3], v[3], f[3];
+      for (int k = 0; k < 3; ++k) {
+        x[k] = gx[k * capP + t];
+        v[k] = gv[k * capP + t];
+        f[k] = gf[k * capP + t];
+      }
+      const float vf = (interior[c] && bid[t] < n) ? 1.f : 0.f;
+      const bool mine = own[c];
+      for (int k = 0; k < 3; ++k) {
+        v[k] = v[k] + (kick * f[k]) * vf;
+        x[k] = x[k] + (dt * v[k]) * vf;
+        gv_out[k * capP + t] = v[k];
+        if (mine) gx_out[k * capP + t] = x[k];
+        xs[k][threadIdx.x] = x[k];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kKdPre; ++u) {
+      if (i_lo + (int)threadIdx.x + u * (int)blockDim.x < i_hi) {
+        const float x[3] = {xs[0][pl[u]], xs[1][pl[u]], xs[2][pl[u]]};
+        kd_image(gx_out, send, pd[u], x, psh[u], r, cap);
+      }
+    }
+    for (int i = i_lo + threadIdx.x + kKdPre * blockDim.x; i < i_hi;
+         i += blockDim.x) {
+      const int l = img_src[i] - c_lo;
+      const float x[3] = {xs[0][l], xs[1][l], xs[2][l]};
+      const float sh[3] = {img_shift[i], img_shift[(long)I + i],
+                           img_shift[2L * I + i]};
+      kd_image(gx_out, send, img_idx[i], x, sh, r, cap);
+    }
+    __syncthreads();
   }
 }
 
-__global__ void halo_kernel(float* __restrict__ gx, const int* halo_cols,
-                            const int* halo_src, const float* halo_shift,
-                            int H, int cap, int P, const LaunchCtl* ctl) {
-  const long capP = (long)cap * P;
-  const long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long)H * cap || drift_off(ctl)) return;
-  gx += 3 * capP * blockIdx.y;  // replica blockIdx.y
-  const int r = (int)(t / H), h = (int)(t % H);
-  const long dst = (long)r * P + halo_cols[h];
-  const long src = (long)r * P + halo_src[h];
-  for (int k = 0; k < 3; ++k)
-    gx[k * capP + dst] = gx[k * capP + src] + halo_shift[k * H + h];
+// the blocks of kick_drift_halo_kernel of `threads` threads resident on
+// an SM at once
+int kd_occupancy(int threads) {
+  static int occ[kKdThreads / 32 + 1] = {};
+  int& o = occ[threads / 32];
+  if (o == 0)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &o, kick_drift_halo_kernel, threads, 0);
+  return o > 0 ? o : 1;
 }
+
+// the launch shape for R replicas' (3, cap, P) planes: the block size (a
+// multiple of 32 up to kKdThreads) whose chunks, each row cut into
+// blocks of its slots, load the SMs most evenly (the fewest slots, idle
+// ones counted, on the busiest SM; ties to the larger block), and as many
+// blocks as the chunks or as stay resident at once: grid (blocks, R)
+struct KdShape {
+  dim3 grid;
+  int threads;
+};
+
+KdShape kd_shape(int cap, int P, int R) {
+  const long sms = sm_count();
+  long best = -1;
+  int th = kKdThreads;
+  for (int t = kKdThreads; t >= 32; t -= 32) {
+    const long chunks = (long)R * cap * ((P + t - 1) / t);
+    const long cost = (chunks + sms - 1) / sms * t;
+    if (best < 0 || cost < best) {
+      best = cost;
+      th = t;
+    }
+  }
+  const long chunks = (long)cap * ((P + th - 1) / th);
+  const long resident = sms * kd_occupancy(th) / R;
+  long bx = chunks < resident ? chunks : resident;
+  if (bx < 1) bx = 1;
+  return {dim3((unsigned)bx, R), th};
+}
+
+// an empty kernel: K2a's launch floor, timed at its launch shape
+__global__ void empty_kernel() {}
 
 // ---------------------------------------------------------------------
 // stencil_forces <- pallas_step.py:249-510, 753-774 (K1 / K2b), in the
@@ -694,19 +825,22 @@ int zero_blocks(int capP) {
   return (capP + kSumThreads * kSumSlots - 1) / (kSumThreads * kSumSlots);
 }
 
-// the launches of each kernel pair over R replicas; ctl null: the
-// chain's one step
+// the launches of each kernel over R replicas; ctl null: the chain's one
+// step.  K2a takes the vector form where P and every plane allow it
 void kick_drift_launch(const float* gx, const float* gv, const float* gf,
                        const int* bid, const uint8_t* interior,
-                       const int* halo_cols, const int* halo_src,
-                       const float* halo_shift, float* gx_out, float* gv_out,
-                       int cap, int P, int H, int n, float kick, float dt,
-                       int R, const LaunchCtl* ctl, cudaStream_t s) {
-  kick_drift_kernel<<<dim3(blocks_for((long)cap * P), R), kThreads, 0, s>>>(
-      gx, gv, gf, bid, interior, gx_out, gv_out, cap, P, n, kick, dt, ctl);
-  if (H > 0)
-    halo_kernel<<<dim3(blocks_for((long)H * cap), R), kThreads, 0, s>>>(
-        gx_out, halo_cols, halo_src, halo_shift, H, cap, P, ctl);
+                       const uint8_t* own, const int* img_ptr,
+                       const int* img_idx, const int* img_src,
+                       const float* img_shift, int I, float* gx_out,
+                       float* gv_out, float* send, int cap, int P, int n,
+                       float kick, float dt, int R, const LaunchCtl* ctl,
+                       cudaStream_t s) {
+  if ((long)cap * P == 0) return;
+  const KdShape k = kd_shape(cap, P, R);
+  kick_drift_halo_kernel<<<k.grid, k.threads, 0, s>>>(
+      gx, gv, gf, bid, interior, own, img_ptr,
+      reinterpret_cast<const int2*>(img_idx), img_src, img_shift, I, gx_out,
+      gv_out, send, cap, P, n, kick, dt, ctl);
 }
 
 // part: R replicas' 3 partials a block and ticket word; zpart: their 4
@@ -767,9 +901,9 @@ cudaError_t step_ctl_launch(const StepPlanes& p, const StencilArgs& sa,
                             cudaGraphConditionalHandle cond,
                             cudaStream_t s) {
   const int cap = sa.cap, P = sa.P;
-  kick_drift_launch(p.gx, p.gv, p.gf, p.bid, p.interior, p.halo_cols,
-                    p.halo_src, p.halo_shift, p.gx, p.gv, cap, P, p.H, sa.n,
-                    p.kick, p.dt, 1, p.ctl, s);
+  kick_drift_launch(p.gx, p.gv, p.gf, p.bid, p.interior, p.own, p.img_ptr,
+                    p.img_idx, p.img_src, p.img_shift, p.I, p.gx, p.gv,
+                    nullptr, cap, P, sa.n, p.kick, p.dt, 1, p.ctl, s);
   const cudaError_t err = stencil_launch(p.gx, p.bid, p.hn, p.pid,
                                          p.interior, p.gf, p.fpart, p.ipart,
                                          sa, 1, p.ctl, s);
@@ -846,16 +980,36 @@ void step_graph_destroy(StepGraph* g) {
 extern "C" {
 
 // each entry point of a chain kernel takes R replicas' planes stacked on
-// a leading axis (R = 1: one run's)
+// a leading axis (R = 1: one run's).  K2a: own, img_ptr, img_idx (I (base,
+// w) pairs), img_src (I) and img_shift (3, I) the image map
+// (place.ImageTensors); send the sent images' buffer (null where the map
+// sends none; R = 1)
 int lle_kick_drift_halo(const float* gx, const float* gv, const float* gf,
                         const int* bid, const uint8_t* interior,
-                        const int* halo_cols, const int* halo_src,
-                        const float* halo_shift, float* gx_out,
-                        float* gv_out, int cap, int P, int H, int n,
-                        float kick, float dt, int R, void* stream) {
-  kick_drift_launch(gx, gv, gf, bid, interior, halo_cols, halo_src,
-                    halo_shift, gx_out, gv_out, cap, P, H, n, kick, dt, R,
-                    nullptr, (cudaStream_t)stream);
+                        const uint8_t* own, const int* img_ptr,
+                        const int* img_idx, const int* img_src,
+                        const float* img_shift, float* gx_out, float* gv_out,
+                        float* send, int cap, int P, int I, int n, float kick,
+                        float dt, int R, void* stream) {
+  kick_drift_launch(gx, gv, gf, bid, interior, own, img_ptr, img_idx,
+                    img_src, img_shift, I, gx_out, gv_out, send, cap, P, n,
+                    kick, dt, R, nullptr, (cudaStream_t)stream);
+  return (int)cudaGetLastError();
+}
+
+// K2a's launch shape for (R, 3, cap, P) planes: out = [blocks, threads a
+// block, replicas]; and an empty kernel launched at it, K2a's launch floor
+int lle_kick_drift_shape(int cap, int P, int R, int* out) {
+  const KdShape k = kd_shape(cap, P, R);
+  out[0] = (int)k.grid.x;
+  out[1] = k.threads;
+  out[2] = (int)k.grid.y;
+  return (int)cudaGetLastError();
+}
+
+int lle_kick_drift_floor(int cap, int P, int R, void* stream) {
+  const KdShape k = kd_shape(cap, P, R);
+  empty_kernel<<<k.grid, k.threads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

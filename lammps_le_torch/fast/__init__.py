@@ -1,6 +1,7 @@
 from .engine import (  # noqa: F401
     FastState,
     fast_block_reason,
+    fast_supported,
     from_fast,
     make_fast_segment,
     replica,

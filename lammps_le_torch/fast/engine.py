@@ -185,6 +185,13 @@ def block_reason(sim):
     return reason
 
 
+def fast_supported(sim) -> bool:
+    """True when the Simulation can run on the grid-resident fast path
+    (engine.py:298): ``block_reason`` finds nothing, so that
+    ``fast_block_reason`` would not raise."""
+    return block_reason(sim) is None
+
+
 def fast_block_reason(sim) -> None:
     """Raise NotImplementedError naming what this engine does not cover
     (``block_reason``): such a Simulation runs on the general path
@@ -759,7 +766,7 @@ def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
             c.rebuild(fs)
         fs.gx, fs.gv = K.kick_drift_halo(
             fs.gx, fs.gv, fs.gf, fs.bid, g.interior, g.halo_cols,
-            g.halo_src, g.halo_shift, n, kick, dt)
+            g.halo_src, g.halo_shift, n, kick, dt, g.images)
         fs.step = sstep
         if event:
             c.apply_events(fs, sstep)
@@ -825,7 +832,7 @@ def make_fast_segment(sim, thermo_every: int = 0, pallas=None,
         if event:
             fs.gx, fs.gv = drift(fs.gx, fs.gv, fs.gf, fs.bid, g.interior,
                                  g.halo_cols, g.halo_src, g.halo_shift, n,
-                                 kick, dt)
+                                 kick, dt, g.images)
             c.apply_events(fs, sstep)
             c.rebuild(fs)
         energy = sstep % c.energy_every == 0

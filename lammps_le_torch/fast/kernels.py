@@ -120,10 +120,10 @@ class LangevinArgs(ctypes.Structure):
 
 class StepPlanes(ctypes.Structure):
     _fields_ = ([(k, _P) for k in (
-        "gx", "gv", "gf", "gxr", "bid", "hn", "pid", "interior", "halo_cols",
-        "halo_src", "halo_shift", "exl", "exr", "active", "eb", "lgm",
-        "fpart", "ipart", "lpart", "zpart", "ctl")]
-        + [("H", _I), ("kick", _F), ("dt", _F)])
+        "gx", "gv", "gf", "gxr", "bid", "hn", "pid", "interior", "own",
+        "img_ptr", "img_idx", "img_src", "img_shift", "exl", "exr",
+        "active", "eb", "lgm", "fpart", "ipart", "lpart", "zpart", "ctl")]
+        + [("I", _I), ("kick", _F), ("dt", _F)])
 
 
 def _lib(name="step"):
@@ -148,7 +148,9 @@ def bind(paths):
     lib.lle_stencil_blocks.restype = _I
     lib.lle_stencil_max_cap.restype = _I
     lib.lle_kick_drift_halo.argtypes = (
-        [_P] * 10 + [_I] * 4 + [_F, _F, _I, _P])
+        [_P] * 13 + [_I] * 4 + [_F, _F, _I, _P])
+    lib.lle_kick_drift_shape.argtypes = [_I] * 3 + [ctypes.POINTER(_I)]
+    lib.lle_kick_drift_floor.argtypes = [_I] * 3 + [_P]
     lib.lle_stencil_forces.argtypes = [_P] * 10 + [StencilArgs, _I, _P]
     lib.lle_extruder_springs.argtypes = [_P] * 6 + [SpringArgs, _I, _P]
     lib.lle_langevin_kick_monitor.argtypes = (
@@ -159,7 +161,8 @@ def bind(paths):
     lib.lle_launch_begin.argtypes = [_P, _U, _U, _U, _I, _I, _F, _F, _P]
     lib.lle_step_ctl.argtypes = [StepPlanes, StencilArgs, SpringArgs,
                                  LangevinArgs, _P]
-    for fn in ("lle_kick_drift_halo", "lle_stencil_forces",
+    for fn in ("lle_kick_drift_halo", "lle_kick_drift_shape",
+               "lle_kick_drift_floor", "lle_stencil_forces",
                "lle_extruder_springs", "lle_langevin_kick_monitor",
                "lle_langevin_sums", "lle_langevin_kick_parts",
                "lle_launch_begin", "lle_step_ctl", "lle_ctl_words",
@@ -264,29 +267,73 @@ def _reps(lead):
 
 @_on_device
 def kick_drift_halo(gx, gv, gf, bid, interior, halo_cols, halo_src,
-                    halo_shift, n: int, kick: float, dt: float):
+                    halo_shift, n: int, kick: float, dt: float,
+                    images=None):
     """Half kick + drift of valid slots, then the halo columns refreshed
-    from their interior sources.  Returns new (gx, gv)."""
+    from their interior sources.  Returns new (gx, gv), and the send
+    buffer where ``images`` sends (``kernels_ref.kick_drift_halo``).
+
+    On the card the kernel writes each halo copy from its source's thread
+    by the image map ``images`` (``place.ImageTensors``: ``GridConsts
+    .images``, a slab's ``SlabPlan.images``), which it needs; it does not
+    read the halo lists, which the plain version takes."""
     if _on_cpu(gx):
         return ref.kick_drift_halo(gx, gv, gf, bid, interior, halo_cols,
-                                   halo_src, halo_shift, n, kick, dt)
+                                   halo_src, halo_shift, n, kick, dt, images)
+    if images is None:
+        raise ValueError("kick_drift_halo: the kernel writes the halo from "
+                         "the image map: pass images=")
     lead, cap, P = _planes(gx, bid, batch=True)
-    H = halo_cols.shape[0]
     _check("gv", gv, torch.float32, gx.shape)
     _check("gf", gf, torch.float32, gx.shape)
     _check("interior", interior, torch.bool, (P,))
-    _check("halo_cols", halo_cols, torch.int32, (H,))
-    _check("halo_src", halo_src, torch.int32, (H,))
-    _check("halo_shift", halo_shift, torch.float32, (3, H))
+    I = _check_images(images, cap, P)
+    if images.sizes and lead:
+        raise ValueError("kick_drift_halo: sent images take one run's "
+                         "planes")
     gx_out = torch.empty_like(gx)
     gv_out = torch.empty_like(gv)
+    send = (torch.empty(3 * cap * images.n_send, dtype=torch.float32,
+                        device=gx.device) if images.sizes else None)
     err = _lib().lle_kick_drift_halo(
         _ptr(gx), _ptr(gv), _ptr(gf), _ptr(bid), _ptr(interior),
-        _ptr(halo_cols), _ptr(halo_src), _ptr(halo_shift), _ptr(gx_out),
-        _ptr(gv_out), cap, P, H, n, kick, dt, _reps(lead), _stream())
+        _ptr(images.own), _ptr(images.ptr), _ptr(images.idx),
+        _ptr(images.src), _ptr(images.shift), _ptr(gx_out), _ptr(gv_out),
+        None if send is None else _ptr(send), cap, P, I, n, kick, dt,
+        _reps(lead), _stream())
     _raise("kick_drift_halo", err)
     LAUNCHES["kick_drift_halo"] += 1
-    return gx_out, gv_out
+    return (gx_out, gv_out) if send is None else (gx_out, gv_out, send)
+
+
+def _check_images(images, cap, P):
+    """The image map's tensors checked for (3, cap, P) planes: I."""
+    I = images.idx.shape[0]
+    if (images.cap, images.P) != (cap, P):
+        raise ValueError(f"kick_drift_halo: an image map of (cap, P) "
+                         f"{(images.cap, images.P)} for planes of "
+                         f"{(cap, P)}")
+    _check("images.own", images.own, torch.bool, (P,))
+    _check("images.ptr", images.ptr, torch.int32, (P + 1,))
+    _check("images.idx", images.idx, torch.int32, (I, 2))
+    _check("images.src", images.src, torch.int32, (I,))
+    _check("images.shift", images.shift, torch.float32, (3, I))
+    return I
+
+
+def kick_drift_shape(cap: int, P: int, R: int = 1):
+    """K2a's launch shape for (R, 3, cap, P) planes: (blocks, threads a
+    block, replicas)."""
+    out = (_I * 3)()
+    _raise("kick_drift_shape", _lib().lle_kick_drift_shape(cap, P, R, out))
+    return tuple(out)
+
+
+def kick_drift_floor(cap: int, P: int, R: int = 1):
+    """An empty kernel launched at K2a's launch shape on the current
+    device and stream: its launch floor.  Not counted."""
+    _raise("kick_drift_floor", _lib().lle_kick_drift_floor(cap, P, R,
+                                                           _stream()))
 
 
 def _stencil_args(C, n, strides, energy, cap, P):
@@ -694,11 +741,12 @@ class StepLoop:
         ptr = {k: (None if v is None else _ptr(v)) for k, v in b.items()}
         self.planes = StepPlanes(
             ptr["gx"], ptr["gv"], ptr["gf"], ptr["gx_ref"], ptr["bid"],
-            ptr["hn"], ptr["pid"], _ptr(g.interior), _ptr(g.halo_cols),
-            _ptr(g.halo_src), _ptr(g.halo_shift), ptr["exl_slot"],
+            ptr["hn"], ptr["pid"], _ptr(g.interior),
+            _ptr(g.images.own), _ptr(g.images.ptr), _ptr(g.images.idx),
+            _ptr(g.images.src), _ptr(g.images.shift), ptr["exl_slot"],
             ptr["exr_slot"], ptr["active"], ptr["eb"], ptr["lgm"],
             ptr["fpart"], ptr["ipart"], ptr["lpart"], ptr["zpart"],
-            ptr["ctl"], int(g.halo_cols.shape[0]), L.kick, L.dt)
+            ptr["ctl"], _check_images(g.images, cap, P), L.kick, L.dt)
         self.args = {e: _stencil_args(L.C, L.n, L.strides, e, cap, P)
                      for e in (False, True)}
         # E = 0: no springs step (the chain's ctx.S is None)

@@ -47,18 +47,43 @@ def valid_mask(bid: torch.Tensor, interior: torch.Tensor, n: int):
 
 
 def kick_drift_halo(gx, gv, gf, bid, interior, halo_cols, halo_src,
-                    halo_shift, n: int, kick: float, dt: float):
+                    halo_shift, n: int, kick: float, dt: float,
+                    images=None):
     """Half kick + drift of the valid slots (fix_nve.cpp:64-103), then the
     halo columns refreshed from their interior sources (forward_comm,
-    comm_brick.cpp:452).  ``halo_shift`` is (3, H).  Returns (gx, gv)."""
+    comm_brick.cpp:452).  ``halo_shift`` is (3, H).  Returns (gx, gv).
+
+    ``images`` (``place.ImageTensors``), if given, refreshes the halo in
+    place of the lists, from each source column to its images
+    (``halo_images``): the same copies.  Where it holds sent images (a
+    slab's), it returns (gx, gv, send buffer) and leaves the columns they
+    image to the slab exchange (``SlabPlan.halo``)."""
     if bid.dim() == 3:
         return per_replica(kick_drift_halo, (gx, gv, gf, bid), (
-            interior, halo_cols, halo_src, halo_shift, n, kick, dt))
+            interior, halo_cols, halo_src, halo_shift, n, kick, dt, images))
     valid = valid_mask(bid, interior, n).to(gx.dtype)
     gv = gv + kick * gf * valid
     gx = gx + dt * gv * valid
-    gx[:, :, halo_cols] = gx[:, :, halo_src] + halo_shift[:, None, :]
-    return gx, gv
+    if images is None:
+        gx[:, :, halo_cols] = gx[:, :, halo_src] + halo_shift[:, None, :]
+        return gx, gv
+    send = halo_images(gx, images)
+    return (gx, gv) if send is None else (gx, gv, send)
+
+
+def halo_images(gx, images):
+    """The halo copies of ``images`` (``place.ImageTensors``) from the
+    position planes ``gx`` (3, cap, P): the local images written into
+    ``gx`` in place, the sent ones returned as the flat send buffer (its
+    segments one after another, each (3, cap, columns)), or None where it
+    has none.  Every source is an interior column, which no image
+    writes."""
+    gx[:, :, images.loc_dst] = (gx[:, :, images.loc_src]
+                                + images.loc_shift[:, None, :])
+    if not images.sizes:
+        return None
+    vals = gx[:, :, images.send_src] + images.send_shift[:, None, :]
+    return torch.cat([v.reshape(-1) for v in vals.split(images.sizes, -1)])
 
 
 def _shift_minor(a, delta: int, fill):

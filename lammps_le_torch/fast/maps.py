@@ -10,6 +10,10 @@ added onto an interior value.  The lane-padding tail (columns >= p_raw) is
 in no face mask there and in no halo list here: it keeps its far-away
 fill from placement.
 
+``images`` inverts the halo map (``HaloImages``): each interior column's
+halo images, in CSR form over the source columns, so that K2a's kernel
+writes every halo copy from the thread that computed its source.
+
 ``faces``/``fold_shifts`` are the ghost-fold constants of
 ``pallas_step.make_halo_consts`` (pallas_step.py:513-551): the six ghost
 face masks (aux rows 0-5: x lo/hi, y lo/hi, z lo/hi) and, per axis, the
@@ -29,6 +33,54 @@ from ..system import System
 
 
 @dataclasses.dataclass(frozen=True)
+class HaloImages:
+    """The halo map of a plane of P columns inverted: the images of
+    source column c are ``[ptr[c], ptr[c + 1])``, sorted by source column
+    (in list order within one).  An image lands in column ``dst`` of the
+    plane itself (``seg`` -1) or at position ``dst`` of send segment
+    ``seg``: the images that another slab's plane takes (``halo_images``'
+    ``sends``).  ``own``: the columns whose slots write their own x (every
+    column but a local image's)."""
+
+    ptr: np.ndarray     # (P + 1,) int32
+    src: np.ndarray     # (I,) int32 source column
+    dst: np.ndarray     # (I,) int32 destination column or segment position
+    shift: np.ndarray   # (I, 3) coordinate shift
+    seg: np.ndarray     # (I,) int32 send segment, -1 if local
+    sizes: Tuple[int, ...]  # columns of each send segment
+    own: np.ndarray     # (P,) bool
+
+
+def halo_images(P: int, src, dst, shift, sends=()) -> HaloImages:
+    """The images of the halo lists (``src`` interior source column,
+    ``dst`` halo column of the same plane, ``shift`` (H, 3)) and of the
+    send segments ``sends`` (each a (source columns, shifts) pair, its
+    images at positions 0, 1, ... of the segment), inverted by source
+    column."""
+    segs = [(np.asarray(src, np.int64), np.asarray(dst, np.int64), shift)]
+    segs += [(np.asarray(s, np.int64), np.arange(len(s)), sh)
+             for s, sh in sends]
+    all_src = np.concatenate([s for s, _, _ in segs])
+    order = np.argsort(all_src, kind="stable")
+
+    def cat(parts):
+        return np.concatenate(parts)[order]
+
+    own = np.ones(P, bool)
+    own[segs[0][1]] = False
+    return HaloImages(
+        ptr=np.concatenate([[0], np.cumsum(np.bincount(
+            all_src, minlength=P))]).astype(np.int32),
+        src=all_src[order].astype(np.int32),
+        dst=cat([d for _, d, _ in segs]).astype(np.int32),
+        shift=cat([np.asarray(sh, np.float64).reshape(-1, 3)
+                   for _, _, sh in segs]),
+        seg=cat([np.full(len(s), g - 1) for g, (s, _, _) in
+                 enumerate(segs)]).astype(np.int32),
+        sizes=tuple(len(s) for s, _, _ in segs[1:]), own=own)
+
+
+@dataclasses.dataclass(frozen=True)
 class FastMaps:
     cap: int
     P: int
@@ -43,6 +95,7 @@ class FastMaps:
     halo_shift: np.ndarray   # (H, 3) their coordinate shifts
     faces: np.ndarray        # (6, P) bool ghost faces x lo/hi, y, z
     fold_shifts: Tuple[Tuple[int, int], ...]  # per axis (lo, hi) roll
+    images: HaloImages       # the halo map inverted
 
 
 _MAPS_CACHE: dict = {}
@@ -84,6 +137,8 @@ def fast_maps(system: System) -> FastMaps:
         shifts=shifts, halo_cols=halo_cols,
         halo_src=src_cols[halo_cols], halo_shift=shifts[halo_cols],
         faces=faces, fold_shifts=fold_shifts,
+        images=halo_images(p, src_cols[halo_cols], halo_cols,
+                           shifts[halo_cols]),
     )
     _MAPS_CACHE[key] = maps
     return maps

@@ -12,13 +12,78 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..ops.cells import cell_coords, const, wrap_positions
 from ..state import FLAG_CELL_OVERFLOW, extruder_partner
 from ..system import System
 from .kernels_ref import _FAR
-from .maps import FastMaps
+from .maps import FastMaps, HaloImages
+
+
+@dataclasses.dataclass
+class ImageTensors:
+    """A ``maps.HaloImages`` on the run's device, for one plane of
+    ``cap`` rows: the kernel's map (``ptr``, ``idx``, ``src``, ``shift``,
+    ``own``) and the plain version's lists (``loc_*``: the local images,
+    ``send_*``: the sent ones in segment order).  ``idx`` holds each
+    image's (base, w): a local image of row r and component k lands at
+    ``base + (k cap + r) w`` of the planes (base its column, w = P), a
+    sent one at ``base + (k cap + r) |w|`` of the send buffer (w = -its
+    segment's columns, base its segment's start, 3 cap columns before
+    it, plus its position): the send buffer holds the segments one after
+    another, each a (3, cap, columns) block."""
+
+    cap: int
+    P: int
+    sizes: tuple              # columns of each send segment
+    ptr: torch.Tensor         # (P + 1,) int32 CSR offsets
+    idx: torch.Tensor         # (I, 2) int32 (base, w)
+    src: torch.Tensor         # (I,) int32 source column
+    shift: torch.Tensor       # (3, I) run float type
+    own: torch.Tensor         # (P,) bool: the slot writes its own x
+    loc_src: torch.Tensor     # (L,) int64
+    loc_dst: torch.Tensor     # (L,) int64
+    loc_shift: torch.Tensor   # (3, L)
+    send_src: torch.Tensor    # (S,) int64, segment after segment
+    send_shift: torch.Tensor  # (3, S)
+
+    @property
+    def n_send(self) -> int:
+        return sum(self.sizes)
+
+    @property
+    def halo_lists(self):
+        """The local images as the halo lists the plain version's gather
+        takes: (halo_cols, halo_src, halo_shift (3, L))."""
+        return self.loc_dst, self.loc_src, self.loc_shift
+
+    @classmethod
+    def build(cls, im: HaloImages, cap: int, dtype, device):
+        P = im.own.shape[0]
+        sent = im.seg >= 0
+        start = np.concatenate([[0], np.cumsum(im.sizes)]).astype(np.int64)
+        size = np.asarray(im.sizes + (0,), np.int64)[im.seg]
+        base = np.where(sent, 3 * cap * start[im.seg], 0) + im.dst
+        w = np.where(sent, -size, P)
+        # the sent images in segment order, each segment by position
+        order = np.lexsort((im.dst, im.seg))[int((~sent).sum()):]
+        loc = np.nonzero(~sent)[0]
+
+        def t(a, dt=torch.int64):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                   device=device)
+
+        return cls(
+            cap=cap, P=P, sizes=tuple(int(n) for n in im.sizes),
+            ptr=t(im.ptr, torch.int32),
+            idx=t(np.stack([base, w], 1), torch.int32),
+            src=t(im.src, torch.int32),
+            shift=t(im.shift.T, dtype), own=t(im.own, torch.bool),
+            loc_src=t(im.src[loc]), loc_dst=t(im.dst[loc]),
+            loc_shift=t(im.shift[loc].T, dtype),
+            send_src=t(im.src[order]), send_shift=t(im.shift[order].T, dtype))
 
 
 @dataclasses.dataclass
@@ -31,6 +96,7 @@ class GridConsts:
     halo_shift: torch.Tensor  # (3, H) run float type
     has_next: torch.Tensor    # (N,) bool: bead has a chain-next link
     faces: torch.Tensor       # (6, P) bool ghost faces (FastMaps.faces)
+    images: ImageTensors      # the halo map inverted (FastMaps.images)
 
     @classmethod
     def build(cls, system: System, maps: FastMaps, device):
@@ -43,6 +109,7 @@ class GridConsts:
                                        dtype=dtype, device=device),
             has_next=torch.as_tensor(system.next_bead >= 0, device=device),
             faces=torch.as_tensor(maps.faces, device=device),
+            images=ImageTensors.build(maps.images, maps.cap, dtype, device),
         )
 
 

@@ -34,6 +34,8 @@ import torch
 from ..fast import kernels as K
 from ..fast.consts import StencilConsts
 from ..fast.kernels_ref import ghost_fold
+from ..fast.maps import halo_images
+from ..fast.place import ImageTensors
 from ..state import FLAG_BOND_REACH, FLAG_FENE_CLAMP
 from ..system import System
 
@@ -238,11 +240,14 @@ class SlabPlan:
     ``torch.device`` per slab), from the maps: slab s owns the columns
     [s C, (s + 1) C) of every plane.
 
-    ``halo``: the halo columns whose interior source lies in the slab
-    itself refresh inside ``kernels.kick_drift_halo`` (``local_halo``, in
-    slab columns); the others take their source columns from the slab
-    that owns them.  ``windows``: each slab's [M | C | M] window from its
-    own columns and its ring neighbours' M edge columns
+    ``halo``: ``kernels.kick_drift_halo`` with a slab's image map
+    (``images``) writes the halo columns whose interior source lies in
+    the slab itself (in slab columns) and, for each
+    other slab its columns image into, a segment of its send buffer;
+    each slab takes its other halo columns from those segments
+    (``halo_pairs``: per slab, (source slab, segment start and end, the
+    columns it lands in)).  ``windows``: each slab's [M | C | M] window
+    from its own columns and its ring neighbours' M edge columns
     (shard_step.py:187-194), grouped by device as ``make_sharded_kernel``
     groups them.  ``forces``: one ``window_forces`` launch per device,
     the margins' reactions sent back to their owners in the reference's
@@ -273,22 +278,29 @@ class SlabPlan:
         slab = np.arange(P) // C
         self.interior = [_index(maps.interior[s * C:(s + 1) * C], d,
                                 torch.bool) for s, d in enumerate(devs)]
-        # halo columns: local ones (the kernel's lists), remote ones
-        # grouped per destination slab by source slab
+        # halo columns: each slab's image map, its local images and one
+        # send segment per other slab its columns image into (in
+        # halo-list order), and each slab's receipts by source slab
         hc, hs = maps.halo_cols.astype(np.int64), maps.halo_src.astype(
             np.int64)
         hsh = maps.halo_shift
-        self.local_halo, self.remote_halo = [], []
+        self.images = []
+        self.halo_pairs = [[] for _ in devs]
         for s, d in enumerate(devs):
             loc = (slab[hc] == s) & (slab[hs] == s)
-            self.local_halo.append((
-                _index(hc[loc] - s * C, d, torch.int32),
-                _index(hs[loc] - s * C, d, torch.int32),
-                torch.as_tensor(hsh[loc].T.copy(), dtype=dtype, device=d)))
-            moves, rem = _routes(hs, hc, C, devs, s, own=False)
-            self.remote_halo.append((moves, _index(hc[rem] - s * C, d),
-                                     torch.as_tensor(hsh[rem].T.copy(),
-                                                     dtype=dtype, device=d)))
+            sends, at = [], 0
+            for t, dt in enumerate(devs):
+                sel = np.nonzero((slab[hs] == s) & (slab[hc] == t))[0]
+                if t == s or not sel.size:
+                    continue
+                sends.append((hs[sel] - s * C, hsh[sel]))
+                n_sel = 3 * self.cap * sel.size
+                self.halo_pairs[t].append(
+                    (s, at, at + n_sel, _index(hc[sel] - t * C, dt)))
+                at += n_sel
+            self.images.append(ImageTensors.build(
+                halo_images(C, hs[loc] - s * C, hc[loc] - s * C, hsh[loc],
+                            sends), self.cap, dtype, d))
         # the ghost fold: per axis z, y, x the keep mask of each slab and,
         # per direction (lo, hi) and destination slab, the face columns
         # of each source slab and where they land
@@ -322,18 +334,17 @@ class SlabPlan:
             return t
         return send(t.contiguous(), self.mesh[dst])
 
-    def halo(self, gx):
+    def halo(self, gx, sends):
         """The remote halo columns of every slab's position planes ``gx``
-        (a list, written in place) refreshed from their sources: the
-        halo refresh's gather (``kernels_ref.kick_drift_halo``) for the
-        columns whose source another slab owns."""
-        for s, (moves, dst, shift) in enumerate(self.remote_halo):
-            if not moves:
-                continue
-            vals = [self.recv(gx[t].index_select(-1, src), t, s)
-                    for t, src in moves]
-            vals = vals[0] if len(vals) == 1 else torch.cat(vals, -1)
-            gx[s].index_copy_(-1, dst, vals + shift[:, None, :])
+        (a list, written in place) from the slabs' send buffers ``sends``
+        (``kernels.kick_drift_halo`` with the slab's ``images``: each
+        image's source value plus its shift): per pair of slabs, one copy
+        of the source's segment and one ``index_copy_``."""
+        cap = self.cap
+        for s, pairs in enumerate(self.halo_pairs):
+            for t, lo, hi, dst in pairs:
+                seg = sends[t][lo:hi].view(3, cap, -1)
+                gx[s].index_copy_(-1, dst, self.recv(seg, t, s))
 
     def windows(self, planes):
         """Per device group, its slabs' windows of ``planes`` (each slab's

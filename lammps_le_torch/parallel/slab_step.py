@@ -9,9 +9,10 @@ A step, in the chain's order (``fast/engine.py``'s ``step``):
   an LE event step, the events and their rebuild, on ``mesh[0]`` from
   the slabs gathered there (rebuild's sort and scatter are global ops,
   spatial.py:17-19), then split again;
-* kick + drift per slab (``kernels.kick_drift_halo``, with the halo
-  columns whose source the slab owns), then the remote halo columns from
-  their sources' slabs;
+* kick + drift per slab (``kernels.kick_drift_halo`` with the slab's
+  image map: the halo columns whose source the slab owns, and the send
+  buffer of the others), then the remote halo columns from their
+  sources' send buffers;
 * the slab stencil (``window_forces``, one launch per device), the
   margins' reactions, the ghost fold, and the extruder springs on the
   anchors gathered onto ``mesh[0]`` (``shard_step.SlabPlan``);
@@ -110,15 +111,16 @@ def make_slab_segment(sim, mesh):
         if h.rebuild_due(sfs, sstep):
             # served BEFORE the drift (engine.py:1349-1360)
             boundary(sfs, h.rebuild)
-        gx, gv = [], []
+        gx, gv, sends = [], [], []
         for s in range(nsp):
-            cols, src, shift = p.local_halo[s]
-            x, v = K.kick_drift_halo(sfs.gx[s], sfs.gv[s], sfs.gf[s],
-                                     sfs.bid[s], p.interior[s], cols, src,
-                                     shift, n, h.kick, h.dt)
+            # a slab whose columns image into no other returns no buffer
+            x, v, *send = K.kick_drift_halo(
+                sfs.gx[s], sfs.gv[s], sfs.gf[s], sfs.bid[s], p.interior[s],
+                *p.images[s].halo_lists, n, h.kick, h.dt, p.images[s])
             gx.append(x)
             gv.append(v)
-        p.halo(gx)
+            sends.append(send[0] if send else None)
+        p.halo(gx, sends)
         sfs.gx, sfs.gv = tuple(gx), tuple(gv)
         sfs.step = sstep
         if h.is_event(sstep):

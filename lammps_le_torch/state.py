@@ -132,6 +132,12 @@ def extruder_partner(ex_left: torch.Tensor, ex_right: torch.Tensor,
     return partner[..., :n]
 
 
+def extruder_occupancy(state: State, n: int) -> torch.Tensor:
+    """(N,) bool: the bead carries an extruder anchor (state.py:146), from
+    ``extruder_partner`` on the state's extruder tables."""
+    return extruder_partner(state.ex_left, state.ex_right, n) >= 0
+
+
 def nbr_from_arrays(d: dict, device="cuda"):
     """A reference ``NeighborList`` or ``CellGrid`` given as a dict of
     numpy arrays (``idx`` / ``slot_bead`` + ``scatter_bead``, and

@@ -89,15 +89,90 @@ def _close(a, b):
                                                      1.0)
 
 
+def _misaligned(t):
+    """A contiguous copy of ``t`` one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 @pytest.mark.cuda
-def test_kick_drift_halo_bitwise(dev):
-    system, _, g, p, _ = _planes(dev)
-    args = (p[0], p[1], p[2], p[3], g.interior, g.halo_cols, g.halo_src,
+@pytest.mark.parametrize("form", ["out_of_place", "in_place", "unaligned"])
+def test_kick_drift_halo_bitwise(dev, form):
+    """K2a, one launch writing every halo copy from its source's thread by
+    the image map, bitwise its plain version (the halo lists' gather):
+    out of place, in place on the planes (the step loop's form), and on
+    planes not 16-byte aligned."""
+    system, maps, g, p, _ = _planes(dev)
+    # a NaN force on a halo slot and an inf one on a padding slot: the
+    # plain version's (kick * f) * 0 gives NaN v there
+    gf = p[2].clone()
+    gf[0, 0, int(maps.halo_cols[5])] = float("nan")
+    gf[1, 2, maps.P - 1] = float("inf")
+    args = (p[0], p[1], gf, p[3], g.interior, g.halo_cols, g.halo_src,
             g.halo_shift, system.n, 0.003, 0.006)
+    want = R.kick_drift_halo(*args)
     K.reset_launches()
-    for a, b in zip(K.kick_drift_halo(*args), R.kick_drift_halo(*args)):
-        assert torch.equal(a, b)
-    assert K.LAUNCHES["kick_drift_halo"] == 1
+    if form == "in_place":
+        gx, gv = p[0].clone(), p[1].clone()
+        im = g.images
+        _, cap, P = gx.shape
+        assert K._lib().lle_kick_drift_halo(
+            K._ptr(gx), K._ptr(gv), K._ptr(gf), K._ptr(p[3]),
+            K._ptr(g.interior), K._ptr(im.own), K._ptr(im.ptr),
+            K._ptr(im.idx), K._ptr(im.src), K._ptr(im.shift), K._ptr(gx),
+            K._ptr(gv), None,
+            cap, P, im.idx.shape[0], system.n, 0.003, 0.006, 1,
+            K._stream()) == 0
+        got = (gx, gv)
+    elif form == "unaligned":
+        got = K.kick_drift_halo(*map(_misaligned, args[:4]), *args[4:],
+                                images=g.images)
+        assert K.LAUNCHES["kick_drift_halo"] == 1
+    else:
+        got = K.kick_drift_halo(*args, images=g.images)
+        assert K.LAUNCHES["kick_drift_halo"] == 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.isnan(), b.isnan())
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+    assert bool(want[1].isnan().any())
+    with pytest.raises(ValueError, match="image map"):
+        K.kick_drift_halo(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sp", [2, 4])
+def test_kick_drift_halo_slab_sends(dev, sp):
+    """K2a on each slab with its image map (local images in place, the
+    others into its send buffer, one launch a slab), then
+    ``SlabPlan.halo`` from the send buffers: the slabs bitwise the whole
+    plane's plain kick + drift + halo refresh, and each slab's launch
+    bitwise its plain version, send buffer included."""
+    from lammps_le_torch.parallel.shard_step import SlabPlan
+
+    system, maps, g, p, _ = _planes(dev)
+    plan = SlabPlan(system, maps, [dev] * sp)
+    C = maps.P // sp
+    want = R.kick_drift_halo(p[0], p[1], p[2], p[3], g.interior,
+                             g.halo_cols, g.halo_src, g.halo_shift,
+                             system.n, 0.003, 0.006)
+    K.reset_launches()
+    xs, vs, sends = [], [], []
+    for s in range(sp):
+        a = tuple(t[..., s * C:(s + 1) * C].contiguous() for t in p[:4])
+        im = plan.images[s]
+        a += (plan.interior[s], *im.halo_lists, system.n, 0.003, 0.006, im)
+        got, ref = K.kick_drift_halo(*a), R.kick_drift_halo(*a)
+        assert len(got) == len(ref) == 3
+        assert all(torch.equal(x, y) for x, y in zip(got, ref))
+        xs.append(got[0])
+        vs.append(got[1])
+        sends.append(got[2])
+    assert K.LAUNCHES["kick_drift_halo"] == sp
+    plan.halo(xs, sends)
+    assert torch.equal(torch.cat(xs, -1), want[0])
+    assert torch.equal(torch.cat(vs, -1), want[1])
 
 
 # the pair stencils' cases: cap x energies x reciprocal form on thermal
@@ -737,7 +812,8 @@ def test_step_loop_ends_at_the_trigger(dev):
     """A 16-step launch that the trigger stops after d steps is a d-step
     launch from the same state, planes bit for bit and stats rows equal,
     and each ran d iterations of the graph's conditional node (no dead
-    steps); the graph's body is one step of 5 kernel nodes (zero off)."""
+    steps); the graph's body is one step of 4 kernel nodes (zero off):
+    K2a one, the stencil, its fold with the springs, the Langevin pass."""
     fs, real, plain, tail = _loop(dev)
     slot = int(fs.slot_of[1000])
     P = fs.bid.shape[1]
@@ -752,7 +828,7 @@ def test_step_loop_ends_at_the_trigger(dev):
     assert real.loop.iterations == d
     assert all(torch.equal(a, b) for a, b in zip(p16, p_d))
     assert torch.equal(s16, s_d)
-    assert real.loop.body_nodes()[0] == 5
+    assert real.loop.body_nodes()[0] == 4
 
 
 def _replica_planes(dev, R=3):
@@ -796,7 +872,7 @@ def test_batched_kernels_are_one_run_launches(dev, kernel):
         def call(gx, gv, gf, bid):
             return K.kick_drift_halo(gx, gv, gf, bid, g.interior,
                                      g.halo_cols, g.halo_src, g.halo_shift,
-                                     n, 0.003, 0.006)
+                                     n, 0.003, 0.006, g.images)
         batched, per = (p[0], p[1], p[2], p[3]), None
     elif kernel == "extruder_springs":
         S = SpringConsts(system, 2)
@@ -827,6 +903,11 @@ def test_batched_kernels_are_one_run_launches(dev, kernel):
         for a, b in zip(out, one):
             assert torch.equal(a[r], b)
     assert not torch.equal(out[0][0], out[0][1])
+    if kernel == "kick_drift_halo":
+        # and the plain version of R replicas, bit for bit
+        plain = R.kick_drift_halo(*batched, g.interior, g.halo_cols,
+                                  g.halo_src, g.halo_shift, n, 0.003, 0.006)
+        assert all(torch.equal(a, b) for a, b in zip(out, plain))
 
 
 @pytest.mark.cuda

@@ -8,7 +8,8 @@ Langevin pass, on melt32 on CPU meshes (``["cpu"] * k``).
 melt32 state with a Langevin group plane, sp and dp x sp);
 ``shard_fast_state`` then ``gather_fast_state`` is bit for bit the state
 at sp = 2 and 4 and at dp = 2 x sp = 2; the slabs' ghost fold and halo
-refresh are the whole planes' bit for bit; the split Langevin pass
+refresh (each slab's image map: its local images and its send buffer)
+are the whole planes' bit for bit; the split Langevin pass
 (``langevin_sums``, ``langevin_kick_parts``, ``merge_monitor``) is the
 whole pass bit for bit on one slab, and its monitor is the whole pass's
 over slabs; ``make_replicated_sharded_segment`` on a 2 x 2 mesh runs each
@@ -149,9 +150,10 @@ def _split(plane, sp):
 def test_slab_exchanges_are_the_whole_planes(sp):
     """The slabs' ghost fold (each face's columns sent to the slab of the
     columns they image, past the margin) is kernels_ref.ghost_fold on the
-    whole planes, and the halo refresh (local columns by the kernel's
-    lists, the others from their sources' slabs) the whole planes'
-    gather, bit for bit, on random planes."""
+    whole planes, and the halo refresh (each slab's image map: its local
+    images in place, the others through its send buffer to the slabs
+    they land in) the whole planes' gather, bit for bit, on random
+    planes."""
     system, _ = melt_arrays()
     maps = fast_maps(system)
     plan = SlabPlan(system, maps, ["cpu"] * sp)
@@ -163,11 +165,10 @@ def test_slab_exchanges_are_the_whole_planes(sp):
     assert torch.equal(got, want)
     want = halo_refresh(f.clone(), g)
     slabs = _split(f, sp)
-    for x, (cols, src, shift) in zip(slabs, plan.local_halo):
-        x[..., cols.long()] = x[..., src.long()] + shift[:, None, :]
-    plan.halo(slabs)
+    sends = [R.halo_images(x, im) for x, im in zip(slabs, plan.images)]
+    plan.halo(slabs, sends)
     assert torch.equal(torch.cat(slabs, -1), want)
-    assert sum(len(m) for m, _, _ in plan.remote_halo) > 0
+    assert sum(len(p) for p in plan.halo_pairs) > 0
 
 
 @pytest.mark.parametrize("lan", ["all", "group", "zero"])
