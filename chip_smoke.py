@@ -240,6 +240,8 @@ GEN_PROFILE_STEPS = 20
 # minimize decks on its data jittered by 0.1 (fire to max|F| < 0.1, cg to
 # the energy tolerance 1e-6), f64
 C4 = dict(beads=10_000, measure=2000)
+# the contract phase: config 5's steps through the positional run
+CONTRACT_STEPS = 12
 CONFIG4_DECK = """
 units lj
 atom_style bond
@@ -455,7 +457,7 @@ def measured_segment(sim, state, dev, warm, measure, profile_steps,
 
     segment = segment or make_fast_segment(
         sim, pallas=pallas, kernel_fn=kernel_fn, device=dev)[0]
-    fs = to_fast(state, sim, kernel_fn, groups)
+    fs = to_fast(state, sim, groups, kernel_fn=kernel_fn)
     if mesh is not None:
         fs = shard_fast_state(fs, mesh)
     b0 = fs.step
@@ -1555,7 +1557,7 @@ def slab_host_ops(sp, n_beads=BEADS, device="cpu", counted=1):
     sim = Simulation(system=system, dt=0.006, energy_every=100,
                      fixes=le_fixes(), ex_btype=2)
     seg = make_sharded_segment(sim, [torch.device(device)] * sp)
-    fs = to_fast(state, sim, seg.kernel_fn)
+    fs = to_fast(state, sim, kernel_fn=seg.kernel_fn)
     whole, _ = make_fast_segment(sim, pallas=False, kernel_fn=seg.kernel_fn,
                                  device=device)
     inside = [0]
@@ -1911,7 +1913,7 @@ def zero_slab_window(sim, start, dev, groups):
     system = sim.system
     mesh = slab_mesh(SP_PATH)
     seg = make_sharded_segment(sim, mesh)
-    fs0 = to_fast(start, sim, seg.kernel_fn, groups)
+    fs0 = to_fast(start, sim, groups, kernel_fn=seg.kernel_fn)
     b = fs0.step
     whole, _ = make_fast_segment(sim, pallas=False, kernel_fn=seg.kernel_fn,
                                  device=dev)
@@ -2018,7 +2020,8 @@ def multi_card_path(sim, settled, start, dev, window4, sps):
     rseg = make_replicated_sharded_segment(sim, rows)
     if rseg.shard_reason:
         fail(f"dp x sp refused: {rseg.shard_reason}")
-    starts = [to_fast(bench_replica(settled, i), sim, rseg.kernel_fn)
+    starts = [to_fast(bench_replica(settled, i), sim,
+                      kernel_fn=rseg.kernel_fn)
               for i in range(DP_REPLICAS)]
     b = starts[0].step
     runs = shard_fast_state(stack_fast(starts), rows)
@@ -2494,6 +2497,89 @@ def bead_positions(fs, system):
     return extract_beads(fs, fast_maps(system))[0]
 
 
+def straddle_explain(gx, bid, hn, pid, valid, C, n, strides, diff, thr):
+    """Explain a Newton-half stencil's deviation ``diff`` (3, cap, P),
+    float64, from the full stencil on the planes ``gx`` (3, cap, P) f32,
+    ``bid``, ``hn``, ``pid`` (cap, P) and ``valid`` (cap, P) bool, numpy
+    each, beyond ``thr``: by the pairs that straddle the LJ cut.
+
+    The full stencil gives bead b the pair with j at b's own view of it,
+    the slot of j (or its ghost image) in b's 27 cells.  The Newton-half
+    one computes each pair once, from the bead that sees the other at a
+    forward offset, and gives the other the reaction (through its ghost
+    image's fold where that slot is a ghost).  Where b sees j's ghost at
+    a backward offset, the two forms' squared distances, x_b - (x_j +
+    shift) and x_j - (x_b - shift) in f32 (csrc/stencil.cuh's operand
+    order, no FMA), differ by the images' rounding, and a pair whose two
+    distances fall on opposite sides of ``cutsq`` adds its LJ force to
+    one form only.  Each bead whose deviation passes ``thr`` must have
+    such pairs, and its deviation must be their float64 LJ forces'
+    (half minus full) within ``thr``.  Returns (beads, pairs, largest
+    residual, the beads left unexplained: (bead, pairs, residual))."""
+    from lammps_le_torch.ops.grid import _OFFSETS
+
+    cap, P = bid.shape
+    sx, sy, sz = strides
+    deltas = np.array([a * sx + b * sy + c * sz for a, b, c in _OFFSETS])
+    back = np.array([o < (0, 0, 0) for o in _OFFSETS])
+    x = gx.reshape(3, -1).astype(np.float32)
+    b_of, ok = bid.reshape(-1), valid.reshape(-1)
+    pid_of = pid.reshape(-1)
+    u1 = np.where(hn.reshape(-1).astype(bool), b_of + 1, n + 2)
+    slot_of = np.full(n + 1, -1, np.int64)
+    slot_of[b_of[ok]] = np.flatnonzero(ok)
+    cut = np.float32(C.cutsq)
+    rows = np.arange(cap)[:, None] * P
+
+    def view(s):
+        """The occupied slots of s's 27 cells, (cap, 27), and whether
+        each lies at a backward offset."""
+        q = rows + (s % P + deltas[None, :]) % P
+        return q, np.broadcast_to(back, q.shape)
+
+    def rsq32(s, q):
+        d = x[:, s] - x[:, q]
+        return d[0] * d[0] + d[1] * d[1] + d[2] * d[2], d.astype(np.float64)
+
+    def lj(d):
+        r2 = 1.0 / float(d @ d)
+        r6 = r2 * r2 * r2
+        return d * (r6 * (C.lj1 * r6 - C.lj2) * r2)
+
+    dev = diff.reshape(3, -1)
+    over = np.flatnonzero(ok & (np.abs(dev).max(0) > thr))
+    n_pairs, worst, left = 0, 0.0, []
+    for s in over:
+        bi = b_of[s]
+        want = np.zeros(3)
+        found = 0
+        qs, bk = view(s)
+        for q in qs[bk & (b_of[qs] < n) & ~ok[qs]]:
+            bj = b_of[q]
+            if bj == bi or bj == u1[s] or bi == u1[q] or bj == pid_of[s]:
+                continue  # bonded or excluded: no LJ at the cut
+            sj = slot_of[bj]
+            if sj < 0:
+                continue
+            qj = view(sj)[0].reshape(-1)
+            qj = qj[b_of[qj] == bi]
+            if qj.size != 1:
+                continue
+            r_b, d_b = rsq32(s, q)
+            r_j, d_j = rsq32(sj, qj[0])
+            if (r_b < cut) == (r_j < cut):
+                continue
+            found += 1
+            # the half form's reaction on b, or the full form's force
+            want -= lj(d_j) if r_j < cut else lj(d_b)
+        res = float(np.abs(dev[:, s] - want).max())
+        n_pairs += found
+        worst = max(worst, res)
+        if not found or res > thr:
+            left.append((int(bi), found, res))
+    return len(over), n_pairs, worst, left
+
+
 def witness(label, sim, start, dev, kernel_fn, fs_ref, x_full,
             newton=False):
     """The path's window once more from the same settled state, with every
@@ -2506,9 +2592,12 @@ def witness(label, sim, start, dev, kernel_fn, fs_ref, x_full,
     full stencil counts on the same planes comes from the trajectory, not
     from the path's stencil; how far the trajectory has drifted from the
     full-stencil path's is the largest minimum-image distance of a bead
-    from its place ``x_full`` at the end of that path.  Prints the calls
-    with clamps and the largest deviation from stencil_forces; fails on a
-    disagreement."""
+    from its place ``x_full`` at the end of that path.  With ``newton``
+    every call whose forces deviate from stencil_forces' by more than
+    F_REL x max|f| is also held to stencil_forces: the pairs straddling
+    the LJ cut must explain each bead past that (``straddle_explain``).
+    Prints the calls with clamps, the largest deviation from
+    stencil_forces and the straddles; fails on a disagreement."""
     import torch
 
     from lammps_le_torch.fast import kernels as K
@@ -2521,7 +2610,7 @@ def witness(label, sim, start, dev, kernel_fn, fs_ref, x_full,
     C, n = StencilConsts(system), system.n
     held, tol = (("newton_half_forces", F_REL) if newton
                  else ("stencil_forces", F_REL_STENCILS))
-    log = []
+    log, straddles = [], []
 
     def shadowed(g, gx, bid, hn, pid, energy: bool):
         out = kernel_fn(g, gx, bid, hn, pid, energy)
@@ -2536,6 +2625,14 @@ def witness(label, sim, start, dev, kernel_fn, fs_ref, x_full,
                 gx, bid, hn, pid, g.interior, g.faces, C, n, maps.strides,
                 maps.fold_shifts, energy)[0]
             err = (gf_n - out[0]).abs().max() / scale
+            if float(err_full) > F_REL:
+                # held to stencil_forces too: the straddling pairs
+                # explain every bead past F_REL, or the run fails
+                host = [t.cpu().numpy() for t in (gx, bid, hn, pid, valid)]
+                straddles.append((len(log), float(scale), straddle_explain(
+                    *host, C, n, maps.strides,
+                    (out[0].double() - gf_s.double() * valid).cpu().numpy(),
+                    F_REL * float(scale))))
         log.append(torch.cat([torch.stack([err, err_full]).double(),
                               out[2].double(), in_s.double()]))
         return out
@@ -2563,6 +2660,19 @@ def witness(label, sim, start, dev, kernel_fn, fs_ref, x_full,
           f"{clamped}; end bitwise the measured run's {same}; a bead at most"
           f" {drift:.4g} from its place at the end of the full-stencil path",
           flush=True)
+    if newton:
+        beads = sum(r[0] for _, _, r in straddles)
+        pairs = sum(r[1] for _, _, r in straddles)
+        resid = max([r[2] / sc for _, sc, r in straddles], default=0.0)
+        left = [(k, r[3]) for k, _, r in straddles if r[3] or not r[0]]
+        print(f"witness {label} straddles: {len(straddles)} calls past "
+              f"{F_REL} x max|f| of stencil_forces, {beads} beads there "
+              f"explained by {pairs} pairs straddling the LJ cut in f32 "
+              f"(the two forms' images), largest residual {resid:.3g} x "
+              f"max|f| (tol {F_REL}); unexplained {left[:5]}", flush=True)
+        if left:
+            fail(f"witness {label}: deviations from stencil_forces that no "
+                 f"straddling pair explains: {left[:5]}")
     if not worst <= tol or len(differ):
         fail(f"witness {label}: the path's stencil and {held} disagree on "
              f"the run's planes ({worst}, calls {differ.tolist()[:10]})")
@@ -2648,7 +2758,7 @@ def small_end_to_end(dev, steps=40, stencil="stencil_forces"):
             sim, pallas=None if kernel_fn is None else False,
             kernel_fn=kernel_fn, device=d)
         K.reset_launches()
-        fs = to_fast(st, sim, kernel_fn)
+        fs = to_fast(st, sim, kernel_fn=kernel_fn)
         segment(fs, fs.step, steps, fs.step, fs.step + steps)
         out[str(d)] = from_fast(fs, system), dict(K.LAUNCHES), fs.n_launches
     (a, la, _), (b, lb, nl) = out["cpu"], out[str(dev)]
@@ -3843,6 +3953,110 @@ def minimize_phase(dev):
             fail(f"minimize {style} on the card differs from the CPU")
 
 
+def contract_phase(dev, card, sim5, start, groups):
+    """The port's public contract on the card, the reference's calls:
+    path 5's ``to_fast(state, sim, groups)`` positionally against its
+    keyword form (bitwise); config 4's deck with its extrusion, ex_load
+    and ex_unload fixes on a named group of every bead through
+    ``DeckRunner``, ``run 300`` and then its measured ``run 2000`` (where
+    the LE fixes load and move extruders), which must take K2's step loop
+    and end each run bitwise the ungrouped deck (positions, velocities,
+    extruder tables, counters);
+    and config 5's ``run`` called with the reference's nine positional
+    arguments (thermo every 5, ``max_segment`` 3, a boundary callback
+    every 4) against its keyword call: the same rows, callback steps and
+    final State, bitwise.  Returns the phase's wall seconds."""
+    import torch
+
+    from lammps_le_torch.fast import to_fast
+    from lammps_le_torch.integrate import run
+    from lammps_le_torch.state import init_state
+
+    t0 = time.perf_counter()
+    a = to_fast(start, sim5, groups)
+    b = to_fast(start, sim5, groups=groups)
+    differ = same_state(a, b)
+    print(f"contract: path 5's to_fast(state, sim, groups) against "
+          f"groups=: {len(differ)} fields differ {differ}; group plane "
+          f"sum {float(a.lgm.sum()):.0f}", flush=True)
+    if differ or a.lgm is None:
+        fail(f"contract: positional to_fast differs in {differ}")
+    del a, b
+
+    td = deck_dir(C4["beads"], 5, 0.01, "data.le")
+    ends = {}
+    for label, deck in (("ungrouped", CONFIG4_DECK), ("grouped", (
+            CONFIG4_DECK.replace(
+                "read_data data.le\n",
+                f"read_data data.le\ngroup chain id 1:{C4['beads']}\n")
+            .replace("fix loop all ", "fix loop chain ")
+            .replace("fix loading all ", "fix loading chain ")
+            .replace("fix unloading all ", "fix unloading chain ")))):
+        logged = []
+        r = deck_runner("float32", dev, logged)
+        r.run_file(write_deck(td, f"in.{label}", deck))
+        ends[label] = [r.state]
+        r.command("run", [str(C4["measure"])])
+        ends[label].append(r.state)
+        engine = [m for m in logged if m.startswith("Engine:")]
+        print(f"contract: config 4 deck {label}: {engine}", flush=True)
+        if len(engine) != 2 or not all("K2 step loop" in m for m in engine):
+            fail(f"contract: config 4 {label} did not take K2's step loop: "
+                 f"{engine}")
+        del r
+    for a, b in zip(ends["ungrouped"], ends["grouped"]):
+        same = all(torch.equal(getattr(a, k), getattr(b, k)) for k in (
+            "x", "v", "ex_left", "ex_right", "step", "n_moves", "n_loads",
+            "n_unloads", "flags"))
+        print(f"contract: grouped config 4 ends bitwise the ungrouped at "
+              f"step {int(a.step)}: {same} (moves {int(a.n_moves)}, loads "
+              f"{int(a.n_loads)}, unloads {int(a.n_unloads)}, extruders "
+              f"{int((a.ex_left >= 0).sum())})", flush=True)
+        if not same:
+            fail("contract: the grouped config 4 deck ended elsewhere")
+    if int(a.n_moves) == 0 or int(a.n_loads) == 0:
+        fail("contract: config 4's LE fixes did not act in its runs")
+    del ends
+
+    spec = GENERAL[5]
+    system, data, sim, _, seed = general_config(5, spec)
+    outs = []
+    for positional in (True, False):
+        state = init_state(system, data.x, types=data.types, seed=seed,
+                           device=dev)
+        rows, bounds = [], []
+
+        def on_row(row, st):
+            rows.append(row)
+
+        def on_boundary(st):
+            bounds.append(int(st.step))
+
+        if positional:
+            st, ret = run(sim, state, CONTRACT_STEPS, None, 5, on_row, 3, 4,
+                          on_boundary)
+        else:
+            st, ret = run(sim, state, CONTRACT_STEPS, thermo_every=5,
+                          thermo_callback=on_row, boundary_every=4,
+                          boundary_callback=on_boundary)
+        outs.append((st, ret, rows, bounds))
+    (sa, ra, ca, ba), (sb, rb, cb, bb) = outs
+    bitwise = all(torch.equal(getattr(sa, k), getattr(sb, k)) for k in (
+        "x", "v", "f", "ex_left", "ex_right", "step", "flags"))
+    print(f"contract: config 5's run with the reference's positional "
+          f"arguments (max_segment 3) against the keyword call: rows "
+          f"{[r.step for r in ra]} equal {ra == rb and ca == cb}, "
+          f"callbacks at {ba} equal {ba == bb}, final State bitwise "
+          f"{bitwise}; T {ra[-1].temp:.6f}", flush=True)
+    if not (ra == rb and ca == cb and ba == bb and bitwise
+            and len(ra) == 4 and ba == [0, 4, 8, 12]):
+        fail("contract: the positional run differs from the keyword call")
+    wall = time.perf_counter() - t0
+    print(f"contract phase ({card}): {wall:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return wall
+
+
 def deck_path(dev, card, profile_steps=0):
     """Path 8: config 4 through the deck runner, the CLI, restart, card
     against CPU and minimize.  Returns (records, config 4 steps/s)."""
@@ -4284,8 +4498,12 @@ def main(argv=None):
           f"{zg['t'][0] / zg['t_nozero'][0]:.3f}", flush=True)
     print(f"100k steps/s in this call ({card}): "
           + ", ".join(f"{k} {v:.2f}" for k, v in sps.items()), flush=True)
-    del fs, g, start, x_full
+    del fs, g, x_full
     torch.cuda.empty_cache()
+
+    # the port's public contract with the reference on the card
+    contract_phase(dev, card, sim5, start, groups)
+    del start
 
     # config 6: past the whole-plane gate, the Newton-half stencil
     t0 = time.perf_counter()

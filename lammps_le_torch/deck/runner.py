@@ -2306,8 +2306,7 @@ class DeckRunner:
 
                 save_checkpoint(os.path.join(self.root, self.restart_path), st)
 
-        from ..fast import run_fast
-        from ..fast.engine import block_reason
+        from ..fast import fast_block_reason, run_fast
         from ..io.dump import run_with_dumps
 
         t0 = time.perf_counter()
@@ -2317,7 +2316,7 @@ class DeckRunner:
         # the general path; on the card it runs whatever the size, as the
         # reference's does on the TPU.
         on_card = self.state.x.device.type == "cuda"
-        reason = block_reason(self.sim)
+        reason = fast_block_reason(self.sim)
         if reason is None and os.environ.get("LLE_FAST", "1") == "0":
             reason = "LLE_FAST=0"
         if reason is None and not (on_card or self.system.n >= 20000):

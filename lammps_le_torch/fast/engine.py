@@ -54,7 +54,7 @@ from ..fixes.ex_load import make_ex_load_update
 from ..fixes.ex_unload import make_ex_unload_update
 from ..fixes.extrusion import make_extrusion_update
 from ..state import (FLAG_BOND_REACH, FLAG_FENE_CLAMP, FLAG_NON_FINITE,
-                     FLAG_SKIN_VIOLATION, State, extruder_partner)
+                     FLAG_SKIN_VIOLATION, State, _partner_table)
 from ..system import BOND_FENE, BOND_HARMONIC, System
 from . import kernels as K
 from . import kernels_ref as R
@@ -129,80 +129,62 @@ class ThermoSample(NamedTuple):
 # support check
 
 
-def block_reason(sim):
-    """What this engine does not cover in ``sim`` (the reference's
-    fast_block_reason checks, engine.py:240), or None when it covers it:
-    the deck runner names the reason on its ``Engine:`` line."""
+def fast_block_reason(sim):
+    """None when this engine covers ``sim``, else a one-line reason, the
+    reference's text in the reference's order of checks (engine.py:240):
+    the deck runner names it on its ``Engine:`` line.  The LE fixes' group
+    is read by neither engine, so it blocks nothing."""
     system = sim.system
-    reason = None
+    if not system.neighbor.use_cells or system.neighbor.mode != "grid":
+        return "neighbor mode is not the dense cell grid"
+    pp = system.pair
+    if pp is None or not all(
+            bool(np.all(np.asarray(a) == np.asarray(a).flat[0]))
+            for a in (pp.epsilon, pp.sigma, pp.cutoff)):
+        return "per-type pair coefficients differ (uniform-LJ fast path)"
+    if not bool(np.all(system.masses == system.masses.flat[0])):
+        return "per-type masses differ"
+    s12, s13, s14 = system.special_lj
+    if s12 != 0.0 or s13 != 1.0 or s14 != 1.0:
+        return f"special_bonds {s12}/{s13}/{s14} (fast path is 0/1/1)"
+    if system.bonds is None:
+        return "no bond styles defined"
+    if system.angles is not None:
+        return "angle styles present (chain-bending is general-engine)"
     bts = np.asarray(system.backbone_type)
     used = bts[bts >= 0]
-    if not system.neighbor.use_cells or system.neighbor.mode != "grid":
-        reason = "neighbor mode is not the dense cell grid"
-    elif system.pair is None or not all(
-            bool(np.all(np.asarray(a) == np.asarray(a).flat[0]))
-            for a in (system.pair.epsilon, system.pair.sigma,
-                      system.pair.cutoff)):
-        reason = "per-type pair coefficients differ (uniform-LJ fast path)"
-    elif not bool(np.all(system.masses == system.masses.flat[0])):
-        reason = "per-type masses differ"
-    elif tuple(system.special_lj) != (0.0, 1.0, 1.0):
-        reason = f"special_bonds {system.special_lj} (fast path is 0/1/1)"
-    elif system.bonds is None:
-        reason = "no bond styles defined"
-    elif system.angles is not None:
-        reason = "angle styles present (chain-bending is general-engine)"
-    elif used.size and (np.any(used != used[0]) or int(
+    if used.size and (np.any(used != used[0]) or int(
             system.bonds.style[used[0]]) != BOND_FENE):
-        reason = "backbone bonds are not a single FENE type"
-    elif sim.ex_btype > 0 and int(system.bonds.style[sim.ex_btype - 1]) \
-            not in (BOND_FENE, BOND_HARMONIC):
-        reason = "extruder bond style is neither FENE nor harmonic"
+        return "backbone bonds are not a single FENE type"
     n_nve = n_lan = 0
     for f in sim.fixes:
-        if reason:
-            break
         if type(f) is NVE:
             if f.group is not None:
-                reason = "fix nve with a group (fast path integrates all)"
+                return "fix nve with a group (fast path integrates all)"
             n_nve += 1
-        elif type(f) is Langevin:
+        elif isinstance(f, Langevin):
             if f.tally or f.gjf != "no":
-                # tally and gjf are general-engine options in the
-                # reference too (engine.py:273-281); zero and group ride
-                # the fast path
+                # tally and gjf are general-engine options; zero and
+                # group ride the fast path
                 opt = "tally" if f.tally else f"gjf {f.gjf}"
-                reason = f"fix langevin {opt} (general-engine option)"
+                return f"fix langevin {opt} (general-engine option)"
             n_lan += 1
-        elif type(f) not in (Extrusion, ExLoad, ExUnload):
-            reason = f"fix {type(f).__name__} (general-engine fix)"
-        elif f.group is not None:
-            reason = f"fix {type(f).__name__} with a group"
-    if not reason and n_nve != 1:
-        reason = f"{n_nve} fix nve (fast path needs exactly one)"
-    if not reason and n_lan > 1:
-        reason = f"{n_lan} fix langevin (fast path supports at most one)"
-    return reason
+        elif not isinstance(f, (Extrusion, ExLoad, ExUnload)):
+            return f"fix {type(f).__name__} is not fast-path capable"
+    if sim.ex_btype > 0 and int(system.bonds.style[sim.ex_btype - 1]) \
+            not in (BOND_FENE, BOND_HARMONIC):
+        return "extruder bond style is neither FENE nor harmonic"
+    if n_nve != 1:
+        return f"{n_nve} fix nve (fast path needs exactly one)"
+    if n_lan > 1:
+        return f"{n_lan} fix langevin (fast path supports at most one)"
+    return None
 
 
 def fast_supported(sim) -> bool:
     """True when the Simulation can run on the grid-resident fast path
-    (engine.py:298): ``block_reason`` finds nothing, so that
-    ``fast_block_reason`` would not raise."""
-    return block_reason(sim) is None
-
-
-def fast_block_reason(sim) -> None:
-    """Raise NotImplementedError naming what this engine does not cover
-    (``block_reason``): such a Simulation runs on the general path
-    (``integrate.run``), which the caller picks; return None when
-    covered.  A Simulation is never quietly run on something else."""
-    reason = block_reason(sim)
-    if reason:
-        raise NotImplementedError(
-            f"lammps_le_torch fast engine: {reason}; run it on the general "
-            "path (lammps_le_torch.integrate.run)")
-    return None
+    (engine.py:298)."""
+    return fast_block_reason(sim) is None
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +237,13 @@ class _Ctx:
 
 
 def _ctx(sim, device, kernel_fn=None) -> _Ctx:
-    fast_block_reason(sim)
+    reason = fast_block_reason(sim)
+    if reason:
+        # never a quiet run on something else: the caller picks the
+        # general path (lammps_le_torch.integrate.run)
+        raise NotImplementedError(
+            f"lammps_le_torch fast engine: {reason}; run it on the general "
+            "path (lammps_le_torch.integrate.run)")
     system = sim.system
     maps = fast_maps(system)
     return _Ctx(
@@ -327,11 +315,12 @@ def _lgm_plane(member, slot_of, maps: FastMaps, dtype):
     return flat.reshape(lead + (maps.cap, maps.P))
 
 
-def to_fast(state: State, sim, kernel_fn=None, groups=None) -> FastState:
+def to_fast(state: State, sim, groups=None, *,
+            kernel_fn=None) -> FastState:
     """Bead-layout State -> grid residency, with initial forces and
-    energies (engine.to_fast, the Verlet::setup analog).  ``kernel_fn``:
-    the stencil, as make_fast_segment's; ``groups``: the deck's name ->
-    (N,) bool masks, needed when the Langevin fix names a group."""
+    energies (engine.to_fast, the Verlet::setup analog).  ``groups``: the
+    deck's name -> (N,) bool masks, needed when the Langevin fix names a
+    group; ``kernel_fn``: the stencil, as make_fast_segment's."""
     ctx = _ctx(sim, state.x.device, kernel_fn)
     system = ctx.system
     (gx, gv, _, bid, hn, pid, slot_of, exl, exr, _, img, overflow) = place(
@@ -616,7 +605,7 @@ def chain_parts(sim, thermo_every: int = 0, reactive: bool = True,
     def retable(fs: FastState, left, right):
         """Partner plane + anchor slots after an extruder-table edit."""
         fs.ex_left, fs.ex_right = left, right
-        partner = extruder_partner(left, right, n)
+        partner = _partner_table(left, right, n)
         pid = torch.full((capP + n,), -1, dtype=torch.int32, device=device)
         pid[fs.slot_of] = partner.to(torch.int32)
         fs.pid = halo_refresh_int(pid[:capP].reshape(1, cap, P), g)[0]
@@ -645,7 +634,7 @@ def chain_parts(sim, thermo_every: int = 0, reactive: bool = True,
                                           (kinds[type(f)] << 20) + fid),
                               f.seed)
             x = extract_beads(fs, maps)[0]
-            occ = extruder_partner(fs.ex_left, fs.ex_right, n) >= 0
+            occ = _partner_table(fs.ex_left, fs.ex_right, n) >= 0
             last = fs.last_event.clone()
             if isinstance(f, Extrusion):
                 l, r, nm, nrel = update(x, fs.types, fs.ex_left,
@@ -932,7 +921,7 @@ def run_fast(sim, state: State, nsteps: int, thermo_every: int = 0,
     system = sim.system
     segment, _ = make_fast_segment(sim, thermo_every, kernel_fn=kernel_fn,
                                    device=state.x.device)
-    fs = to_fast(state, sim, kernel_fn, groups)
+    fs = to_fast(state, sim, groups, kernel_fn=kernel_fn)
     rows = []
 
     def emit(fs):

@@ -64,13 +64,15 @@ def skin_cuts(system: System):
 
 
 def make_step_kernel(system: System, maps: FastMaps, ex_btype: int, *,
-                     dt: float, langevin, g: GridConsts,
-                     interpret: bool = False):
+                     dt: float, langevin, energy: bool = False,
+                     g: GridConsts = None, interpret: bool = False):
     """Build ``call(gx, gv, gf, gx_ref, bid, hn, pid, exl_slot, exr_slot,
     active, lgm, sstep, do_drift, key_words, t_target, t_slope, limit,
-    energy=False) -> (gx, gv, gf, stats)`` advancing ``d`` = 1..limit
+    energy) -> (gx, gv, gf, stats)`` advancing ``d`` = 1..limit
     steps (pallas_step.py:554).  ``langevin``: the run's Langevin fix or
-    None; ``g``: the run's GridConsts (its device is the call's);
+    None; ``energy``: whether a call sums the energies when it is not
+    told (the reference builds one kernel each way); ``g``: the run's
+    GridConsts (its device is the call's; None builds them on the card);
     ``key_words``: the run-constant Langevin key words (the step enters
     through the counter only); ``stats``: the reference's rows, read back
     to the host (``kernels_ref.step_loop``).  The call writes none of its
@@ -81,6 +83,8 @@ def make_step_kernel(system: System, maps: FastMaps, ex_btype: int, *,
     np_dtype = np.float32 if system.dtype == "float32" else np.float64
     bad_cut, trig_cut = skin_cuts(system)
     lf = langevin
+    if g is None:
+        g = GridConsts.build(system, maps, "cuda")
     L = StepConsts(
         g=g, C=StencilConsts(system, np_dtype),
         S=SpringConsts(system, ex_btype) if ex_btype > 0 else None,
@@ -92,14 +96,13 @@ def make_step_kernel(system: System, maps: FastMaps, ex_btype: int, *,
             np.sqrt(mass) * np.sqrt(24.0 * units.boltz / (lf.damp * dt)
                                     / units.mvv2e) / units.ftm2v),
         zero=lf is not None and lf.zero, np_dtype=np_dtype)
-    if interpret:
-        def call(*args, **kw):
-            return R.step_loop(L, *args, **kw)
-        return call
-
-    loop = K.StepLoop(L)
+    loop = None if interpret else K.StepLoop(L)
 
     def call(gx, *args, **kw):
+        if len(args) < 17:  # energy, the 17th after gx, not given
+            kw.setdefault("energy", energy)
+        if interpret:
+            return R.step_loop(L, gx, *args, **kw)
         if gx.device.type != "cuda":
             raise ValueError(f"make_step_kernel: the kernels run on CUDA "
                              f"tensors, not on {gx.device} (interpret=True "

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..ops.cells import cell_coords, const, wrap_positions
-from ..state import FLAG_CELL_OVERFLOW, extruder_partner
+from ..state import FLAG_CELL_OVERFLOW, _partner_table
 from ..system import System
 from .kernels_ref import _FAR
 from .maps import FastMaps, HaloImages
@@ -177,7 +177,7 @@ def place(system: System, maps: FastMaps, g: GridConsts, x, v, f,
     gv = planes9[3:6].reshape(3, cap, P).contiguous()
     gf = planes9[6:9].reshape(3, cap, P).contiguous()
 
-    partner = extruder_partner(ex_left, ex_right, n)
+    partner = _partner_table(ex_left, ex_right, n)
     none = torch.full((1,), -1, dtype=partner.dtype, device=dev)
     no_link = torch.zeros(1, dtype=torch.bool, device=dev)
     ints = torch.stack([
@@ -257,7 +257,7 @@ def place_replicas(system: System, maps: FastMaps, g: GridConsts, x, v, f,
     gv = planes9[:, 3:6].contiguous()
     gf = planes9[:, 6:9].contiguous()
 
-    partner = extruder_partner(ex_left, ex_right, n)
+    partner = _partner_table(ex_left, ex_right, n)
     none = torch.full((R, 1), -1, dtype=partner.dtype, device=dev)
     no_link = torch.zeros(1, dtype=torch.bool, device=dev)
     ints = torch.stack([

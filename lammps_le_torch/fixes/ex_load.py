@@ -19,9 +19,10 @@ from .config import ExLoad
 from .extrusion import _rsq, scatter_election
 
 
-def make_ex_load_update(system: System, fix: ExLoad, device):
+def make_ex_load_update(system: System, fix: ExLoad, device="cuda"):
     """update(x, types, ex_left, ex_right, occ, key)
-    -> (left, right, types, n_created, flag_bits)."""
+    -> (left, right, types, n_created, flag_bits), its tables on
+    ``device``."""
     n = system.n
     nxt = torch.as_tensor(system.next_bead, dtype=torch.int64, device=device)
     prv = torch.as_tensor(system.prev_bead, dtype=torch.int64, device=device)

@@ -12,8 +12,9 @@ from .config import ExUnload
 from .extrusion import _rsq
 
 
-def make_ex_unload_update(system: System, fix: ExUnload, device):
-    """update(x, ex_left, ex_right, key) -> (left, right, n_broken)."""
+def make_ex_unload_update(system: System, fix: ExUnload, device="cuda"):
+    """update(x, ex_left, ex_right, key) -> (left, right, n_broken), its
+    draws on ``device``."""
     cutsq = fix.cutoff * fix.cutoff
     box = system.box_size
 

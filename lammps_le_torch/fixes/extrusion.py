@@ -46,9 +46,9 @@ def scatter_election(targets, rsq, n: int):
     return best_slot
 
 
-def make_extrusion_update(system: System, fix: Extrusion, device):
+def make_extrusion_update(system: System, fix: Extrusion, device="cuda"):
     """update(x, types, ex_left, ex_right, occ, key)
-    -> (left, right, n_moves, n_released)."""
+    -> (left, right, n_moves, n_released), its tables on ``device``."""
     n = system.n
     nxt = torch.as_tensor(system.next_bead, dtype=torch.int64, device=device)
     prv = torch.as_tensor(system.prev_bead, dtype=torch.int64, device=device)

@@ -38,7 +38,7 @@ from ..ops.cells import system_const
 from ..ops.forces import compute_forces
 from ..ops.pair import NP_DTYPE
 from ..state import (FLAG_NON_FINITE, FLAG_SKIN_VIOLATION, State,
-                     extruder_partner)
+                     extruder_occupancy, extruder_partner)
 from ..system import System
 from .simulation import Simulation
 
@@ -85,7 +85,7 @@ def _force_pass(state: State, sim: Simulation, energy: bool = True):
     system = sim.system
     partner = ex_l = ex_r = None
     if sim.ex_btype > 0:
-        partner = extruder_partner(state.ex_left, state.ex_right, system.n)
+        partner = extruder_partner(state, system.n)
         ex_l, ex_r = state.ex_left, state.ex_right
     return compute_forces(state.x, state.type, state.nbr, system,
                           ex_left=ex_l, ex_right=ex_r,
@@ -332,8 +332,7 @@ def make_step(sim: Simulation, groups: Optional[dict] = None, *,
                 last[2] = nb
                 state = state.replace(n_unloads=state.n_unloads + nb)
             else:
-                occ = extruder_partner(state.ex_left, state.ex_right,
-                                       system.n) >= 0
+                occ = extruder_occupancy(state, system.n)
                 out = update(state.x, state.type, state.ex_left,
                              state.ex_right, occ, key)
                 if isinstance(f, Extrusion):
@@ -446,21 +445,27 @@ def host_row(row: ThermoSample) -> ThermoSample:
 
 def run(sim: Simulation, state: State, nsteps: int,
         groups: Optional[dict] = None, thermo_every: int = 0,
-        thermo_callback=None, boundary_every: int = 0,
-        boundary_callback=None):
+        thermo_callback=None, max_segment: int = 500,
+        boundary_every: int = 0, boundary_callback=None):
     """Drive ``nsteps`` on the state's device, returning (State, thermo
     rows) (verlet.py:631): setup, then the steps; a row (values on the
     host) after setup, at every absolute multiple of ``thermo_every`` and
     at the run's end (thermo.cpp:324), each also passed with the State to
     ``thermo_callback``; ``boundary_callback(State)`` at absolute
     multiples of ``boundary_every`` (the dump cadence).  The run reads the
-    card for the start step and key once, and then only for rows."""
+    card for the start step and key once, for rows, and once a
+    ``max_segment`` steps issued since its last read (the reference's
+    bound on the steps of one device call, verlet.py:687-694): no step
+    waits on the card otherwise, and the results do not depend on it."""
+    if max_segment < 1:
+        raise ValueError(f"run: max_segment {max_segment} < 1")
     system = sim.system
     step = make_step(sim, groups, device=state.x.device)
     state = setup(sim, state)
     begin = int(state.step)
     key_words = tuple(state.key.tolist())
     rows = []
+    issued = 0
 
     def emit(state):
         row = host_row(thermo_row(state, system))
@@ -476,9 +481,14 @@ def run(sim: Simulation, state: State, nsteps: int,
     for k in range(1, nsteps + 1):
         step_abs = begin + k
         state = step(state, step_abs, key_words, begin, begin + nsteps)
+        issued += 1
         if thermo_every > 0 and (step_abs % thermo_every == 0
                                  or k == nsteps):
             emit(state)
+            issued = 0
+        elif issued == max_segment and k < nsteps:
+            int(state.step)
+            issued = 0
         if boundary_callback and boundary_every > 0 \
                 and step_abs % boundary_every == 0:
             boundary_callback(state)

@@ -1,0 +1,1 @@
+from . import bond, cells, forces, pair  # noqa: F401

@@ -116,11 +116,11 @@ def init_state(system: System, x, v=None, types=None, seed: int = 0,
     )
 
 
-def extruder_partner(ex_left: torch.Tensor, ex_right: torch.Tensor,
-                     n: int) -> torch.Tensor:
-    """Per-bead extruder partner index, or -1 (state.py:127): one scatter
-    per side into an (N+1,) buffer whose last entry takes the inactive
-    slots' writes and is dropped.  Any leading (replica) axes."""
+def _partner_table(ex_left: torch.Tensor, ex_right: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """Per-bead extruder partner index, or -1, from the extruder tables:
+    one scatter per side into an (N+1,) buffer whose last entry takes the
+    inactive slots' writes and is dropped.  Any leading (replica) axes."""
     active = ex_left >= 0
     safe_l = torch.where(active, ex_left, n)
     safe_r = torch.where(active, ex_right, n)
@@ -132,10 +132,16 @@ def extruder_partner(ex_left: torch.Tensor, ex_right: torch.Tensor,
     return partner[..., :n]
 
 
+def extruder_partner(state: State, n: int) -> torch.Tensor:
+    """(N,) per-bead extruder partner index, or -1 (state.py:127): with at
+    most one anchor a bead, one table answers "is this bead occupied" and
+    "who is it bonded to"."""
+    return _partner_table(state.ex_left, state.ex_right, n)
+
+
 def extruder_occupancy(state: State, n: int) -> torch.Tensor:
-    """(N,) bool: the bead carries an extruder anchor (state.py:146), from
-    ``extruder_partner`` on the state's extruder tables."""
-    return extruder_partner(state.ex_left, state.ex_right, n) >= 0
+    """(N,) bool: the bead carries an extruder anchor (state.py:146)."""
+    return extruder_partner(state, n) >= 0
 
 
 def nbr_from_arrays(d: dict, device="cuda"):

@@ -440,7 +440,7 @@ def test_slab_resident_engine_on_card(dev, sp):
         st = chip_smoke.seed_extruders(st, 20, 100, system.max_extruders)
         mesh = [d] * sp
         seg = make_sharded_segment(sim, mesh)
-        fs = to_fast(st, sim, seg.kernel_fn)
+        fs = to_fast(st, sim, kernel_fn=seg.kernel_fn)
         b = fs.step
         K.reset_launches()
         sfs = seg(shard_fast_state(fs, mesh), b, 40, b, b + 40)

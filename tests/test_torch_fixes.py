@@ -15,7 +15,7 @@ import lammps_le_torch.fixes as tf
 from lammps_le_torch.fixes.ex_load import make_ex_load_update
 from lammps_le_torch.fixes.ex_unload import make_ex_unload_update
 from lammps_le_torch.fixes.extrusion import make_extrusion_update
-from lammps_le_torch.state import extruder_partner
+from lammps_le_torch.state import _partner_table
 from lammps_le_tpu.fixes.ex_load import make_ex_load_update as ref_load
 from lammps_le_tpu.fixes.ex_unload import make_ex_unload_update as ref_unload
 from lammps_le_tpu.fixes.extrusion import make_extrusion_update as ref_ext
@@ -59,7 +59,7 @@ def _occ(system, left, right):
         type("S", (), {"ex_left": jnp.asarray(left, jnp.int32),
                        "ex_right": jnp.asarray(right, jnp.int32)})(),
         system.n)
-    got = extruder_partner(torch.tensor(left), torch.tensor(right), system.n)
+    got = _partner_table(torch.tensor(left), torch.tensor(right), system.n)
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
     return np.asarray(want) >= 0
 

@@ -24,7 +24,7 @@ import lammps_le_tpu.state as jstate
 from lammps_le_torch.ops import (angle as t_angle, bond as t_bond,
                                  cells as t_cells, forces as t_forces,
                                  grid as t_grid, pair as t_pair)
-from lammps_le_torch.state import extruder_partner, nbr_from_arrays
+from lammps_le_torch.state import _partner_table, nbr_from_arrays
 from lammps_le_tpu.ops import (angle as j_angle, bond as j_bond,
                                cells as j_cells, forces as j_forces,
                                grid as j_grid, pair as j_pair)
@@ -145,7 +145,7 @@ def test_lj_force_nbr(case):
     tl, tr = case.table()
     tn = nbr_from_arrays({"idx": nbr.idx, "x_ref": case.x}, "cpu")
     tf, te = t_pair.lj_force_nbr(case.xt, case.tt, tn, system,
-                                 extruder_partner(tl, tr, system.n))
+                                 _partner_table(tl, tr, system.n))
     _close_f(f, tf)
     _close_e(e, te)
 
@@ -277,7 +277,7 @@ def test_compute_forces(case, grid_ref, mode):
         if system.neighbor.use_cells:
             nbr = t_cells.build_neighbor_list(case.xt, system)[0]
     got = t_forces.compute_forces(case.xt, case.tt, nbr, system, tl, tr, 1,
-                                  extruder_partner(tl, tr, system.n), energy)
+                                  _partner_table(tl, tr, system.n), energy)
     _close_f(out.f, got.f)
     _close_e(out.epair, got.epair)
     _close_e(out.ebond, got.ebond)
@@ -298,7 +298,7 @@ def test_compute_forces_f32():
     out = _ref(ref, c.x, c.types, *c.jtable())
     tl, tr = c.table()
     got = t_forces.compute_forces(c.xt, c.tt, None, system, tl, tr, 1,
-                                  extruder_partner(tl, tr, system.n))
+                                  _partner_table(tl, tr, system.n))
     assert got.f.dtype == torch.float32
     _close_f(out.f, got.f, rel=1e-5)
     _close_e(out.epair, got.epair, 1e-3)

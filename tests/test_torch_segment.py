@@ -15,6 +15,7 @@ tally and gjf among it."""
 
 import dataclasses
 import functools
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -96,7 +97,7 @@ def _run_both(nsteps, energy_every, pallas=False, kernel_fn=None,
     else:
         tseg = make_sharded_segment(sim, mesh)
         kernel_fn = tseg.kernel_fn
-    ft = to_fast(state_from_arrays(start, "cpu"), sim, kernel_fn)
+    ft = to_fast(state_from_arrays(start, "cpu"), sim, kernel_fn=kernel_fn)
     if mesh is None:
         ft = tseg(ft, b, nsteps, b, b + nsteps)
     else:
@@ -209,28 +210,34 @@ def test_to_fast_round_trip():
 
 
 @pytest.mark.parametrize("change", [
-    dict(fix=tf.Langevin(1.0, 1.0, 1.0, tally=True)),
-    dict(fix=tf.Langevin(1.0, 1.0, 1.0, gjf="vhalf")),
-    dict(fix=tf.NVE(group="chain")),
+    dict(fix="Langevin", kw=dict(tally=True)),
+    dict(fix="Langevin", kw=dict(gjf="vhalf")),
+    dict(fix="NVE", kw=dict(group="chain")),
     dict(fix=None),
     dict(special_lj=(0.0, 0.5, 1.0)),
 ])
 def test_block_reason_raises(change):
+    """fast_block_reason gives the reference's reason on the same
+    Simulation, and make_fast_segment refuses it."""
     system, _ = melt_arrays()
-    fixes = [tf.NVE(), tf.Langevin(1.0, 1.0, 1.0)]
-    if "fix" in change:
-        fixes = [tf.NVE()] if change["fix"] is None else [change["fix"]]
+
+    def fixes(mod):
+        if "fix" not in change:
+            return (mod.NVE(), mod.Langevin(1.0, 1.0, 1.0))
         if change["fix"] is None:
-            fixes = []
-        elif not isinstance(change["fix"], tf.NVE):
-            fixes = [tf.NVE(), change["fix"]]
-    else:
-        system = dataclasses.replace(system, **change)
-    sim = Simulation(system=system, dt=0.005, fixes=tuple(fixes),
-                     ex_btype=2)
-    with pytest.raises(NotImplementedError):
-        fast_block_reason(sim)
-    with pytest.raises(NotImplementedError):
+            return ()
+        if change["fix"] == "NVE":
+            return (mod.NVE(**change["kw"]),)
+        return (mod.NVE(), mod.Langevin(1.0, 1.0, 1.0, **change["kw"]))
+
+    if "special_lj" in change:
+        system = dataclasses.replace(system, special_lj=change["special_lj"])
+    rsim, sim = (S(system=system, dt=0.005, fixes=fixes(mod), ex_btype=2)
+                 for S, mod in ((RefSimulation, jf), (Simulation, tf)))
+    want = ref.fast_block_reason(rsim)
+    assert want is not None
+    assert fast_block_reason(sim) == want
+    with pytest.raises(NotImplementedError, match=re.escape(want)):
         make_fast_segment(sim, device="cpu")
 
 
@@ -303,7 +310,7 @@ st, _ = run_fast(sim, st, 2,
                  kernel_fn=make_pallas_kernel(system, fast_maps(system), 2))
 assert shardable(system, fast_maps(system), ["cpu"] * 2) is None
 seg = make_sharded_segment(sim, ["cpu"] * 2)
-fs = to_fast(st, sim, seg.kernel_fn)
+fs = to_fast(st, sim, kernel_fn=seg.kernel_fn)
 fs = gather_fast_state(seg(shard_fast_state(fs, ["cpu"] * 2), 4, 2, 4, 6))
 st = from_fast(fs, system)
 assert int(st.step) == 6 and bool(torch.isfinite(st.x).all())

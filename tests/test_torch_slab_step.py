@@ -77,7 +77,8 @@ def test_slab_segment_matches_whole_state(sp, lan):
     mesh = ["cpu"] * sp
     seg = make_sharded_segment(sim, mesh)
     assert seg.shard_reason is None
-    start = to_fast(start_state(), sim, seg.kernel_fn, _groups(lan))
+    start = to_fast(start_state(), sim, _groups(lan),
+                    kernel_fn=seg.kernel_fn)
     whole, _ = make_fast_segment(sim, pallas=False, kernel_fn=seg.kernel_fn,
                                  device="cpu")
     want, fired = _stepped(whole, dataclasses.replace(start))
@@ -105,7 +106,7 @@ def test_sharded_segment_takes_the_slab_resident_state():
     state of another slab count ValueError."""
     sim = _sim("all")
     seg = make_sharded_segment(sim, ["cpu"] * 2)
-    fs = to_fast(start_state(), sim, seg.kernel_fn)
+    fs = to_fast(start_state(), sim, kernel_fn=seg.kernel_fn)
     with pytest.raises(TypeError, match="shard_fast_state"):
         seg(fs, fs.step, 1, fs.step, fs.step + 1)
     with pytest.raises(ValueError, match="4 slabs"):
